@@ -44,3 +44,88 @@ def test_fused_p_sample_kernel_matches_plain(cuda, dtype):
         assert float((got - want).abs().max()) <= 1e-4
         assert torch.equal(tok, want_tok)
     assert fs.fused_p_sample.launches == launches + 3
+
+
+# ---------------------------------------------------------------------------
+# K3-K5 (int8 blocks) and K2 (fused head + sampler)
+# ---------------------------------------------------------------------------
+
+# (batch, sequence, width, heads, condition length, MLP width): a small shape
+# with a head width of 32, and the flagship's
+SHAPES = {"small": (2, 40, 128, 4, 16, 512), "flagship": (8, 265, 1024, 16, 77, 4096)}
+# bf16 block outputs; an int8 flip upstream (the f32 LayerNorm sums run in
+# another order) moves an output by a few bf16 ulps
+BLOCK_TOL = 2e-2
+
+
+def _block_inputs(dev, shape, w4):
+    from text_to_sound_synthesis_torch.ops.quant import quantize_weight, quantize_weight_w4
+
+    B, L, D, H, S, Dh = shape
+    g = torch.Generator(dev).manual_seed(7)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale
+    q = quantize_weight_w4 if w4 else quantize_weight
+    dense = lambda n, k: q(rnd(n, k, scale=0.03 * (1024 / k) ** 0.5), rnd(n, scale=0.05))
+    mod = rnd(2, D, scale=0.2)
+    ln = mod.clone()
+    ln[0] += 1.0
+    return dict(x=rnd(B * L, D).bfloat16(), mod=mod, ln=ln,
+                ck=rnd(B * S, D).bfloat16(), cv=rnd(B * S, D).bfloat16(),
+                attn=[dense(D, D) for _ in range(4)], cross=[dense(D, D) for _ in range(2)],
+                mlp=[dense(Dh, D), dense(D, Dh)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_block_kernels_match_plain(cuda, shape, w4, static):
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    B, L, D, H, S, Dh = SHAPES[shape]
+    d = _block_inputs(cuda, SHAPES[shape], w4)
+    ss = (0.035, 0.02) if static else None
+    cases = [
+        (ib.self_attn_block, ib.self_attn_block_reference, (d["x"], d["mod"], *d["attn"]),
+         dict(batch=B, n_head=H, q_valid=L - 3)),
+        (ib.cross_attn_block, ib.cross_attn_block_reference,
+         (d["x"], d["mod"], d["ck"], d["cv"], *d["cross"]), dict(batch=B, n_head=H, kv_valid=S - 4)),
+        (ib.mlp_block, ib.mlp_block_reference, (d["x"], d["ln"], *d["mlp"]), {}),
+    ]
+    for kernel, plain, args, kw in cases:
+        launches = kernel.launches
+        got = kernel(*args, static_s=ss, w4=w4, **kw)
+        want = plain(*args, static_s=ss, w4=w4, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == launches + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
+        if static and kernel is ib.mlp_block:
+            # no row max and no softmax to sum in another order: bit for bit
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+def test_fused_head_sample_kernel_matches_plain(cuda, shape):
+    """Posterior within 5e-3 (an LN output may round to the other bf16
+    neighbour before the head), at most 0.1 % of tokens differ."""
+    B, L, D, _, _, _ = SHAPES[shape]
+    M, K = B * L, 257
+    g = torch.Generator(cuda).manual_seed(8)
+    x = (torch.randn((M, D), generator=g, device=cuda) * 2).bfloat16()
+    norm = torch.stack([1 + 0.1 * torch.randn(D, generator=g, device=cuda),
+                        0.1 * torch.randn(D, generator=g, device=cuda)])
+    hw = (torch.randn((D, K - 1), generator=g, device=cuda) * 0.1).bfloat16()
+    hb = 0.1 * torch.randn(K - 1, generator=g, device=cuda)
+    xt = torch.randint(0, K, (M,), generator=g, device=cuda, dtype=torch.int32)
+    noise = dd.gumbel_from_uniform(torch.rand((M, K), generator=g, device=cuda))
+    c = fs.step_coeffs(dd.make_schedule(100, K, device=cuda), 50).as_array().contiguous()
+    launches = fs.fused_head_sample.launches
+    want_tok, want = fs.head_sample_reference(x, xt, norm, hw, hb, c, gumbel=noise)
+    tok, got = fs.fused_head_sample(x, xt, norm, hw, hb, c, 1, 2, gumbel=noise,
+                                    return_log_probs=True)
+    torch.cuda.synchronize()
+    assert fs.fused_head_sample.launches == launches + 1
+    assert float((got - want).abs().max()) <= 5e-3
+    assert int((tok != want_tok).sum()) <= max(1, M // 1000)

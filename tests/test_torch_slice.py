@@ -266,7 +266,16 @@ def test_tokenizer_is_built_at_first_use():
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys, text_to_sound_synthesis_torch; "
+    """The package and every module of the port, the int8 serving engine's
+    included, import without JAX."""
+    mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
+            "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
+            "text_to_sound_synthesis_torch.models.diffusion.calibrate",
+            "text_to_sound_synthesis_torch.ops.quant", "text_to_sound_synthesis_torch.ops.attention",
+            "text_to_sound_synthesis_torch.ops.int8_block",
+            "text_to_sound_synthesis_torch.ops.fused_sampler",
+            "text_to_sound_synthesis_torch.convert.from_jax"]
+    code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

@@ -24,11 +24,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.quant import QuantizedWeight
+
 __all__ = [
     "clip_text_state_dict", "diffusion_state_dict", "vqgan_state_dict",
     "melgan_generator_state_dict",
     "load_clip_text", "load_diffusion", "load_vqgan", "load_melgan_generator",
-    "load_diffsound",
+    "load_diffsound", "load_int8_engine",
 ]
 
 
@@ -226,3 +228,39 @@ def load_diffsound(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
         load_clip_text(model.cond, params["cond"])
     load_diffusion(model.diffusion, params["diffusion"])
     return model
+
+
+# -- the int8 serving engine ------------------------------------------------------------
+
+def _t(a, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+
+
+def _qweight(w):
+    """JAX QuantizedWeight (w_q (K, N), scale (1, N), bias (1, N)) -> the
+    port's (N, K) layout; the int8 values are copied exactly."""
+    w_q = torch.from_numpy(np.ascontiguousarray(np.asarray(w.w_q, dtype=np.int8).T))
+    return QuantizedWeight(w_q, _t(w.scale).reshape(-1), _t(w.bias).reshape(-1))
+
+
+def load_int8_engine(qp: Any, device: Any = "cpu"):
+    """A JAX ``Int8Denoiser`` (its leaves as arrays, e.g. after
+    ``jax.device_get``) -> the port's ``Int8Denoiser`` with the same int8
+    values, scales, ``act_scales`` and ``weight_bits``."""
+    from ..models.diffusion.int8_runtime import DENSE_FIELDS, Int8Denoiser, Int8Layer
+
+    layers = []
+    for lyr in qp.layers:
+        dense = {f: _qweight(getattr(lyr, f)) for f in DENSE_FIELDS}
+        layers.append(Int8Layer(
+            **dense, ln2_mod=_t(lyr.ln2_mod), ada1=_t(lyr.ada1), ada2=_t(lyr.ada2),
+            ck_w=_t(lyr.ck_w, torch.bfloat16), ck_b=_t(lyr.ck_b),
+            cv_w=_t(lyr.cv_w, torch.bfloat16), cv_b=_t(lyr.cv_b)))
+    act = qp.act_scales
+    engine = Int8Denoiser(
+        layers, tok_emb=_t(qp.tok_emb, torch.bfloat16), pos_emb=_t(qp.pos_emb, torch.bfloat16),
+        norm_out=_t(qp.norm_out), head_w=_t(qp.head_w, torch.bfloat16), head_b=_t(qp.head_b),
+        n_head=int(qp.n_head), seq_len=int(qp.seq_len), num_timesteps=int(qp.num_timesteps),
+        act_scales=None if act is None else tuple(tuple(float(s) for s in row) for row in act),
+        weight_bits=int(qp.weight_bits))
+    return engine.to(device)

@@ -3,7 +3,9 @@
 Port of ``text_to_sound_synthesis_tpu/models/diffsound.py`` (reference
 ``DALLE``, ``Diffsound/sound_synthesis/modeling/models/dalle_spec.py``) for the
 bf16 generation path: caption BPE ids -> CLIP text tower -> index-carrying
-reverse sampler (fused sampler kernel per step) -> VQGAN ``decode_code``.
+reverse sampler (fused sampler kernel per step) -> VQGAN ``decode_code``; and
+for the int8 serving path: ``quantize_for_serving`` -> ``calibrate_serving_engine``
+-> ``generate_int8`` (``models/diffusion/int8_runtime.py``).
 
 Unlike the JAX package's plain object over three parameter trees, this is one
 ``nn.Module`` laid out as the reference's ``DALLE``: ``content_codec`` (VQModel),
@@ -170,6 +172,68 @@ class Diffsound(nn.Module):
             self.transformer, cond_emb, generator=generator, truncation_r=truncation_r,
             skip_step=skip_step, content_tokens=content_tokens, filter_ratio=filter_ratio,
             noise=noise)
+        mel = self.decode_tokens(tokens)
+        if return_tokens:
+            return mel, tokens
+        return mel
+
+    # -- int8 serving mode ----------------------------------------------------
+
+    def quantize_for_serving(self, *, weight_bits: int = 8):
+        """The denoiser -> int8 serving engine (``weight_bits=4``: W4A8,
+        nibble-packed weights), on the model's device. The codec and the
+        text tower stay as they are."""
+        from .diffusion.int8_runtime import quantize_denoiser
+
+        tcfg = (self.diffusion.transformer_config or {}).get("params", {})
+        return quantize_denoiser(self.diffusion, n_head=int(tcfg.get("n_head", 16)),
+                                 seq_len=self.diffusion.content_seq_len,
+                                 num_timesteps=self.diffusion.diffusion_step,
+                                 weight_bits=weight_bits)
+
+    @staticmethod
+    def _int8_sample_type(sample_type: str):
+        """(truncation_r, skip_step) of a top-r sample type; raises for the
+        rest, as the JAX package does."""
+        head = sample_type.split(",")[0]
+        if not (head.startswith("top") and head.endswith("r")):
+            raise ValueError(
+                f"int8 serving supports top-r truncation sampling, got {sample_type!r}")
+        r, _, skip_step, resample_q = parse_sample_type(sample_type)
+        if resample_q:
+            raise ValueError("int8 serving does not support q-resample wrappers")
+        return r, skip_step
+
+    @torch.no_grad()
+    def calibrate_serving_engine(self, qp, generator: torch.Generator,
+                                 cond_tokens: torch.Tensor, *, sample_type: str = "top0.85r",
+                                 margin: float = 1.0):
+        """Static-scale calibration: run the dynamic engine's sampler on
+        ``cond_tokens`` (representative captions), record the per-site maxima
+        and set the engine's ``act_scales`` (in place; returns the engine).
+        A W4 engine is calibrated on its unpacked twin."""
+        from .diffusion.calibrate import calibrate_act_scales
+
+        r, skip_step = self._int8_sample_type(sample_type)
+        cond_emb = self.embed_condition(cond_tokens)
+        qp.act_scales = calibrate_act_scales(
+            qp, self.diffusion.schedule(cond_emb.device), cond_emb, generator=generator,
+            truncation_r=r, skip_step=skip_step, margin=margin)
+        return qp
+
+    @torch.no_grad()
+    def generate_int8(self, qp, generator: torch.Generator, cond_tokens: torch.Tensor, *,
+                      sample_type: str = "top0.85r", return_tokens: bool = False,
+                      noise: Optional[torch.Tensor] = None):
+        """``generate`` on the int8 serving engine ``qp`` (top-r sampling only):
+        BPE ids (B, 77) -> mel (B, H, W, 1). ``noise`` as in ``generate``."""
+        from .diffusion.int8_runtime import sample_tokens_int8
+
+        r, skip_step = self._int8_sample_type(sample_type)
+        cond_emb = self.embed_condition(cond_tokens)
+        tokens = sample_tokens_int8(qp, self.diffusion.schedule(cond_emb.device), cond_emb,
+                                    generator=generator, truncation_r=r, skip_step=skip_step,
+                                    noise=noise)
         mel = self.decode_tokens(tokens)
         if return_tokens:
             return mel, tokens

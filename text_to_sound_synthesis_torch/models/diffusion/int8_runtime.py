@@ -1,0 +1,266 @@
+"""Int8 (W8A8 / W4A8) serving engine for the Diffsound denoiser (PyTorch port).
+
+Port of ``text_to_sound_synthesis_tpu/models/diffusion/int8_runtime.py``: the
+quantized-inference engine of the flagship ``Text2SpecTransformer``. Each
+layer runs as three block kernels (``ops/int8_block.py``: K4 self-attention,
+K5 cross-attention, K3 MLP) and each sampler step ends in the fused
+LN + head + sampler kernel (``ops/fused_sampler.py::fused_head_sample``, K2).
+Weights are symmetric per output channel, int8 or nibble-packed int4
+(``weight_bits=4``); activations per-row dynamic, or static per-tensor once
+``act_scales`` holds calibrated scales (``calibrate.py``).
+
+Differences from the JAX engine, on purpose:
+- the kernels take the unpadded sequence (no ``L_pad``), and the TPU
+  schedule choices (``_pad_plan``'s ``block_m``, ``rows_per_program``,
+  ``mha_mode``, the ``T2S_*`` environment switches) have no counterpart;
+- the condition's K/V are kept flat, (B*S, D) per layer, as the kernels read
+  them;
+- there is one path: the block wrappers launch the kernels for CUDA tensors
+  and run their plain twins for CPU tensors;
+- logits are f32 on every path, as the fused tail computes them (the JAX
+  engine's non-kernel path rounds them to bf16).
+``sample_tokens_int8_sharded`` waits for the multi-GPU work.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ...ops import fused_sampler as fs
+from ...ops import int8_block as ib
+from ...ops.quant import QuantizedWeight, quantize_weight, quantize_weight_w4, unpack_weight_w4
+
+__all__ = ["Int8Dense", "Int8Layer", "Int8Denoiser", "quantize_denoiser", "unpack_denoiser",
+           "precompute_cond_kvs", "int8_backbone_logits", "sample_tokens_int8"]
+
+DENSE_FIELDS = ("q", "k", "v", "proj", "crossq", "crossproj", "fc1", "fc2")
+ActScales = Optional[Tuple[Tuple[float, ...], ...]]
+
+
+def _own(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A buffer of its own: detached from any parameter it came from."""
+    return t.detach().to(dtype).contiguous().clone()
+
+
+class Int8Dense(nn.Module):
+    """Buffers of one quantized dense: ``w_q`` (N, K) int8 or (N, K/2) packed
+    W4, ``scale`` and ``bias`` (N,) f32."""
+
+    def __init__(self, w: QuantizedWeight):
+        super().__init__()
+        self.register_buffer("w_q", _own(w.w_q, torch.int8))
+        self.register_buffer("scale", _own(w.scale, torch.float32))
+        self.register_buffer("bias", _own(w.bias, torch.float32))
+
+    @property
+    def qw(self) -> QuantizedWeight:
+        return QuantizedWeight(self.w_q, self.scale, self.bias)
+
+
+class Int8Layer(nn.Module):
+    """One SelfCrossBlock's engine: eight quantized denses and the f32/bf16
+    tensors the blocks read around them."""
+
+    def __init__(self, *, q, k, v, proj, crossq, crossproj, fc1, fc2,
+                 ln2_mod, ada1, ada2, ck_w, ck_b, cv_w, cv_b):
+        super().__init__()
+        for name, w in zip(DENSE_FIELDS, (q, k, v, proj, crossq, crossproj, fc1, fc2)):
+            setattr(self, name, Int8Dense(w))
+        self.register_buffer("ln2_mod", _own(ln2_mod, torch.float32))   # (2, D) gamma; beta
+        self.register_buffer("ada1", _own(ada1, torch.float32))         # (T, 2D) ln1 table
+        self.register_buffer("ada2", _own(ada2, torch.float32))         # (T, 2D) ln1_1 table
+        self.register_buffer("ck_w", _own(ck_w, torch.bfloat16))      # (Dc, D) cross key
+        self.register_buffer("ck_b", _own(ck_b, torch.float32))         # (D,)
+        self.register_buffer("cv_w", _own(cv_w, torch.bfloat16))      # (Dc, D) cross value
+        self.register_buffer("cv_b", _own(cv_b, torch.float32))         # (D,)
+
+
+class Int8Denoiser(nn.Module):
+    """The engine: per-layer ``Int8Layer``s plus the embedding and the head.
+    ``n_head``, ``seq_len``, ``num_timesteps``, ``act_scales`` (per-layer
+    6-tuples of floats: attn_in, attn_out, cross_in, cross_out, mlp_in,
+    mlp_mid; None = dynamic) and ``weight_bits`` (8 or 4) are plain
+    attributes."""
+
+    def __init__(self, layers: Sequence[Int8Layer], *, tok_emb, pos_emb, norm_out, head_w,
+                 head_b, n_head: int, seq_len: int, num_timesteps: int,
+                 act_scales: ActScales = None, weight_bits: int = 8):
+        super().__init__()
+        if weight_bits not in (8, 4):
+            raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
+        self.layers = nn.ModuleList(layers)
+        self.register_buffer("tok_emb", _own(tok_emb, torch.bfloat16))    # (K, D)
+        self.register_buffer("pos_emb", _own(pos_emb, torch.bfloat16))    # (L, D)
+        self.register_buffer("norm_out", _own(norm_out, torch.float32))     # (2, D)
+        self.register_buffer("head_w", _own(head_w, torch.bfloat16))      # (D, K-1)
+        self.register_buffer("head_b", _own(head_b, torch.float32))         # (K-1,)
+        self.n_head, self.seq_len, self.num_timesteps = n_head, seq_len, num_timesteps
+        self.act_scales = act_scales
+        self.weight_bits = weight_bits
+
+    def _fields(self) -> dict:
+        return dict(tok_emb=self.tok_emb, pos_emb=self.pos_emb, norm_out=self.norm_out,
+                    head_w=self.head_w, head_b=self.head_b, n_head=self.n_head,
+                    seq_len=self.seq_len, num_timesteps=self.num_timesteps,
+                    act_scales=self.act_scales, weight_bits=self.weight_bits)
+
+
+def _ada_table(ln: nn.Module, num_steps: int) -> torch.Tensor:
+    """All-timestep AdaLN modulation linear(silu(emb(t))) in f32, (T, 2D)."""
+    emb = ln.emb(torch.arange(num_steps, device=ln.linear.weight.device)).float()
+    return nn.functional.silu(emb) @ ln.linear.weight.float().T + ln.linear.bias.float()
+
+
+def quantize_denoiser(model: nn.Module, *, n_head: int, seq_len: int, num_timesteps: int,
+                      weight_bits: int = 8) -> Int8Denoiser:
+    """The port's ``DiscreteDiffusion`` (or its ``Text2SpecTransformer``) ->
+    the int8 engine, on the model's device. ``weight_bits=4`` stores the eight
+    dense weights of each layer nibble-packed (W4A8)."""
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
+    tr = model.transformer if hasattr(model, "diffusion_step") else model
+    quant = quantize_weight if weight_bits == 8 else quantize_weight_w4
+
+    def qw(lin: nn.Linear) -> QuantizedWeight:
+        return quant(lin.weight.float(), lin.bias.float())
+
+    with torch.no_grad():
+        layers = []
+        for b in tr.blocks:
+            layers.append(Int8Layer(
+                q=qw(b.attn1.query), k=qw(b.attn1.key), v=qw(b.attn1.value),
+                proj=qw(b.attn1.proj), crossq=qw(b.attn2.query), crossproj=qw(b.attn2.proj),
+                fc1=qw(b.mlp[0]), fc2=qw(b.mlp[2]),
+                ln2_mod=torch.stack([b.ln2.weight, b.ln2.bias]).float(),
+                ada1=_ada_table(b.ln1, num_timesteps), ada2=_ada_table(b.ln1_1, num_timesteps),
+                ck_w=b.attn2.key.weight.T, ck_b=b.attn2.key.bias,
+                cv_w=b.attn2.value.weight.T, cv_b=b.attn2.value.bias))
+        emb = tr.content_emb
+        D = emb.emb.weight.shape[-1]
+        pos = (emb.height_emb.weight.float()[:, None, :]
+               + emb.width_emb.weight.float()[None, :, :]).reshape(-1, D)
+        head = tr.to_logits
+        return Int8Denoiser(
+            layers, tok_emb=emb.emb.weight, pos_emb=pos[:seq_len],
+            norm_out=torch.stack([head[0].weight, head[0].bias]).float(),
+            head_w=head[1].weight.T, head_b=head[1].bias, n_head=n_head, seq_len=seq_len,
+            num_timesteps=num_timesteps, weight_bits=weight_bits)
+
+
+def unpack_denoiser(qp: Int8Denoiser) -> Int8Denoiser:
+    """W4 engine -> int8 engine with the same values (the plain twin of the
+    kernels' in-register unpack); an int8 engine is returned as it is."""
+    if qp.weight_bits == 8:
+        return qp
+    layers = []
+    for lyr in qp.layers:
+        dense = {f: unpack_weight_w4(getattr(lyr, f).qw) for f in DENSE_FIELDS}
+        rest = {n: getattr(lyr, n) for n in ("ln2_mod", "ada1", "ada2", "ck_w", "ck_b",
+                                             "cv_w", "cv_b")}
+        layers.append(Int8Layer(**dense, **rest))
+    return Int8Denoiser(layers, **{**qp._fields(), "weight_bits": 8})
+
+
+def precompute_cond_kvs(qp: Int8Denoiser, cond_emb: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(B, S, Dc) condition -> per-layer cross-attention K/V, flat (B*S, D)
+    bf16 (a plain bf16 matmul: bf16 output, bf16 bias add)."""
+    cond = cond_emb.bfloat16()
+    B, S, _ = cond.shape
+    out = []
+    for lyr in qp.layers:
+        k = cond @ lyr.ck_w + lyr.ck_b.bfloat16()
+        v = cond @ lyr.cv_w + lyr.cv_b.bfloat16()
+        out.append((k.reshape(B * S, -1).contiguous(), v.reshape(B * S, -1).contiguous()))
+    return out
+
+
+def _embed(qp: Int8Denoiser, tokens: torch.Tensor) -> torch.Tensor:
+    B, L = tokens.shape
+    x = qp.tok_emb[tokens.clamp(min=0).long()] + qp.pos_emb[None, :L]   # bf16 sum
+    return x.reshape(B * L, -1)
+
+
+def _layer_mods(qp: Int8Denoiser, t: int):
+    D = qp.tok_emb.shape[-1]
+    return [(lyr.ada1[t].reshape(2, D), lyr.ada2[t].reshape(2, D)) for lyr in qp.layers]
+
+
+def _pair(s):
+    """A layer's (in, out) static scales, or None for dynamic quantization."""
+    return None if s[0] is None else (float(s[0]), float(s[1]))
+
+
+def _int8_backbone_hidden(qp: Int8Denoiser, tokens: torch.Tensor, t: Optional[int], cond_kvs,
+                          *, mods=None) -> torch.Tensor:
+    """Pre-head activations (B*L, D) bf16: the embedding, then per layer
+    K4 -> K5 -> K3. ``mods``: per-layer ((2, D), (2, D)) AdaLN modulations for
+    this step (default: gathered from the tables at ``t``)."""
+    B, L = tokens.shape
+    H = qp.n_head
+    w4 = qp.weight_bits == 4
+    S = cond_kvs[0][0].shape[0] // B
+    mods = _layer_mods(qp, t) if mods is None else mods
+    act_s = qp.act_scales if qp.act_scales is not None else ((None,) * 6,) * len(qp.layers)
+    x = _embed(qp, tokens)
+    for lyr, (ck, cv), (mod1, mod2), ls in zip(qp.layers, cond_kvs, mods, act_s):
+        x = ib.self_attn_block(x, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw, batch=B,
+                               n_head=H, q_valid=L, static_s=_pair(ls[0:2]), w4=w4)
+        x = ib.cross_attn_block(x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw, batch=B,
+                                n_head=H, kv_valid=S, static_s=_pair(ls[2:4]), w4=w4)
+        x = ib.mlp_block(x, lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw, static_s=_pair(ls[4:6]),
+                         w4=w4)
+    return x
+
+
+def int8_backbone_logits(qp: Int8Denoiser, tokens: torch.Tensor, t: int, cond_kvs, *,
+                         mods=None) -> torch.Tensor:
+    """Raw denoiser logits (B, L, K-1) f32 (final LN -> bf16 -> head, f32 sum)."""
+    B, L = tokens.shape
+    x = _int8_backbone_hidden(qp, tokens, t, cond_kvs, mods=mods)
+    return fs.head_logits(x, qp.norm_out, qp.head_w, qp.head_b).reshape(B, L, -1)
+
+
+@torch.no_grad()
+def sample_tokens_int8(
+    qp: Int8Denoiser,
+    sched,
+    cond_emb: torch.Tensor,               # (B, S, Dc)
+    *,
+    generator: torch.Generator,
+    truncation_r: float = 0.0,
+    skip_step: int = 0,
+    noise: Optional[torch.Tensor] = None,   # (n_steps, B, L, K) Gumbel noise in place of draws
+) -> torch.Tensor:
+    """Reverse sampler on the int8 engine; returns (B, L) int32 tokens.
+
+    Per step: the embedding, per layer K4 -> K5 -> K3, then K2 (final LN,
+    head and the sampler step; step ``idx`` keyed on ``(seed_base, idx)``).
+    The condition K/V, the AdaLN modulations of the whole plan and the step
+    coefficients are computed once before the loop."""
+    from .process import _timestep_plan
+
+    device = cond_emb.device
+    K, T, L = qp.tok_emb.shape[0], qp.num_timesteps, qp.seq_len
+    B, D = cond_emb.shape[0], qp.tok_emb.shape[-1]
+    ts, t_post = _timestep_plan(T, T, skip_step)
+    if noise is not None and tuple(noise.shape) != (len(ts), B, L, K):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(len(ts), B, L, K)}")
+    coeffs = fs.step_coeffs(sched, t_post).as_array().contiguous()      # (n_steps, 10)
+    seed_base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                  device=generator.device))
+    kvs = precompute_cond_kvs(qp, cond_emb)
+    tsel = torch.as_tensor(ts, device=device)
+    mods_seq = [(lyr.ada1[tsel].reshape(-1, 2, D), lyr.ada2[tsel].reshape(-1, 2, D))
+                for lyr in qp.layers]
+    tokens = torch.full((B * L,), K - 1, dtype=torch.int32, device=device)   # all-MASK
+    for idx in range(len(ts)):
+        x = _int8_backbone_hidden(qp, tokens.reshape(B, L), None, kvs,
+                                  mods=[(a[idx], b[idx]) for a, b in mods_seq])
+        g = None if noise is None else noise[idx].reshape(B * L, K)
+        tokens = fs.fused_head_sample(x, tokens, qp.norm_out, qp.head_w, qp.head_b,
+                                      coeffs[idx], seed_base, idx,
+                                      truncation_r=truncation_r, gumbel=g)
+    return tokens.reshape(B, L)

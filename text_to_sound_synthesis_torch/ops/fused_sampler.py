@@ -1,4 +1,5 @@
-"""Fused reverse-diffusion sampler step (K1) — plain PyTorch + Hopper CUDA kernel.
+"""Fused reverse-diffusion sampler step (K1) and the int8 engine's fused step
+tail (K2) — plain PyTorch + Hopper CUDA kernels.
 
 Port of ``text_to_sound_synthesis_tpu/ops/fused_sampler.py`` (``StepCoeffs``,
 ``step_coeffs``, ``p_sample_from_indices``, ``fused_p_sample``). Everything in
@@ -12,6 +13,12 @@ a sampler step except the transformer forward:
 semantics. ``fused_p_sample`` launches the hand-written kernel
 ``csrc/fused_sampler.cu`` for a CUDA tensor and takes the plain version only
 for a CPU tensor; there is no fallback between the two.
+
+``fused_head_sample`` (K2, ``csrc/fused_head_sample.cu``) adds the final
+LayerNorm and the logits head in front of the same step, with the logits kept
+in f32; its plain version is ``head_sample_reference``. Both kernels key
+their Philox on ``(seed, step)`` and count on ``(row, class)``, so on the same
+logits K2 draws what K1 draws.
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ import torch
 
 from ..utils.cuda_build import load_library
 from .diffusion import LOG_EPS, MIN_LOGP, DiffusionSchedule, gumbel_from_uniform, log_add_exp
+from .quant import LN_EPS
 
 __all__ = ["StepCoeffs", "step_coeffs", "p_sample_from_indices", "fused_p_sample",
-           "load_kernel"]
+           "load_kernel", "head_sample_reference", "fused_head_sample", "load_head_kernel"]
 
 _BISECT_ITERS = 24
 
@@ -156,9 +164,16 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
+def _cpu_gumbel(shape, seed: int, step: int) -> torch.Tensor:
+    """Gumbel noise for the CPU path, from numpy's Philox keyed on both words
+    (seed, step) as the kernels' Philox is (the bits differ from the card's)."""
+    rng = np.random.Generator(np.random.Philox(key=(seed << 32) | step))
+    return gumbel_from_uniform(torch.from_numpy(rng.random(shape, np.float32)))
+
+
 def _check(name: str, t: torch.Tensor, shape, dtypes, device):
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, logits on {device}")
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype not in dtypes:
@@ -189,9 +204,8 @@ def fused_p_sample(
     if not (0 <= seed < 2**32 and 0 <= step < 2**32):
         raise ValueError(f"seed {seed} and step {step} must fit in 32 bits")
     if logits.device.type == "cpu":
-        if gumbel is None:  # keyed on both words, as the kernel's Philox is
-            rng = np.random.Generator(np.random.Philox(key=(seed << 32) | step))
-            gumbel = gumbel_from_uniform(torch.from_numpy(rng.random((B, L, K), np.float32)))
+        if gumbel is None:
+            gumbel = _cpu_gumbel((B, L, K), seed, step)
         return p_sample_from_indices(logits, xt, coeffs, gumbel=gumbel,
                                      truncation_r=truncation_r,
                                      return_log_probs=return_log_probs)
@@ -225,3 +239,114 @@ def fused_p_sample(
 
 
 fused_p_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: final LayerNorm + logits head + the sampler step
+# ---------------------------------------------------------------------------
+
+def head_logits(x: torch.Tensor, norm_out: torch.Tensor, head_w: torch.Tensor,
+                head_b: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm (f32, eps 1e-6) -> bf16 -> head dot with an f32 sum +
+    bias: (M, D) -> (M, K-1) f32 logits, as K2 computes them."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + LN_EPS)
+    xn = xn * norm_out[0].float() + norm_out[1].float()
+    return xn.bfloat16().float() @ head_w.float() + head_b.float()
+
+
+def head_sample_reference(x, xt, norm_out, head_w, head_b, coeffs, *,
+                          generator: Optional[torch.Generator] = None,
+                          gumbel: Optional[torch.Tensor] = None,
+                          truncation_r: float = 0.0):
+    """Plain version of K2: x (M, D) bf16, xt (M,) tokens, norm_out (2, D),
+    head_w (D, K-1) bf16, head_b (K-1,) -> (tokens (M,) int32, posterior
+    log-probs (M, K) f32). ``gumbel`` (M, K) in place of draws."""
+    logits = head_logits(x, norm_out, head_w, head_b)
+    tokens, post = p_sample_from_indices(
+        logits[None], xt.reshape(1, -1), coeffs, generator=generator,
+        gumbel=None if gumbel is None else gumbel[None], truncation_r=truncation_r,
+        return_log_probs=True)
+    return tokens[0], post[0]
+
+
+@functools.cache
+def load_head_kernel() -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/fused_head_sample.cu``."""
+    lib = load_library("fused_head_sample", ["fused_head_sample.cu"])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.t2s_fused_head_sample.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
+                                          ctypes.c_uint, ctypes.c_uint, P]
+    lib.t2s_fused_head_sample.restype = I
+    lib.t2s_head_sample_max_classes.restype = I
+    lib.t2s_head_sample_max_width.restype = I
+    return lib
+
+
+def fused_head_sample(
+    x: torch.Tensor,            # (M, D) bf16 final backbone activations
+    xt: torch.Tensor,           # (M,) int32 current tokens
+    norm_out: torch.Tensor,     # (2, D) f32: final LayerNorm gamma; beta
+    head_w: torch.Tensor,       # (D, K-1) bf16
+    head_b: torch.Tensor,       # (K-1,) f32
+    coeffs: torch.Tensor,       # (10,) f32, StepCoeffs order
+    seed: int,
+    step: int = 0,
+    *,
+    truncation_r: float = 0.0,
+    gumbel: Optional[torch.Tensor] = None,   # (M, K) f32 in place of Philox
+    return_log_probs: bool = False,
+):
+    """The whole tail of an int8 sampler step in one launch: final LN ->
+    logits head (f32, never stored) -> the K1 step. Returns next tokens (M,)
+    int32 (+ the posterior log-probs (M, K) f32).
+
+    A CUDA tensor launches the kernel (counted in ``fused_head_sample.launches``);
+    a CPU tensor runs ``head_sample_reference`` with numpy Philox noise keyed
+    on ``(seed, step)``."""
+    M, D = x.shape
+    Km1 = head_w.shape[1]
+    K = Km1 + 1
+    if not (0 <= seed < 2**32 and 0 <= step < 2**32):
+        raise ValueError(f"seed {seed} and step {step} must fit in 32 bits")
+    if x.device.type == "cpu":
+        if gumbel is None:
+            gumbel = _cpu_gumbel((M, K), seed, step)
+        tokens, post = head_sample_reference(x, xt, norm_out, head_w, head_b, coeffs,
+                                             gumbel=gumbel, truncation_r=truncation_r)
+        return (tokens, post) if return_log_probs else tokens
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_head_sample runs on cpu or cuda, got {x.device}")
+
+    dev = x.device
+    _check("x", x, (M, D), (torch.bfloat16,), dev)
+    _check("xt", xt, (M,), (torch.int32,), dev)
+    _check("norm_out", norm_out, (2, D), (torch.float32,), dev)
+    _check("head_w", head_w, (D, Km1), (torch.bfloat16,), dev)
+    _check("head_b", head_b, (Km1,), (torch.float32,), dev)
+    _check("coeffs", coeffs, (10,), (torch.float32,), dev)
+    if gumbel is not None:
+        _check("gumbel", gumbel, (M, K), (torch.float32,), dev)
+    lib = load_head_kernel()
+    if K > lib.t2s_head_sample_max_classes() or D > lib.t2s_head_sample_max_width() or D % 32:
+        raise ValueError(f"{K} classes or width {D} outside the kernel's range")
+    tokens = torch.empty((M,), dtype=torch.int32, device=dev)
+    post = torch.empty((M, K), dtype=torch.float32, device=dev) if return_log_probs else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.t2s_fused_head_sample(
+            x.data_ptr(), xt.data_ptr(), norm_out.data_ptr(), head_w.data_ptr(),
+            head_b.data_ptr(), coeffs.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
+            tokens.data_ptr(), None if post is None else post.data_ptr(), M, D, Km1,
+            float(truncation_r), seed, step, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_head_sample kernel launch failed: cudaError {err}")
+    fused_head_sample.launches += 1
+    if return_log_probs:
+        return tokens, post
+    return tokens
+
+
+fused_head_sample.launches = 0
