@@ -5,8 +5,10 @@
 
 Builds the flagship model as ``chip_smoke.py`` does (seeded random weights,
 bf16, batch 8, 100 steps, ``top0.85r``), then for the bf16 path
-(``generate``) and the W4A8 static-scale engine (``quantize_for_serving(4)``
--> ``calibrate_serving_engine`` -> ``generate_int8``): one warm-up request,
+(``generate``), the W4A8 static-scale engine (``quantize_for_serving(4)``
+-> ``calibrate_serving_engine`` -> ``generate_int8``) and the W8A8 dynamic
+engine (``quantize_for_serving()``) on its block path and on its per-dense
+path (``generate_int8(impl="pallas_dense")``): one warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Prints the card line, each
 path's request time, its device time and idle share (1 - device time /
@@ -65,6 +67,10 @@ def main() -> int:
     qp = model.quantize_for_serving(weight_bits=4)
     model.calibrate_serving_engine(qp, gen(), cond)
     profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+    qp8 = model.quantize_for_serving()
+    for impl in ("pallas", "pallas_dense"):
+        profile(f"W8A8 dynamic {impl}",
+                lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r", impl=impl))
     return 0
 
 

@@ -7,16 +7,19 @@ Phases (any failed check exits nonzero, and no result line is printed):
 
 1. device  — a CUDA card must be present; prints its name and power limit.
 2. build   — builds every kernel from ``csrc/`` with nvcc, one process per
-             source, all at once: K1 (fused_sampler.cu), K3-K5
+             source, all at once: K1 (fused_sampler.cu), K3-K9
              (int8_block.cu) and K2 (fused_head_sample.cu).
 3. K1      — the kernel against its plain PyTorch version at the slice's
              shape (2120 rows x 256 classes): bf16 and f32 logits, r 0 and
              0.85, t_post 0, 50 and 99; Philox determinism and sampled
              frequencies over 2000 seeds; kernel and plain times.
-4. K2-K5   — the int8 block kernels against their plain versions at the
-             flagship shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP
-             4096), W8 and W4, dynamic and static scales; K2 against its plain
-             version and against K1 on the same logits; eager and CUDA-graph
+4. K2-K9   — the int8 kernels against their plain versions at the flagship
+             shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP 4096): the
+             blocks K3-K5, W8 and W4, dynamic and static scales; K2 against
+             its plain version and against K1 on the same logits; then, W8,
+             dynamic and static, K6 at the per-dense path's six sites and
+             single, K7 at 265 and 77 keys with and without masked tails, K8
+             full and masked, K9 at 4 and 16 chunks; eager and CUDA-graph
              times, kernel and plain.
 5. slice   — builds the flagship model from ``configs/diffsound_audiocaps.yaml``
              in bf16 on the card (19 layers, d1024, 16 heads, 265 tokens, full
@@ -31,10 +34,18 @@ Phases (any failed check exits nonzero, and no result line is printed):
              twins on one supplied noise (each block on the twins' input,
              and the 19-layer outputs and tokens) -> two batch-8, 100-step
              ``generate_int8`` requests to a wav, with the same output checks
-             and exact launch counts (K4 = K5 = K3 = 19 x 100, K2 = 100, K1 = 0
-             per request).
-7. times   — each path's second request: time and clips/s, beside the card's
-             name and power limit.
+             and exact launch counts (K4 = K5 = K3 = 19 x 100, K2 = 100, every
+             other kernel 0 per request).
+7. W8      — the W8A8 dynamic engine, ``quantize_for_serving()``: three steps
+             of the per-dense path (``impl="pallas_dense"``) and three of
+             ``T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked``, each kernel call against
+             its twin as in phase 6; then seven batch-8, 100-step requests to a
+             wav, in turns: the block path twice, the per-dense path twice
+             (K6 multi = 6 x 19 x 100, K7 = 2 x 19 x 100), pair + chunked
+             twice (K8 = K9 chunked = 19 x 100) and pair + streamed once
+             (K8 = K9 streamed = 19 x 100), K2 = 100 each, every other count 0.
+8. times   — each path's request time and clips/s, beside the card's name
+             and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record. Imports nothing of JAX.
@@ -42,6 +53,7 @@ the kernels' record. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -66,12 +78,22 @@ SOT, EOT = 49406, 49407
 POST_ATOL = 1e-4
 BOUNDARY_ROWS = 1e-3
 FREQ_SEEDS = 2000
-# K3-K5 checks: bf16 block outputs within BLOCK_TOL (rtol and atol, as the
+# K3-K9 checks: bf16 block outputs within BLOCK_TOL (rtol and atol, as the
 # JAX package's block tests). The integer dots are exact on both sides; the f32
 # LayerNorm and softmax sums run in another order, so an ulp can move a value
 # across a .5 step of the int8 grid ("int8 flips"), which moves a few outputs
 # by a few bf16 ulps.
 BLOCK_TOL = 2e-2
+# K8 in the serving loop: its two halves run on the model's activations with
+# no reset to the twins' input between them, so an int8 flip of the self half
+# reaches the cross half, as two blocks composed; JAX holds its pair kernel to
+# 3e-2 for the same reason (tests/test_int8_blocks.py, test_attn_pair_block).
+# Under dynamic scales on these activations a flip can also tip a near-tie of
+# the self-attention's softmax, which moves a whole (query, head) output; K4
+# alone then misses BLOCK_TOL on up to 33 of 2170880 elements (1.9 x the
+# bound, on the H100; PERF.md). So up to PAIR_OUTLIERS of K8's outputs may lie
+# beyond PAIR_TOL there.
+PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
 # K2 checks: its f32 LayerNorm sums run in another order than the plain
 # version's, so an ulp can move a normalised value across a bf16 rounding
 # boundary before the head ("bf16 flips"); one flip moves a logit by about
@@ -224,11 +246,49 @@ def _ulp_flips(got: torch.Tensor, want: torch.Tensor) -> int:
     return int(((got.float() - w).abs() > ulp).sum())
 
 
-def _block_err(got, want, what: str = "") -> float:
+def _block_err(got, want, what: str = "", tol: float = BLOCK_TOL,
+               outliers: float = 0.0):
+    """max |d| of got against want; fails if more than ``outliers`` of the
+    elements lie beyond rtol = atol = ``tol``. Returns (max |d|, elements
+    beyond)."""
     g, w = got.float(), want.float()
-    bad = (g - w).abs() > BLOCK_TOL + BLOCK_TOL * w.abs()
-    check(not bool(bad.any()), f"{what}{int(bad.sum())} elements beyond {BLOCK_TOL}")
-    return float((g - w).abs().max())
+    d, bound = (g - w).abs(), tol + tol * w.abs()
+    n_bad = int((d > bound).sum())
+    check(n_bad <= outliers * d.numel(), f"{what}{n_bad} elements beyond {tol} (worst at "
+          f"{float((d / bound).max()):.2f} x the bound, max|d| {float(d.max()):.3e})")
+    return float(d.max()), n_bad
+
+
+def time_pair(label: str, kern, plain):
+    """Eager times per call, run plain, kernel, kernel, plain, and CUDA-graph
+    times; prints them and returns (kernel ms, plain ms), each the faster of
+    its two eager runs."""
+    t = {}
+    for tag, fn in (("plain", plain), ("kernel", kern), ("kernel2", kern), ("plain2", plain)):
+        t[tag] = cuda_time_ms(fn, iters=20, warmup=3)
+    g_kern = graph_time_ms(kern, reps=10, replays=5)
+    g_plain = graph_time_ms(plain, reps=3, replays=3)
+    print(f"  {label}, per call: eager kernel {t['kernel']:.4f} / {t['kernel2']:.4f} ms, plain "
+          f"{t['plain']:.4f} / {t['plain2']:.4f} ms; CUDA graph kernel {g_kern:.4f} ms, plain "
+          f"{g_plain:.4f} ms")
+    return min(t["kernel"], t["kernel2"]), min(t["plain"], t["plain2"])
+
+
+def _check_outputs(got, want, what: str, tol: float = BLOCK_TOL, outliers: float = 0.0):
+    """Kernel output(s) against the plain version's (``_block_err``); returns
+    (max |d|, elements off by more than one bf16 ulp, elements, elements
+    beyond ``tol``)."""
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    check(len(gots) == len(wants), f"{what}{len(gots)} outputs, expected {len(wants)}")
+    err, flips, n, beyond = 0.0, 0, 0, 0
+    for g, w in zip(gots, wants):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}{g.dtype} {tuple(g.shape)}, expected {w.dtype} {tuple(w.shape)}")
+        e, b = _block_err(g, w, what, tol, outliers)
+        err, beyond = max(err, e), beyond + b
+        flips, n = flips + _ulp_flips(g, w), n + w.numel()
+    return err, flips, n, beyond
 
 
 def phase_blocks(dev):
@@ -284,7 +344,7 @@ def phase_blocks(dev):
             for name, (kern, plain) in calls(w4, st).items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
-                err = _block_err(got, want)
+                err, _ = _block_err(got, want)
                 errs[name] = max(errs.get(name, 0.0), err)
                 print(f"  {name:<17} {'W4' if w4 else 'W8'} {'static ' if st else 'dynamic'}: "
                       f"max|d| {err:.3e}, elements off by > 1 bf16 ulp (int8 flips) "
@@ -295,19 +355,11 @@ def phase_blocks(dev):
     for name, first in valid.items():
         kern, plain = masked[name]
         print(f"  {name:<17} W4 static, keys from {first} masked: "
-              f"max|d| {_block_err(kern(), plain()):.3e}")
+              f"max|d| {_block_err(kern(), plain())[0]:.3e}")
 
     times = {}
     for name, (kern, plain) in calls(True, True).items():
-        t = {}
-        for tag, fn in (("plain", plain), ("kernel", kern), ("kernel2", kern), ("plain2", plain)):
-            t[tag] = cuda_time_ms(fn, iters=20, warmup=3)
-        g_kern, g_plain = graph_time_ms(kern, reps=10, replays=5), graph_time_ms(plain, reps=3, replays=3)
-        ms, plain_ms = min(t["kernel"], t["kernel2"]), min(t["plain"], t["plain2"])
-        print(f"  {name:<17} W4 static, per call: eager kernel {t['kernel']:.4f} / "
-              f"{t['kernel2']:.4f} ms, plain {t['plain']:.4f} / {t['plain2']:.4f} ms; "
-              f"CUDA graph kernel {g_kern:.4f} ms, plain {g_plain:.4f} ms")
-        times[name] = (errs[name], ms, plain_ms)
+        times[name] = (errs[name], *time_pair(f"{name:<17} W4 static", kern, plain))
     return times
 
 
@@ -372,6 +424,124 @@ def phase_head(fs, dd, dev):
     return max_err, min(t["kernel"], t["kernel2"]), min(t["plain"], t["plain2"])
 
 
+def phase_schedules(dev):
+    """Phase 4 (cont.): K6-K9, the W8 engine's other schedules, against their
+    plain versions at the flagship shapes, W8, dynamic and static scales.
+    Returns {name: (max_abs_err, ms, plain_ms)} with times of the served mode
+    (W8, dynamic scales): K6 multi per call averaged over a layer's six
+    sites, K7 over its two attentions."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import quant
+
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=gen, device=dev) * scale
+    M, D = BATCH * L_TOK, D_MODEL
+    x = rnd(M, D).bfloat16()
+    h = (rnd(M, D_MLP) * 0.5).bfloat16()          # the fc2 input (GELU2 outputs)
+    mods = rnd(4, D, scale=0.2)
+    ln = rnd(2, D, scale=0.2)
+    ln[0] += 1.0
+    ck, cv = rnd(BATCH * S_COND, D).bfloat16(), rnd(BATCH * S_COND, D).bfloat16()
+    w = lambda n, k: quant.quantize_weight(rnd(n, k, scale=0.03 * (1024 / k) ** 0.5),
+                                           rnd(n, scale=0.05))
+    wa = [w(D, D) for _ in range(6)]              # q, k, v, proj, crossq, crossproj
+    wm = [w(D_MLP, D), w(D, D_MLP)]               # fc1, fc2
+    multi, multi_ref = quant.fused_quant_dense_multi, quant.quant_dense_multi_reference
+
+    def dense_sites(st):
+        s = (lambda v: v) if st else (lambda v: None)
+        return {"qkv": ((x, wa[0:3]), dict(norm="adaln", mod=mods[0:2], s_static=s(0.035))),
+                "proj": ((x, wa[3:4]), dict(residual=x, s_static=s(0.02))),
+                "crossq": ((x, wa[4:5]), dict(norm="adaln", mod=mods[2:4], s_static=s(0.035))),
+                "crossproj": ((x, wa[5:6]), dict(residual=x, s_static=s(0.02))),
+                "fc1": ((x, wm[0:1]), dict(norm="ln", mod=ln, act="gelu2", s_static=s(0.035))),
+                "fc2": ((h, wm[1:2]), dict(residual=x, s_static=s(0.01)))}
+
+    def single(st):
+        s = 0.035 if st else None
+        return {"fc1": ((x, wm[0]), dict(norm="ln", mod=ln, act="gelu2", s_static=s)),
+                "proj f32": ((x, wa[3]), dict(residual=x, out_dtype=torch.float32,
+                                               s_static=None if s is None else 0.02))}
+
+    def mha_cases():
+        self_v = h[:, :D].contiguous()
+        return {f"self {L_TOK} keys": ((x, x, self_v), L_TOK),
+                f"self {L_TOK} keys, from {L_TOK - 9} masked": ((x, x, self_v), L_TOK - 9),
+                f"cross {S_COND} keys": ((x, ck, cv), S_COND),
+                f"cross {S_COND} keys, from {S_COND - 20} masked": ((x, ck, cv), S_COND - 20)}
+
+    def pair(st, q_valid=L_TOK, kv_valid=S_COND):
+        args = (x, mods, ck, cv, *wa)
+        kw = dict(batch=BATCH, n_head=N_HEAD, q_valid=q_valid, kv_valid=kv_valid,
+                  static_s=(0.035, 0.02, 0.035, 0.02) if st else None)
+        return (lambda: ib.attn_pair_block(*args, **kw),
+                lambda: ib.attn_pair_block_reference(*args, **kw))
+
+    def chunked(kern, n, st):
+        kw = dict(n_chunks=n, static_s=(0.035, 0.012) if st else None)
+        return (lambda: kern(x, ln, *wm, **kw),
+                lambda: ib.mlp_chunked_reference(x, ln, *wm, **kw))
+
+    errs = {}
+
+    def run(name, label, kern, plain):
+        want = plain()
+        got = kern()
+        torch.cuda.synchronize()
+        err, flips, n, _ = _check_outputs(got, want, f"{name} {label}: ")
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  {name:<23} {label}: max|d| {err:.3e}, elements off by > 1 bf16 ulp "
+              f"{flips}/{n}")
+
+    quant.fused_quant_dense.launches = 0
+    for st in (False, True):
+        tag = "W8 static " if st else "W8 dynamic"
+        for site, (args, kw) in dense_sites(st).items():
+            run("fused_quant_dense_multi", f"{tag} {site}", lambda: multi(*args, **kw),
+                lambda: multi_ref(*args, **kw))
+        for site, (args, kw) in single(st).items():
+            run("fused_quant_dense", f"{tag} {site}", lambda: quant.fused_quant_dense(*args, **kw),
+                lambda: quant.quant_dense_reference(*args, **kw))
+        run("attn_pair_block", tag, *pair(st))
+        run("attn_pair_block", f"{tag}, keys from {L_TOK - 9} / {S_COND - 20} masked",
+            *pair(st, L_TOK - 9, S_COND - 20))
+        run("mlp_block_chunked", f"{tag}, 4 chunks", *chunked(ib.mlp_block_chunked, 4, st))
+        run("mlp_block_streamed", f"{tag}, 16 chunks", *chunked(ib.mlp_block_streamed, 16, st))
+    for label, (qkv, valid) in mha_cases().items():
+        kw = dict(batch=BATCH, n_head=N_HEAD, kv_valid=valid)
+        run("fused_mha", label, lambda: attn.fused_mha(*qkv, **kw),
+            lambda: attn.mha_reference(*qkv, **kw))
+
+    times = {}
+    sites = dense_sites(False)
+    site_times = [time_pair(f"fused_quant_dense_multi W8 dynamic {site}",
+                            lambda: multi(*args, **kw), lambda: multi_ref(*args, **kw))
+                  for site, (args, kw) in sites.items()]
+    times["fused_quant_dense_multi"] = tuple(sum(t) / len(t) for t in zip(*site_times))
+    args, kw = single(False)["fc1"]
+    times["fused_quant_dense"] = time_pair(
+        "fused_quant_dense W8 dynamic fc1", lambda: quant.fused_quant_dense(*args, **kw),
+        lambda: quant.quant_dense_reference(*args, **kw))
+    mha_times = []
+    for label, (qkv, valid) in mha_cases().items():
+        if "masked" not in label:
+            kw = dict(batch=BATCH, n_head=N_HEAD, kv_valid=valid)
+            mha_times.append(time_pair(f"fused_mha {label}", lambda: attn.fused_mha(*qkv, **kw),
+                                       lambda: attn.mha_reference(*qkv, **kw)))
+    times["fused_mha"] = tuple(sum(t) / len(t) for t in zip(*mha_times))
+    times["attn_pair_block"] = time_pair("attn_pair_block W8 dynamic", *pair(False))
+    times["mlp_block_chunked"] = time_pair("mlp_block_chunked W8 dynamic, 4 chunks",
+                                           *chunked(ib.mlp_block_chunked, 4, False))
+    times["mlp_block_streamed"] = time_pair("mlp_block_streamed W8 dynamic, 16 chunks",
+                                            *chunked(ib.mlp_block_streamed, 16, False))
+    print(f"  per call, the served mode (W8 dynamic): K6 multi averaged over a layer's six "
+          f"sites {times['fused_quant_dense_multi'][0]:.4f} ms (plain "
+          f"{times['fused_quant_dense_multi'][1]:.4f} ms), K7 over its two attentions "
+          f"{times['fused_mha'][0]:.4f} ms (plain {times['fused_mha'][1]:.4f} ms)")
+    return {name: (errs[name], *t) for name, t in times.items()}, quant.fused_quant_dense.launches
+
+
 def caption_ids(rng) -> torch.Tensor:
     """BPE ids of the form the tokenizer emits: SOT, word ids, EOT, zero padding."""
     ids = np.zeros((BATCH, CTX), np.int32)
@@ -427,82 +597,149 @@ def request(generate, vocoder, seed, dev):
     return seconds
 
 
-def check_int8_loop(model, qp, fs, dd, cond_tokens, dev):
+def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op):
+    """One layer of the int8 engine on ``schedule`` through ``op(kernel,
+    plain, args, kw)``, which checks the kernel on the plain version's input
+    and returns the plain output: "blocks" K4 -> K5 -> K3, "pair_chunked" K8
+    -> K9 (4 chunks), "dense" six K6 and two K7."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import quant
+
+    (mod1, mod2), H = mods, qp.n_head
+    L, S = xp.shape[0] // BATCH, ck.shape[0] // BATCH
+    if schedule == "dense":
+        dense, ref = quant.fused_quant_dense_multi, quant.quant_dense_multi_reference
+        mha = lambda q, k, v, valid: op(attn.fused_mha, attn.mha_reference, (q, k, v),
+                                        dict(batch=BATCH, n_head=H, kv_valid=valid))
+        q, k, v = op(dense, ref, (xp, (lyr.q.qw, lyr.k.qw, lyr.v.qw)),
+                     dict(norm="adaln", mod=mod1, s_static=ls[0]))
+        (x,) = op(dense, ref, (mha(q, k, v, L), (lyr.proj.qw,)),
+                  dict(residual=xp, s_static=ls[1]))
+        (q2,) = op(dense, ref, (x, (lyr.crossq.qw,)), dict(norm="adaln", mod=mod2, s_static=ls[2]))
+        (x,) = op(dense, ref, (mha(q2, ck, cv, S), (lyr.crossproj.qw,)),
+                  dict(residual=x, s_static=ls[3]))
+        (hid,) = op(dense, ref, (x, (lyr.fc1.qw,)),
+                    dict(norm="ln", mod=lyr.ln2_mod, act="gelu2", s_static=ls[4]))
+        (x,) = op(dense, ref, (hid, (lyr.fc2.qw,)), dict(residual=x, s_static=ls[5]))
+        return x
+    mlp_args = (lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw)
+    if schedule == "pair_chunked":
+        x = op(ib.attn_pair_block, ib.attn_pair_block_reference,
+               (xp, torch.cat([mod1, mod2]), ck, cv, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw,
+                lyr.crossq.qw, lyr.crossproj.qw),
+               dict(batch=BATCH, n_head=H, q_valid=L, kv_valid=S, static_s=rt._pair(ls[0:4])))
+        return op(ib.mlp_block_chunked, ib.mlp_chunked_reference, (x, *mlp_args),
+                  dict(n_chunks=4, static_s=rt._pair(ls[4:6])))
+    w4 = dict(w4=qp.weight_bits == 4)
+    x = op(ib.self_attn_block, ib.self_attn_block_reference,
+           (xp, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw),
+           dict(batch=BATCH, n_head=H, q_valid=L, static_s=rt._pair(ls[0:2]), **w4))
+    x = op(ib.cross_attn_block, ib.cross_attn_block_reference,
+           (x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw),
+           dict(batch=BATCH, n_head=H, kv_valid=S, static_s=rt._pair(ls[2:4]), **w4))
+    return op(ib.mlp_block, ib.mlp_block_reference, (x, *mlp_args),
+              dict(static_s=rt._pair(ls[4:6]), **w4))
+
+
+def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks",
+                    impl: str = "pallas"):
     """Three int8 sampler steps (the top0.85r,fast49 plan), kernels against
     the plain twins on one supplied noise. Each step starts both paths from
     the plain path's tokens, so a row that tips at one step does not change
-    the next step's inputs. The plain path is the three block twins composed
-    here, layer by layer; on its input each block kernel must agree with its
-    twin to BLOCK_TOL, as in phase 4. The kernel path is the engine's own
-    layer loop. Composed over 19 layers, an int8 flip in one block moves the
-    next block's input, and at a static scale a bf16 ulp of a block input can
-    move an int8 value by one step, so the two paths drift apart: their
-    backbone outputs must agree to STEP_REL (relative, in norm), and at most
-    STEP_ROWS of the rows may pick another token per step (near-ties of the
-    Gumbel argmax and the nucleus boundary)."""
+    the next step's inputs. The plain path is the twins of ``schedule``
+    composed here, layer by layer (``_plain_layer``); on its input each
+    kernel call must agree with its twin to BLOCK_TOL, as in phase 4 (K8, two
+    blocks with no reset between them, to PAIR_TOL but for PAIR_OUTLIERS of
+    its outputs). The
+    kernel path is the engine's own layer loop (``impl``, and the switches
+    the caller set). Composed over 19 layers, an int8 flip in one block
+    moves the next block's input, and at a static scale a bf16 ulp of a block
+    input can move an int8 value by one step, so the two paths drift apart:
+    their backbone outputs must agree to STEP_REL (relative, in norm), and at
+    most STEP_ROWS of the rows may pick another token per step (near-ties of
+    the Gumbel argmax and the nucleus boundary)."""
     from text_to_sound_synthesis_torch.models.diffusion import int8_runtime as rt
     from text_to_sound_synthesis_torch.models.diffusion.process import _timestep_plan
-    from text_to_sound_synthesis_torch.ops import int8_block as ib
 
     STEP_ROWS, STEP_REL = 2e-2, 5e-2
     diff = model.diffusion
     L, K, T = diff.content_seq_len, diff.num_classes, diff.diffusion_step
-    w4 = qp.weight_bits == 4
     ts, t_post = _timestep_plan(T, T, 49)
     noise = dd.gumbel_from_uniform(torch.rand((len(ts), BATCH, L, K), device=dev,
                                               generator=torch.Generator(dev).manual_seed(SEED)))
     rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    act_s = qp.act_scales or ((None,) * 6,) * len(qp.layers)
+    stats = {"err": {}, "flips": 0, "n": 0, "beyond": 0}
+
+    def op(kernel, plain, args, kw):
+        want = plain(*args, **kw)
+        name = kernel.__name__
+        gate = (PAIR_TOL, PAIR_OUTLIERS) if name == "attn_pair_block" else (BLOCK_TOL, 0.0)
+        err, flips, n, beyond = _check_outputs(kernel(*args, **kw), want,
+                                               f"serving step {stats['step']}, {name}: ", *gate)
+        stats["err"][name] = max(stats["err"].get(name, 0.0), err)
+        stats.update(flips=stats["flips"] + flips, n=stats["n"] + n,
+                     beyond=stats["beyond"] + beyond)
+        return want
+
     with torch.no_grad():
         kvs = rt.precompute_cond_kvs(qp, model.embed_condition(cond_tokens))
         coeffs = fs.step_coeffs(diff.schedule(dev), t_post).as_array().contiguous()
         tokens = torch.full((BATCH * L,), K - 1, dtype=torch.int32, device=dev)
-        per_step, block_err, flips, n_out = [], 0.0, 0, 0
+        per_step = []
         for i, t in enumerate(ts):
+            stats["step"] = i
             g = noise[i].reshape(BATCH * L, K)
-            x = rt._int8_backbone_hidden(qp, tokens.reshape(BATCH, L), t, kvs)
+            x = rt._int8_backbone_hidden(qp, tokens.reshape(BATCH, L), t, kvs, impl=impl)
             got = fs.fused_head_sample(x, tokens, qp.norm_out, qp.head_w, qp.head_b, coeffs[i],
                                        0, i, truncation_r=0.85, gumbel=g)
             xp = rt._embed(qp, tokens.reshape(BATCH, L))
-            for n, (lyr, (ck, cv), (mod1, mod2), ls) in enumerate(
-                    zip(qp.layers, kvs, rt._layer_mods(qp, t), qp.act_scales)):
-                blocks = (
-                    (ib.self_attn_block, ib.self_attn_block_reference,
-                     (mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw),
-                     dict(batch=BATCH, n_head=qp.n_head, q_valid=L, static_s=rt._pair(ls[0:2]))),
-                    (ib.cross_attn_block, ib.cross_attn_block_reference,
-                     (mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw),
-                     dict(batch=BATCH, n_head=qp.n_head, kv_valid=ck.shape[0] // BATCH,
-                          static_s=rt._pair(ls[2:4]))),
-                    (ib.mlp_block, ib.mlp_block_reference, (lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw),
-                     dict(static_s=rt._pair(ls[4:6]))))
-                for kern, plain, args, kw in blocks:
-                    want = plain(xp, *args, w4=w4, **kw)
-                    y = kern(xp, *args, w4=w4, **kw)
-                    err = _block_err(y, want, f"serving step {i}, layer {n}, {kern.__name__}: ")
-                    block_err = max(block_err, err)
-                    flips, n_out = flips + _ulp_flips(y, want), n_out + want.numel()
-                    xp = want
+            for lyr, (ck, cv), mods, ls in zip(qp.layers, kvs, rt._layer_mods(qp, t), act_s):
+                xp = _plain_layer(schedule, qp, rt, xp, lyr, ck, cv, mods, ls, op)
             want, _ = fs.head_sample_reference(xp, tokens, qp.norm_out, qp.head_w, qp.head_b,
                                                coeffs[i], gumbel=g, truncation_r=0.85)
             per_step.append((rel(x, xp), int((got != want).sum())))
             tokens = want
     rows = BATCH * L
-    print(f"  serving, 3 steps (top0.85r,fast49) kernels vs plain twins, from the same tokens "
-          f"each step: each block on the twins' input within rtol = atol = {BLOCK_TOL} "
-          f"(max|d| {block_err:.3e}, elements off by > 1 bf16 ulp {flips}/{n_out}); after "
-          f"{len(qp.layers)} layers backbone output relative error "
-          f"{[f'{a:.2e}' for a, _ in per_step]}, tokens differing {[b for _, b in per_step]} "
-          f"of {rows}")
+    errs = {k: float(f"{v:.3e}") for k, v in stats["err"].items()}
+    pair = f", K8 outputs beyond {PAIR_TOL} {stats['beyond']}" if "attn_pair_block" in errs else ""
+    print(f"  {schedule}: 3 steps (top0.85r,fast49) kernels vs plain twins, from the same "
+          f"tokens each step: each kernel call on the twins' input within its gate (max|d| "
+          f"{errs}, elements off by > 1 bf16 ulp {stats['flips']}/{stats['n']}{pair}); after "
+          f"{len(qp.layers)} layers backbone output "
+          f"relative error {[f'{a:.2e}' for a, _ in per_step]}, tokens differing "
+          f"{[b for _, b in per_step]} of {rows}")
     check(all(a <= STEP_REL and b <= STEP_ROWS * rows for a, b in per_step),
-          "serving: kernel steps disagree with the plain steps")
+          f"serving ({schedule}): kernel steps disagree with the plain steps")
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """The JAX engine's kernel-selecting switches set for the block, and
+    restored after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _counters():
+    from text_to_sound_synthesis_torch.ops import attention as attn
     from text_to_sound_synthesis_torch.ops import fused_sampler as fs
     from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import quant
 
     return {"K1": fs.fused_p_sample, "K2": fs.fused_head_sample, "K3": ib.mlp_block,
-            "K4": ib.self_attn_block, "K5": ib.cross_attn_block}
+            "K4": ib.self_attn_block, "K5": ib.cross_attn_block, "K6": quant.fused_quant_dense,
+            "K6m": quant.fused_quant_dense_multi, "K7": attn.fused_mha, "K8": ib.attn_pair_block,
+            "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed}
 
 
 def reset_counts():
@@ -512,6 +749,51 @@ def reset_counts():
 
 def read_counts():
     return {k: fn.launches for k, fn in _counters().items()}
+
+
+def expected_counts(**per_request):
+    """Launches of one request: the given counts, every other kernel 0."""
+    return {k: per_request.get(k, 0) for k in _counters()}
+
+
+def phase_w8(model, fs, dd, vocoder, cond_tokens, dev):
+    """Phase 7: the W8A8 dynamic engine's kernel schedules (module docstring).
+    Returns each path's request times and the launches summed over all
+    requests."""
+    LN = N_LAYER * N_STEPS
+    qp8 = model.quantize_for_serving()
+    check(qp8.weight_bits == 8 and qp8.act_scales is None, "W8 serving: engine not W8 dynamic")
+    check_int8_loop(model, qp8, fs, dd, cond_tokens, dev, "dense", impl="pallas_dense")
+    pair_chunked = dict(T2S_ATTN_PAIR="1", T2S_MLP_IMPL="chunked")
+    with switches(**pair_chunked):
+        check_int8_loop(model, qp8, fs, dd, cond_tokens, dev, "pair_chunked")
+    # path: (switches, impl, launches per request)
+    paths = {"blocks": ({}, None, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)),
+             "per-dense": ({}, "pallas_dense",
+                           expected_counts(K2=N_STEPS, K6m=6 * LN, K7=2 * LN)),
+             "pair+chunked": (pair_chunked, None, expected_counts(K2=N_STEPS, K8=LN, K9c=LN)),
+             "pair+streamed": (dict(T2S_ATTN_PAIR="1", T2S_MLP_IMPL="streamed"), None,
+                               expected_counts(K2=N_STEPS, K8=LN, K9s=LN))}
+    # in turns, so that a drift of the card's clock reaches every path alike
+    order = ("blocks", "per-dense", "pair+chunked", "pair+streamed", "pair+chunked", "per-dense",
+             "blocks")
+    torch.cuda.reset_peak_memory_stats()
+    w8_times, w8_counts = {p: [] for p in paths}, {k: 0 for k in _counters()}
+    for i, path in enumerate(order):
+        env, impl, want = paths[path]
+        generate = lambda g: model.generate_int8(qp8, g, cond_tokens, sample_type="top0.85r",
+                                                 impl=impl, return_tokens=True)
+        with switches(**env):
+            reset_counts()
+            w8_times[path].append(request(generate, vocoder, SEED + i, dev))
+            counts = read_counts()
+        check(counts == want, f"W8 {path}: launches {counts} per request, expected {want}")
+        w8_counts = {k: w8_counts[k] + v for k, v in counts.items()}
+        print(f"  W8 dynamic {path:<13} request of batch {BATCH} x {N_STEPS} steps: "
+              f"{w8_times[path][-1]:.3f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return w8_times, w8_counts
 
 
 def main() -> int:
@@ -549,9 +831,10 @@ def main() -> int:
     print("[3 K1 vs plain]")
     max_err, k1_ms, plain_ms = phase_kernel(fs, dd, dev)
 
-    print("[4 K2-K5 vs plain]")
+    print("[4 K2-K9 vs plain]")
     block_res = phase_blocks(dev)
     head_res = phase_head(fs, dd, dev)
+    sched_res, k6_launches = phase_schedules(dev)
 
     print("[5 slice]")
     cfg = load_yaml_config(CONFIG)
@@ -597,8 +880,8 @@ def main() -> int:
                                                   return_tokens=True)
     torch.cuda.reset_peak_memory_stats()
     int8_times, int8_counts = [], {k: 0 for k in _counters()}
-    expect = {"K1": 0, "K2": N_STEPS, "K3": N_LAYER * N_STEPS, "K4": N_LAYER * N_STEPS,
-              "K5": N_LAYER * N_STEPS}
+    LN = N_LAYER * N_STEPS
+    expect = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)
     for i in range(2):
         reset_counts()
         int8_times.append(request(int8_generate, vocoder, SEED + i, dev))
@@ -609,28 +892,49 @@ def main() -> int:
           f"{int8_times[1]:.3f} s; launches per request {expect}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    print(f"[7 times] on {card}:")
+    print("[7 W8 serving]")
+    w8_times, w8_counts = phase_w8(model, fs, dd, vocoder, cond_tokens, dev)
+
+    print(f"[8 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bf16 path, second request (caption ids -> wav, batch {BATCH}, {N_STEPS} steps): "
           f"{times[1]:.3f} s = {BATCH / times[1]:.3f} clips/s")
     print(f"  W4A8 static path, second request (caption ids -> wav, batch {BATCH}, {N_STEPS} "
           f"steps): {int8_times[1]:.3f} s = {BATCH / int8_times[1]:.3f} clips/s")
+    best = {p: min(t) for p, t in w8_times.items()}
+    for path, t in best.items():
+        print(f"  W8 dynamic {path} path, faster of its requests (caption ids -> wav, batch "
+              f"{BATCH}, {N_STEPS} steps): {t:.3f} s = {BATCH / t:.3f} clips/s, "
+              f"{t / best['blocks']:.3f} x the block path")
     tpu = "text_to_sound_synthesis_tpu/ops/"
     src = "text_to_sound_synthesis_torch/csrc/"
-    rows = [("fused_p_sample", "fused_sampler.cu", "fused_sampler.py:223", "K1",
+    rows = [("fused_p_sample", "fused_sampler.cu", "fused_sampler.py:223",
              bf16_counts["K1"], (max_err, k1_ms, plain_ms)),
-            ("fused_head_sample", "fused_head_sample.cu", "fused_sampler.py:300", "K2",
+            ("fused_head_sample", "fused_head_sample.cu", "fused_sampler.py:300",
              int8_counts["K2"], head_res),
-            ("mlp_block", "int8_block.cu", "int8_block.py:609", "K3", int8_counts["K3"],
+            ("mlp_block", "int8_block.cu", "int8_block.py:609", int8_counts["K3"],
              block_res["mlp_block"]),
-            ("self_attn_block", "int8_block.cu", "int8_block.py:375", "K4", int8_counts["K4"],
+            ("self_attn_block", "int8_block.cu", "int8_block.py:375", int8_counts["K4"],
              block_res["self_attn_block"]),
-            ("cross_attn_block", "int8_block.cu", "int8_block.py:455", "K5", int8_counts["K5"],
-             block_res["cross_attn_block"])]
+            ("cross_attn_block", "int8_block.cu", "int8_block.py:455", int8_counts["K5"],
+             block_res["cross_attn_block"]),
+            ("fused_quant_dense", "int8_block.cu", "quant.py:170", k6_launches,
+             sched_res["fused_quant_dense"]),
+            ("fused_quant_dense_multi", "int8_block.cu", "quant.py:260", w8_counts["K6m"],
+             sched_res["fused_quant_dense_multi"]),
+            ("fused_mha", "int8_block.cu", "attention.py:56", w8_counts["K7"],
+             sched_res["fused_mha"]),
+            ("attn_pair_block", "int8_block.cu", "int8_block.py:530", w8_counts["K8"],
+             sched_res["attn_pair_block"]),
+            ("mlp_block_chunked", "int8_block.cu", "int8_block.py:687", w8_counts["K9c"],
+             sched_res["mlp_block_chunked"]),
+            ("mlp_block_streamed", "int8_block.cu", "int8_block.py:770", w8_counts["K9s"],
+             sched_res["mlp_block_streamed"])]
+    check(all(launches > 0 for _, _, _, launches, _ in rows), "a kernel was never launched")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+        {"name": fn, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
          "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for name, source, replaces, _, launches, (err, ms, pms) in rows]}))
+        for fn, source, replaces, launches, (err, ms, pms) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -105,6 +105,101 @@ def test_int8_block_kernels_match_plain(cuda, shape, w4, static):
             assert torch.equal(got, want)
 
 
+# ---------------------------------------------------------------------------
+# K6 (per-dense), K7 (MHA), K8 (attention pair) and K9 (chunked MLP)
+# ---------------------------------------------------------------------------
+
+def _check_kernel(kernel, got, want, launches, tol=BLOCK_TOL):
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+@pytest.mark.parametrize("static", [False, True])
+def test_per_dense_kernels_match_plain(cuda, shape, static):
+    """K6 at the engine's four per-dense sites (q/k/v AdaLN, proj + residual,
+    fc1 LN + GELU2, fc2 at K = 4 D + residual) and K7 at the self and the
+    cross attention's key counts, with masked tails."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import quant
+
+    B, L, D, H, S, Dh = SHAPES[shape]
+    d = _block_inputs(cuda, SHAPES[shape], False)
+    x, multi = d["x"], quant.fused_quant_dense_multi
+    s = (lambda v: v) if static else (lambda v: None)
+    h = (torch.randn((B * L, Dh), generator=torch.Generator(cuda).manual_seed(9), device=cuda)
+         * 0.5).bfloat16()
+    sites = [((x, d["attn"][:3]), dict(norm="adaln", mod=d["mod"], s_static=s(0.035))),
+             ((x, d["attn"][3:]), dict(residual=x, s_static=s(0.02))),
+             ((x, d["mlp"][:1]), dict(norm="ln", mod=d["ln"], act="gelu2", s_static=s(0.035))),
+             ((h, d["mlp"][1:]), dict(residual=x, s_static=s(0.01)))]
+    for args, kw in sites:
+        launches = multi.launches
+        got = multi(*args, **kw)
+        _check_kernel(multi, got, quant.quant_dense_multi_reference(*args, **kw), launches)
+    for k, v, valid in ((x, h[:, :D].contiguous(), L - 3), (d["ck"], d["cv"], S - 4)):
+        kw = dict(batch=B, n_head=H, kv_valid=valid)
+        launches = attn.fused_mha.launches
+        got = attn.fused_mha(x, k, v, **kw)
+        _check_kernel(attn.fused_mha, got, attn.mha_reference(x, k, v, **kw), launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm", ["none", "ln", "adaln"])
+def test_fused_quant_dense_kernel_combinations(cuda, norm, out_dtype):
+    """K6 single-weight, small shape: every (act, residual, scale) at one norm."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    d = _block_inputs(cuda, SHAPES["small"], False)
+    mod = d["ln"] if norm == "ln" else d["mod"]
+    for act in ("none", "gelu2"):
+        for residual in (None, d["x"], d["x"].float()):
+            for s_static in (None, 0.035):
+                kw = dict(norm=norm, mod=mod, act=act, residual=residual, out_dtype=out_dtype,
+                          s_static=s_static)
+                launches = quant.fused_quant_dense.launches
+                got = quant.fused_quant_dense(d["x"], d["attn"][0], **kw)
+                want = quant.quant_dense_reference(d["x"], d["attn"][0], **kw)
+                _check_kernel(quant.fused_quant_dense, got, want, launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+@pytest.mark.parametrize("static", [False, True])
+def test_pair_and_chunked_kernels_match_plain(cuda, shape, static):
+    """K8 (x in f32 between its halves) with masked keys, and K9 chunked at 4
+    chunks and streamed at 16 (4 at the small shape, whose chunks must stay
+    128 wide)."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    B, L, D, H, S, Dh = SHAPES[shape]
+    d = _block_inputs(cuda, SHAPES[shape], False)
+    mods = torch.cat([d["mod"], d["mod"].flip(1)]).contiguous()
+    pair_kw = dict(batch=B, n_head=H, q_valid=L - 3, kv_valid=S - 4,
+                   static_s=(0.035, 0.02, 0.035, 0.02) if static else None)
+    args = (d["x"], mods, d["ck"], d["cv"], *d["attn"], *d["cross"])
+    launches = ib.attn_pair_block.launches
+    got = ib.attn_pair_block(*args, **pair_kw)
+    _check_kernel(ib.attn_pair_block, got, ib.attn_pair_block_reference(*args, **pair_kw),
+                  launches)
+    ss = (0.035, 0.012) if static else None
+    for kernel, n_chunks in ((ib.mlp_block_chunked, 4), (ib.mlp_block_streamed, min(16, Dh // 128))):
+        launches = kernel.launches
+        got = kernel(d["x"], d["ln"], *d["mlp"], n_chunks=n_chunks, static_s=ss)
+        want = ib.mlp_chunked_reference(d["x"], d["ln"], *d["mlp"], n_chunks=n_chunks,
+                                        static_s=ss)
+        _check_kernel(kernel, got, want, launches)
+        if static:
+            # the int8 middle is exact and the chunk flushes run in the twin's order
+            assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", ["small", "flagship"])
 def test_fused_head_sample_kernel_matches_plain(cuda, shape):

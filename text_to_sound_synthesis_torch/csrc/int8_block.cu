@@ -1,12 +1,17 @@
-// The int8 transformer sub-block kernels of the serving engine (K3, K4, K5)
-// for Hopper, sm_90a.
+// The int8 kernels of the serving engine (K3-K9) for Hopper, sm_90a.
 //
-// Replaces text_to_sound_synthesis_tpu/ops/int8_block.py::self_attn_block
-// (K4), ::cross_attn_block (K5) and ::mlp_block (K3), Pallas TPU kernels that
-// each run one sub-block of a denoiser layer with everything resident in
-// VMEM. The plain PyTorch twins are the *_reference functions of
-// text_to_sound_synthesis_torch/ops/int8_block.py; the wrappers there compose
-// the launches below into the three blocks.
+// Replaces, from text_to_sound_synthesis_tpu/ops/:
+//   int8_block.py::self_attn_block (K4), ::cross_attn_block (K5),
+//   ::mlp_block (K3), ::attn_pair_block (K8), ::mlp_block_chunked and
+//   ::mlp_block_streamed (K9): Pallas TPU kernels that each run one or two
+//   sub-blocks of a denoiser layer with everything resident in VMEM;
+//   quant.py::fused_quant_dense / fused_quant_dense_multi (K6): the
+//   per-dense [LN/AdaLN] -> quantize -> int8 dots -> dequant [-> GELU2]
+//   [-> + residual] kernel of the engine's impl="pallas_dense" path;
+//   attention.py::fused_mha (K7): the bf16 MHA of that path.
+// The plain PyTorch twins are the *_reference functions of
+// text_to_sound_synthesis_torch/ops/{quant,attention,int8_block}.py; the
+// wrappers there compose the launches below into the TPU kernels.
 //
 // What bounds them on an H100. Per layer at the flagship shape (M = 8*265 =
 // 2120 rows, D 1024, 16 heads of 64, 4D MLP) the int8 dots are 62 GOP; at
@@ -28,26 +33,39 @@
 //       -> [fc2 dot + residual]; with a dynamic middle the first launch
 //       writes f32 and the row max |u| instead, and the second quantizes on
 //       the fly.
+//   K8: K4's three launches, then K5's, with x kept in f32 between the two
+//       halves: the self proj writes f32 x + residual, the cross AdaLN panel
+//       reads f32 rows, the cross proj adds the f32 residual and rounds once.
+//   K9: K3 with the 4096 hidden columns in n chunks, each with its own
+//       dynamic row scale: fc1 gathers the row max |u| per (row, chunk); fc2
+//       flushes its int32 sums into an f32 accumulator at each chunk's end,
+//       y = x, y += acc_c * (s_c * scale) for c = 0..n-1, then + bias.
+//   K6: one GEMM launch; at K > 1024 (fc2 of the per-dense path, bf16 input)
+//       a one-warp-per-row pre-pass finds each row's max |h| first, unless
+//       the scale is static.
+//   K7: the MHA launch alone.
 // All dots are one templated GEMM, `int8_gemm_kernel`:
 //   - a block owns a 64 x 128 output tile, 8 warps of 32 x 32, each a grid of
 //     mma.sync.m16n8k32 s8 x s8 -> s32 products (exact integer sums);
 //   - "panel" mode builds its A operand itself: each block normalises,
-//     quantizes and keeps its 64 full rows (K <= 1024) as int8 in shared
-//     memory (row max |h| taken there, no second pass over HBM), then sweeps
-//     as many 128-wide output tiles as still leaves two blocks per SM, so the
-//     prologue is not redone for every tile;
+//     quantizes and keeps its 64 full rows (K <= 1024, bf16 or f32) as int8
+//     in shared memory (row max |h| taken there, no second pass over HBM),
+//     then sweeps as many 128-wide output tiles as still leaves two blocks
+//     per SM, so the prologue is not redone for every tile;
 //   - "int8" mode reads an int8 A through the same cp.async ring as the
 //     weight (the MLP middle under a static scale);
-//   - "stream" mode reads f32 rows in K chunks and quantizes them on the fly
-//     with a row scale known beforehand (the MLP middle under dynamic
-//     scales: its row max is gathered by atomics in the fc1 epilogue);
+//   - "stream" mode reads f32 or bf16 rows in K chunks and quantizes them on
+//     the fly with row scales known beforehand, one per row and K chunk (the
+//     MLP middle under dynamic scales: its row max is gathered by atomics in
+//     the fc1 epilogue);
 //   - the weight (N, K) K-contiguous, int8 or nibble-packed W4, streams
 //     through a two-stage cp.async ring of 128 x 64-byte tiles; a W4 tile's
 //     bytes hold k and k + K/2, so each packed word unpacks in registers into
 //     the B fragments of two k windows and feeds two products;
 //   - the epilogue dequantizes (acc * (s_row * scale_col) + bias, in that
-//     order) and writes bf16, bf16 + residual, GELU2 in f32, or GELU2
-//     quantized to int8.
+//     order), then either [GELU2] [+ bf16 or f32 residual] -> bf16 or f32
+//     (with the row max |y| per chunk when asked), or GELU2 quantized to
+//     int8, or (chunked) the f32 accumulator + bias -> bf16.
 // Shared-memory rows are padded by 16 bytes so fragment loads hit 32 banks.
 // The attention keeps one head's K and V (bf16) in shared memory and runs
 // Q K^T and P V on the tensor cores (mma.sync m16n8k16 bf16, f32 sums), 16
@@ -75,30 +93,71 @@ constexpr int kBStride = KS + 16;  // padded shared-memory row of a weight tile
 constexpr int kMaxPanelK = 1024;   // panel rows live in registers while built
 
 enum AMode { kPanel = 0, kStream = 1, kInt8 = 2 };
-enum Epi { kEpiBf16 = 0, kEpiResidual = 1, kEpiGelu = 2, kEpiGeluInt8 = 3 };
+// kEpiStore: [GELU2] [+ residual] -> bf16 or f32 (and the row max |y| per N
+// chunk when amax_out is set); kEpiGeluInt8: GELU2 quantized to int8;
+// kEpiChunked: int32 sums flushed per K chunk into an f32 accumulator that
+// starts at the residual, then + bias -> bf16 or f32.
+enum Epi { kEpiStore = 0, kEpiGeluInt8 = 1, kEpiChunked = 2 };
+// What an epilogue applies and which dtypes its operands have, as bits of a
+// template parameter: the engines' combinations compile with their flags
+// folded, as fast as a GEMM written for one of them (a run-time flag in the
+// epilogue cost K3-K5 9-30 % on the H100). kEfAny reads the bits from
+// GemmArgs::ef at run time, for K6's other combinations.
+enum EpiFlags {
+  kEfGelu = 1,     // GELU2 after the dequant (kEpiStore)
+  kEfRes = 2,      // + residual
+  kEfResF32 = 4,   // the residual is f32 (else bf16)
+  kEfOutF32 = 8,   // the output is f32 (else bf16)
+  kEfMax = 16,     // the row max |y| per N chunk into amax_out (kEpiStore)
+  kEfAF32 = 32,    // panel / stream: a is f32 (else bf16)
+};
+constexpr int kEfAny = -1;
 
 struct GemmArgs {
-  const void* a;             // panel: (M, K) bf16; stream: (M, K) f32; int8: (M, K) int8
+  const void* a;             // (M, K): panel and stream bf16 or f32, int8 mode int8
+  int ef;                    // EpiFlags of this launch
   const float* mod;          // (2, K) f32 prologue rows
-  const float* amax_in;      // stream, dynamic: (M,) row max |a|
+  const float* amax_in;      // stream, dynamic: (M, nch) row max |a| per K chunk
   float s_static, inv_static;
   int is_static;
   const int8_t* w[3];        // (N, K) int8 or (N, K/2) packed W4
   const float* scale[3];     // (N,)
   const float* bias[3];      // (N,)
-  void* out[3];              // (M, N) bf16, or f32 for kEpiGelu
-  const __nv_bfloat16* residual;  // (M, N) bf16
-  float* amax_out;           // kEpiGelu, dynamic: (M,) row max |u| (zeroed)
+  void* out[3];              // (M, N) bf16 or f32 (kEfOutF32); int8 for kEpiGeluInt8
+  const void* residual;      // (M, N) bf16 or f32, or null
+  float* amax_out;           // kEfMax: (M, nch) row max |y| per N chunk (zeroed)
   float out_inv;             // kEpiGeluInt8: f32(1 / s) of the output's static scale
   int M, K, N;
+  int nch;                   // chunks of K (stream and int8 modes) or of N (amax_out)
   int nt;                    // 128-wide output tiles per block (panel mode reuses its rows)
 };
 
+__device__ __forceinline__ float2 load2(const void* p, size_t o, bool f32) {
+  if (f32) return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + o);
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p) + o);
+  return make_float2(__low2float(v), __high2float(v));
+}
+
+__device__ __forceinline__ void store2(void* p, size_t o, float y0, float y1, bool f32) {
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + o) = make_float2(y0, y1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + o) = __floats2bfloat162_rn(y0, y1);
+}
+
+// four consecutive values of a bf16 or f32 row as f32 (offset a multiple of 4)
+__device__ __forceinline__ float4 load4(const void* p, size_t o, bool f32) {
+  if (f32) return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + o);
+  const uint2 w = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + o);
+  const __nv_bfloat162 p0 = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+  const __nv_bfloat162 p1 = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+  return make_float4(__low2float(p0), __high2float(p0), __low2float(p1), __high2float(p1));
+}
+
 template <int NORM>
-__device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* srow, int m0,
-                            int warp, int lane) {
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(g.a);
-  const int K = g.K, nch = K / 128;
+__device__ __forceinline__ void build_panel(const GemmArgs& g, bool a32, int8_t* As, int a_stride,
+                                            float* srow, int m0, int warp, int lane) {
+  const int K = g.K, nkc = K / 128;
   const bool st = g.is_static != 0;
   for (int rr = 0; rr < BM / 8; ++rr) {
     const int lr = warp * (BM / 8) + rr, r = m0 + lr;
@@ -110,17 +169,15 @@ __device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* 
     }
     // lane holds k = 128*i + 4*lane + e
     float v[kMaxPanelK / 32];
-    const __nv_bfloat16* src = x + static_cast<size_t>(r) * K;
+    const size_t row = static_cast<size_t>(r) * K;
 #pragma unroll
     for (int i = 0; i < kMaxPanelK / 128; ++i) {
-      if (i < nch) {
-        const uint2 w = *reinterpret_cast<const uint2*>(src + 128 * i + 4 * lane);
-        const __nv_bfloat162 p0 = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
-        const __nv_bfloat162 p1 = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
-        v[4 * i] = __low2float(p0);
-        v[4 * i + 1] = __high2float(p0);
-        v[4 * i + 2] = __low2float(p1);
-        v[4 * i + 3] = __high2float(p1);
+      if (i < nkc) {
+        const float4 f = load4(g.a, row + 128 * i + 4 * lane, a32);
+        v[4 * i] = f.x;
+        v[4 * i + 1] = f.y;
+        v[4 * i + 2] = f.z;
+        v[4 * i + 3] = f.w;
       }
     }
     float mean = 0.0f, rstd = 1.0f;
@@ -128,12 +185,12 @@ __device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* 
       float s = 0.0f;
 #pragma unroll
       for (int i = 0; i < kMaxPanelK / 32; ++i)
-        if (i / 4 < nch) s = __fadd_rn(s, v[i]);
+        if (i / 4 < nkc) s = __fadd_rn(s, v[i]);
       mean = __fdiv_rn(warp_sum(s), static_cast<float>(K));
       float q = 0.0f;
 #pragma unroll
       for (int i = 0; i < kMaxPanelK / 32; ++i)
-        if (i / 4 < nch) {
+        if (i / 4 < nkc) {
           const float d = __fsub_rn(v[i], mean);
           q = __fadd_rn(q, __fmul_rn(d, d));
         }
@@ -142,7 +199,7 @@ __device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* 
     float amax = 0.0f;
 #pragma unroll
     for (int i = 0; i < kMaxPanelK / 32; ++i) {
-      if (i / 4 < nch) {
+      if (i / 4 < nkc) {
         const int k = 128 * (i / 4) + 4 * lane + (i % 4);
         const float m0v = NORM == kNormNone ? 0.0f : g.mod[k];
         const float m1v = NORM == kNormNone ? 0.0f : g.mod[K + k];
@@ -153,7 +210,7 @@ __device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* 
     const float s = st ? g.s_static : row_scale(warp_max(amax));
 #pragma unroll
     for (int i = 0; i < kMaxPanelK / 128; ++i) {
-      if (i < nch) {
+      if (i < nkc) {
         *reinterpret_cast<uint32_t*>(dst + 128 * i + 4 * lane) =
             pack4(quantize(v[4 * i], s, g.inv_static, st), quantize(v[4 * i + 1], s, g.inv_static, st),
                   quantize(v[4 * i + 2], s, g.inv_static, st), quantize(v[4 * i + 3], s, g.inv_static, st));
@@ -163,8 +220,16 @@ __device__ void build_panel(const GemmArgs& g, int8_t* As, int a_stride, float* 
   }
 }
 
-template <int AMODE, int NORM, bool W4, int EPI>
-__global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
+// A stream-mode block holds ~25 KB of shared memory, so its registers set how
+// many blocks share an SM: held to 80 (three blocks per SM) it ran 20-25 %
+// faster on the H100 than at the 96-98 the compiler picks (two blocks).
+template <int AMODE, int NORM, bool W4, int EPI, int EF>
+__global__ void __launch_bounds__(kThreads, AMODE == kStream ? 3 : 1)
+int8_gemm_kernel(const GemmArgs g) {
+  const int ef = EF == kEfAny ? g.ef : EF;   // a constant unless EF is kEfAny
+  const bool gelu = ef & kEfGelu, has_res = ef & kEfRes, res32 = ef & kEfResF32;
+  const bool out32 = ef & kEfOutF32, a32 = ef & kEfAF32;
+  const bool keep_max = EPI == kEpiStore && (ef & kEfMax);
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;      // 2 x 4 warps of 32 x 32
@@ -182,6 +247,8 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
   const int8_t* __restrict__ W = g.w[z];
   const bool st = g.is_static != 0;
   const int nsteps = Kb / KS;
+  const int nch = AMODE == kPanel ? 1 : g.nch;  // row scales per row (one per K chunk)
+  const int chunk_steps = nsteps / nch;
 
   // one pipeline stage: the weight tile (and, in int8 mode, the A chunks)
   auto load_stage = [&](int n0, int step, int stage) {
@@ -208,10 +275,13 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
   };
 
   if (AMODE == kPanel) {
-    build_panel<NORM>(g, As, a_stride, srow, m0, warp, lane);
-  } else if (tid < BM) {
-    const int r = m0 + tid;
-    srow[tid] = st ? g.s_static : (r < M ? row_scale(g.amax_in[r]) : 1.0f);
+    build_panel<NORM>(g, a32, As, a_stride, srow, m0, warp, lane);
+  } else {
+    for (int i = tid; i < BM * nch; i += kThreads) {
+      const int r = m0 + i / nch;
+      srow[i] = st ? g.s_static
+                   : (r < M ? row_scale(g.amax_in[static_cast<size_t>(m0) * nch + i]) : 1.0f);
+    }
   }
   __syncthreads();
 
@@ -224,21 +294,41 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    // kEpiChunked: the f32 accumulator, from the residual, and this warp's column scales
+    float yacc[2][4][4], csc[4][2];
+    if (EPI == kEpiChunked) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + tq * 2;
+        csc[j][0] = g.scale[z][n];
+        csc[j][1] = g.scale[z][n + 1];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = m0 + wm * 32 + i * 16 + gq + hf * 8;
+            const float2 rv = r < M ? load2(g.residual, static_cast<size_t>(r) * N + n, res32)
+                                    : make_float2(0.0f, 0.0f);
+            yacc[i][j][2 * hf] = rv.x;
+            yacc[i][j][2 * hf + 1] = rv.y;
+          }
+      }
+    }
 
     load_stage(n0, 0, 0);
     for (int step = 0; step < nsteps; ++step) {
       if (step + 1 < nsteps) load_stage(n0, step + 1, (step + 1) & 1);
       if (AMODE == kStream) {
         // quantize this step's A chunk(s): k in [step*KS, +KS) (and + K/2 for W4)
-        const float* src = static_cast<const float*>(g.a);
+        const int c_k = step / chunk_steps;
         for (int c = tid; c < kSub * BM * (KS / 4); c += kThreads) {
           const int sub = c / (BM * (KS / 4)), rem = c % (BM * (KS / 4));
           const int lr = rem / (KS / 4), part = rem % (KS / 4), r = m0 + lr;
           uint32_t word = 0u;
           if (r < M) {
-            const float4 f = *reinterpret_cast<const float4*>(
-                src + static_cast<size_t>(r) * K + (sub ? K / 2 : 0) + step * KS + part * 4);
-            const float s = srow[lr];
+            const float4 f = load4(g.a, static_cast<size_t>(r) * K + (sub ? K / 2 : 0) + step * KS + part * 4,
+                                   a32);
+            const float s = srow[lr * nch + c_k];
             word = pack4(quantize(f.x, s, g.inv_static, st), quantize(f.y, s, g.inv_static, st),
                          quantize(f.z, s, g.inv_static, st), quantize(f.w, s, g.inv_static, st));
           }
@@ -284,11 +374,31 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
         }
       }
       __syncthreads();  // this stage's tiles consumed before they are refilled
+      if (EPI == kEpiChunked && (step + 1) % chunk_steps == 0) {
+        // end of K chunk c: y += acc * (s_c * scale), in the plain twin's order
+        const int c_k = step / chunk_steps;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float s = srow[(wm * 32 + i * 16 + gq + hf * 8) * nch + c_k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& y = yacc[i][j][2 * hf + e];
+                y = __fadd_rn(y, __fmul_rn(static_cast<float>(acc[i][j][2 * hf + e]),
+                                           __fmul_rn(s, csc[j][e])));
+                acc[i][j][2 * hf + e] = 0;
+              }
+          }
+      }
     }
 
     // epilogue
     const float* __restrict__ scale = g.scale[z];
     const float* __restrict__ bias = g.bias[z];
+    const int chunk = keep_max ? n0 / (N / g.nch) : 0;   // a 128-wide tile lies in one N chunk
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float rmax[2] = {0.0f, 0.0f};
@@ -300,44 +410,72 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const GemmArgs g) {
         for (int hf = 0; hf < 2; ++hf) {
           const int lr = wm * 32 + i * 16 + gq + hf * 8, r = m0 + lr;
           if (r >= M) continue;
-          const float s = srow[lr];
-          float y0 = dequant(acc[i][j][2 * hf], s, sc0, b0);
-          float y1 = dequant(acc[i][j][2 * hf + 1], s, sc1, b1);
           const size_t o = static_cast<size_t>(r) * N + n;
-          if (EPI == kEpiGelu) {
-            y0 = gelu2(y0);
-            y1 = gelu2(y1);
-            *reinterpret_cast<float2*>(static_cast<float*>(g.out[z]) + o) = make_float2(y0, y1);
-            rmax[hf] = fmaxf(rmax[hf], fmaxf(fabsf(y0), fabsf(y1)));
-          } else if (EPI == kEpiGeluInt8) {
+          float y0, y1;
+          if (EPI == kEpiChunked) {
+            y0 = __fadd_rn(yacc[i][j][2 * hf], b0);
+            y1 = __fadd_rn(yacc[i][j][2 * hf + 1], b1);
+          } else {
+            const float s = srow[lr];
+            y0 = dequant(acc[i][j][2 * hf], s, sc0, b0);
+            y1 = dequant(acc[i][j][2 * hf + 1], s, sc1, b1);
+          }
+          if (EPI == kEpiGeluInt8) {
             const int q0 = quantize(gelu2(y0), 0.0f, g.out_inv, true);
             const int q1 = quantize(gelu2(y1), 0.0f, g.out_inv, true);
             *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(g.out[z]) + o) =
                 static_cast<uint16_t>((q0 & 0xFF) | ((q1 & 0xFF) << 8));
-          } else {
-            if (EPI == kEpiResidual) {
-              const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(g.residual + o);
-              y0 = __fadd_rn(y0, __low2float(res));
-              y1 = __fadd_rn(y1, __high2float(res));
-            }
-            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(g.out[z]) + o) =
-                __floats2bfloat162_rn(y0, y1);
+            continue;
           }
+          if (EPI == kEpiStore) {
+            if (gelu) {
+              y0 = gelu2(y0);
+              y1 = gelu2(y1);
+            }
+            if (has_res) {
+              const float2 rv = load2(g.residual, o, res32);
+              y0 = __fadd_rn(y0, rv.x);
+              y1 = __fadd_rn(y1, rv.y);
+            }
+            if (keep_max) rmax[hf] = fmaxf(rmax[hf], fmaxf(fabsf(y0), fabsf(y1)));
+          }
+          store2(g.out[z], o, y0, y1, out32);
         }
       }
-      if (EPI == kEpiGelu && g.amax_out != nullptr) {
+      if (keep_max) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           float v = rmax[hf];
           v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
           v = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
           const int r = m0 + wm * 32 + i * 16 + gq + hf * 8;
-          // |u| >= 0, so its bits order as ints do
-          if (tq == 0 && r < M) atomicMax(reinterpret_cast<int*>(g.amax_out + r), __float_as_int(v));
+          // |y| >= 0, so its bits order as ints do
+          if (tq == 0 && r < M)
+            atomicMax(reinterpret_cast<int*>(g.amax_out + static_cast<size_t>(r) * g.nch + chunk),
+                      __float_as_int(v));
         }
       }
     }
   }
+}
+
+// Row max |a| of a (M, K) bf16 matrix, one warp per row (the dynamic row
+// scale of a dense whose input is too wide for a panel).
+__global__ void __launch_bounds__(256) row_amax_kernel(const __nv_bfloat16* __restrict__ a, int M,
+                                                       int K, float* __restrict__ amax) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const __nv_bfloat16* src = a + static_cast<size_t>(row) * K;
+  float m = 0.0f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 w = *reinterpret_cast<const uint4*>(src + k);
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      m = fmaxf(m, fmaxf(fabsf(__low2float(p[e])), fabsf(__high2float(p[e]))));
+  }
+  m = warp_max(m);
+  if (lane == 0) amax[row] = m;
 }
 
 int num_sms() {
@@ -351,12 +489,12 @@ int num_sms() {
   return n;
 }
 
-template <int AMODE, int NORM, bool W4, int EPI>
+template <int AMODE, int NORM, bool W4, int EPI, int EF>
 int launch_gemm(GemmArgs g, int n_w, cudaStream_t stream) {
   const int a_cols = AMODE == kPanel ? g.K : (W4 ? 2 * KS : KS);
   const int a_stages = AMODE == kInt8 ? 2 : 1;
   const size_t smem = static_cast<size_t>(a_stages) * BM * (a_cols + 16) + 2 * BN * kBStride +
-                      BM * sizeof(float);
+                      BM * (AMODE == kPanel ? 1 : g.nch) * sizeof(float);
   // A panel block builds its rows once and sweeps nt output tiles with them:
   // the fewest tiles per block that still gives two blocks per SM.
   const int tiles = g.N / BN, row_blocks = (g.M + BM - 1) / BM;
@@ -368,18 +506,18 @@ int launch_gemm(GemmArgs g, int n_w, cudaStream_t stream) {
   }
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<AMODE, NORM, W4, EPI>,
+    const cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<AMODE, NORM, W4, EPI, EF>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                200 * 1024);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  if (EPI == kEpiGelu && g.amax_out != nullptr) {
-    const cudaError_t e = cudaMemsetAsync(g.amax_out, 0, sizeof(float) * g.M, stream);
+  if (EPI == kEpiStore && (g.ef & kEfMax)) {
+    const cudaError_t e = cudaMemsetAsync(g.amax_out, 0, sizeof(float) * g.M * g.nch, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(tiles / g.nt, row_blocks, n_w);
-  int8_gemm_kernel<AMODE, NORM, W4, EPI><<<grid, kThreads, smem, stream>>>(g);
+  int8_gemm_kernel<AMODE, NORM, W4, EPI, EF><<<grid, kThreads, smem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -573,23 +711,28 @@ extern "C" int t2s_int8_limits(int which) {
   }
 }
 
-// One quantized dense launch (see GemmArgs). amode: 0 panel (a = (M, K) bf16,
-// norm 0 none / 1 adaln / 2 ln with mod (2, K) f32), 1 stream (a = (M, K) f32,
-// row scales from amax_in or static), 2 int8 (a = (M, K) int8 quantized with
-// the static scale). epi: 0 bf16, 1 bf16 + residual, 2 GELU2 f32 (+ row max
-// |u| into amax_out when it is not NULL), 3 GELU2 quantized to int8 with
-// out_inv. Up to three weights share A; each writes its own out. Returns the
-// CUDA error code.
-extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* a,
+// One quantized dense launch (see GemmArgs). amode: 0 panel (a = (M, K) bf16
+// or f32, norm 0 none / 1 adaln / 2 ln with mod (2, K) f32), 1 stream (a =
+// (M, K) f32 or bf16, row scales per K chunk from amax_in (M, nch) or static),
+// 2 int8 (a = (M, K) int8 quantized with the static scale). epi: 0 [GELU2]
+// [+ residual] -> bf16 or f32 (+ row max |y| per N chunk into amax_out (M,
+// nch) when it is not NULL), 1 GELU2 quantized to int8 with out_inv, 2 the K
+// dimension in nch chunks flushed into an f32 accumulator from the residual,
+// + bias (stream or int8 mode, W8). Up to three weights share A; each writes
+// its own out. Returns the CUDA error code.
+extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* a, int a_f32,
                               const void* mod, const void* amax_in, float s_static,
                               float inv_static, int is_static, int n_w,
                               const void* w0, const void* sc0, const void* b0, void* o0,
                               const void* w1, const void* sc1, const void* b1, void* o1,
                               const void* w2, const void* sc2, const void* b2, void* o2,
-                              const void* residual, void* amax_out, float out_inv, int M,
-                              int K, int N, void* stream) {
+                              const void* residual, int res_f32, int gelu, int out_f32,
+                              void* amax_out, float out_inv, int nch, int M, int K, int N,
+                              void* stream) {
   GemmArgs g;
   g.a = a;
+  g.ef = (gelu ? kEfGelu : 0) | (residual != nullptr ? kEfRes : 0) | (res_f32 ? kEfResF32 : 0) |
+         (out_f32 ? kEfOutF32 : 0) | (amax_out != nullptr ? kEfMax : 0) | (a_f32 ? kEfAF32 : 0);
   g.mod = static_cast<const float*>(mod);
   g.amax_in = static_cast<const float*>(amax_in);
   g.s_static = s_static;
@@ -605,43 +748,71 @@ extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* 
     g.bias[i] = static_cast<const float*>(bs[i]);
     g.out[i] = os[i];
   }
-  g.residual = static_cast<const __nv_bfloat16*>(residual);
+  g.residual = residual;
   g.amax_out = static_cast<float*>(amax_out);
   g.out_inv = out_inv;
+  g.nch = nch;
   g.nt = 1;
   g.M = M;
   g.K = K;
   g.N = N;
   const int Kb = w4 ? K / 2 : K;
-  if (M <= 0 || n_w < 1 || n_w > 3 || N % BN != 0 || Kb % KS != 0 ||
-      (amode == kPanel && (K % 128 != 0 || K > kMaxPanelK)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool bad =
+      M <= 0 || n_w < 1 || n_w > 3 || N % BN != 0 || Kb % KS != 0 || nch < 1 ||
+      (amode == kPanel && (K % 128 != 0 || K > kMaxPanelK || epi == kEpiChunked)) ||
+      (amode != kPanel && (K % nch != 0 || (K / nch) % KS != 0 || (w4 && nch != 1))) ||
+      (amax_out != nullptr && (N % nch != 0 || (N / nch) % BN != 0)) ||
+      (epi == kEpiChunked && residual == nullptr);
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define T2S_CASE(AM, NO, W4_, EP)                                         \
-  if (amode == AM && norm == NO && (w4 != 0) == W4_ && epi == EP)         \
-    return launch_gemm<AM, NO, W4_, EP>(g, n_w, s);
-  T2S_CASE(kPanel, kNormAdaLN, false, kEpiBf16)
-  T2S_CASE(kPanel, kNormAdaLN, true, kEpiBf16)
-  T2S_CASE(kPanel, kNormNone, false, kEpiResidual)
-  T2S_CASE(kPanel, kNormNone, true, kEpiResidual)
-  T2S_CASE(kPanel, kNormLN, false, kEpiGelu)
-  T2S_CASE(kPanel, kNormLN, true, kEpiGelu)
-  T2S_CASE(kPanel, kNormLN, false, kEpiGeluInt8)
-  T2S_CASE(kPanel, kNormLN, true, kEpiGeluInt8)
-  T2S_CASE(kStream, kNormNone, false, kEpiResidual)
-  T2S_CASE(kStream, kNormNone, true, kEpiResidual)
-  T2S_CASE(kInt8, kNormNone, false, kEpiResidual)
-  T2S_CASE(kInt8, kNormNone, true, kEpiResidual)
+#define T2S_CASE(AM, NO, W4_, EP, EF)                                                      \
+  if (amode == AM && norm == NO && (w4 != 0) == W4_ && epi == EP &&                        \
+      ((EF) == kEfAny || g.ef == (EF)))                                                    \
+    return launch_gemm<AM, NO, W4_, EP, (EF)>(g, n_w, s);
+  // the engines' combinations, their flags compiled in
+  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, 0)                    // q/k/v, crossq
+  T2S_CASE(kPanel, kNormAdaLN, true, kEpiStore, 0)
+  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, kEfAF32)              // K8: crossq from f32 x
+  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes)                // proj, crossproj
+  T2S_CASE(kPanel, kNormNone, true, kEpiStore, kEfRes)
+  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes | kEfOutF32)    // K8: proj -> f32 x
+  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes | kEfResF32)    // K8: crossproj + f32 x
+  T2S_CASE(kPanel, kNormLN, false, kEpiGeluInt8, 0)                    // K3 fc1, static
+  T2S_CASE(kPanel, kNormLN, true, kEpiGeluInt8, 0)
+  T2S_CASE(kPanel, kNormLN, false, kEpiStore, kEfGelu | kEfOutF32 | kEfMax)   // K3, K9 fc1
+  T2S_CASE(kPanel, kNormLN, true, kEpiStore, kEfGelu | kEfOutF32 | kEfMax)
+  T2S_CASE(kPanel, kNormLN, false, kEpiStore, kEfGelu)                 // K6 fc1
+  T2S_CASE(kStream, kNormNone, false, kEpiStore, kEfRes | kEfAF32)     // K3 fc2, dynamic
+  T2S_CASE(kStream, kNormNone, true, kEpiStore, kEfRes | kEfAF32)
+  T2S_CASE(kStream, kNormNone, false, kEpiStore, kEfRes)               // K6 fc2
+  T2S_CASE(kInt8, kNormNone, false, kEpiStore, kEfRes)                 // K3 fc2, static
+  T2S_CASE(kInt8, kNormNone, true, kEpiStore, kEfRes)
+  T2S_CASE(kStream, kNormNone, false, kEpiChunked, kEfRes | kEfAF32)   // K9 fc2, dynamic
+  T2S_CASE(kInt8, kNormNone, false, kEpiChunked, kEfRes)               // K9 fc2, static
+  // K6's other combinations (W8): the flags read at run time
+  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfAny)
+  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, kEfAny)
+  T2S_CASE(kPanel, kNormLN, false, kEpiStore, kEfAny)
+  T2S_CASE(kStream, kNormNone, false, kEpiStore, kEfAny)
 #undef T2S_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Row max |a| of a (M, K) bf16 matrix into amax (M,) f32; K a multiple of 8.
+extern "C" int t2s_int8_row_amax(const void* a, int M, int K, void* amax, void* stream) {
+  if (M <= 0 || K <= 0 || K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  row_amax_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), M, K, static_cast<float*>(amax));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Multi-head attention: q (batch*Lq, H*hd), k/v (batch*Lkv, H*hd) bf16 ->
-// out (batch*Lq, H*hd) bf16; keys >= kv_valid masked. hd 32 or 64.
+// out (batch*Lq, H*hd) bf16; keys >= kv_valid masked (0 < kv_valid <= Lkv).
+// hd 32 or 64.
 extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* out, int batch,
                             int Lq, int Lkv, int n_head, int hd, int kv_valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || Lq <= 0 || Lkv <= 0 || Lkv > 272 || kv_valid <= 0)
+  if (batch <= 0 || Lq <= 0 || Lkv <= 0 || Lkv > 272 || kv_valid <= 0 || kv_valid > Lkv)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64) return launch_mha_keys<64>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
   if (hd == 32) return launch_mha_keys<32>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);

@@ -223,17 +223,19 @@ class Diffsound(nn.Module):
 
     @torch.no_grad()
     def generate_int8(self, qp, generator: torch.Generator, cond_tokens: torch.Tensor, *,
-                      sample_type: str = "top0.85r", return_tokens: bool = False,
-                      noise: Optional[torch.Tensor] = None):
+                      sample_type: str = "top0.85r", impl: Optional[str] = None,
+                      return_tokens: bool = False, noise: Optional[torch.Tensor] = None):
         """``generate`` on the int8 serving engine ``qp`` (top-r sampling only):
-        BPE ids (B, 77) -> mel (B, H, W, 1). ``noise`` as in ``generate``."""
+        BPE ids (B, 77) -> mel (B, H, W, 1). ``impl`` picks the layers' kernel
+        path, "pallas" (the block kernels, the default) or "pallas_dense" (the
+        per-dense kernels); ``noise`` as in ``generate``."""
         from .diffusion.int8_runtime import sample_tokens_int8
 
         r, skip_step = self._int8_sample_type(sample_type)
         cond_emb = self.embed_condition(cond_tokens)
         tokens = sample_tokens_int8(qp, self.diffusion.schedule(cond_emb.device), cond_emb,
                                     generator=generator, truncation_r=r, skip_step=skip_step,
-                                    noise=noise)
+                                    noise=noise, impl=impl)
         mel = self.decode_tokens(tokens)
         if return_tokens:
             return mel, tokens

@@ -2,21 +2,38 @@
 
 Port of ``text_to_sound_synthesis_tpu/models/diffusion/int8_runtime.py``: the
 quantized-inference engine of the flagship ``Text2SpecTransformer``. Each
-layer runs as three block kernels (``ops/int8_block.py``: K4 self-attention,
-K5 cross-attention, K3 MLP) and each sampler step ends in the fused
-LN + head + sampler kernel (``ops/fused_sampler.py::fused_head_sample``, K2).
+sampler step ends in the fused LN + head + sampler kernel
+(``ops/fused_sampler.py::fused_head_sample``, K2). The layers run on one of
+two kernel paths, chosen by ``impl`` as in the JAX engine:
+
+- ``"pallas"`` (the default), the block kernels of ``ops/int8_block.py``:
+  K4 self-attention -> K5 cross-attention -> K3 MLP per layer. The JAX
+  engine's kernel-selecting switches are read at each backbone call, as the
+  JAX engine reads them: ``T2S_ATTN_PAIR=1`` runs K4 and K5 as one K8
+  (``attn_pair_block``); ``T2S_MLP_IMPL=chunked`` or ``streamed`` runs the
+  MLP as K9 (``mlp_block_chunked`` / ``mlp_block_streamed``) with
+  ``T2S_MLP_CHUNKS`` chunks (default 4 or 16); any other value is K3. A W4
+  engine always runs K4, K5 and K3, as in JAX.
+- ``"pallas_dense"``, the per-dense path: six K6 denses
+  (``ops/quant.py::fused_quant_dense_multi``) and two K7 attentions
+  (``ops/attention.py::fused_mha``) per layer. A W4 engine is unpacked
+  first, once per generation in ``sample_tokens_int8``.
+
 Weights are symmetric per output channel, int8 or nibble-packed int4
 (``weight_bits=4``); activations per-row dynamic, or static per-tensor once
 ``act_scales`` holds calibrated scales (``calibrate.py``).
 
 Differences from the JAX engine, on purpose:
 - the kernels take the unpadded sequence (no ``L_pad``), and the TPU
-  schedule choices (``_pad_plan``'s ``block_m``, ``rows_per_program``,
-  ``mha_mode``, the ``T2S_*`` environment switches) have no counterpart;
+  schedule choices have no counterpart: ``_pad_plan``'s ``block_m``,
+  ``rows_per_program``, ``mha_mode``, and the schedule-only switches
+  ``T2S_MLP_BM``, ``T2S_ATTN_ROWS``, ``T2S_ATTN_MHA``, ``T2S_MLP_PIPE``,
+  ``T2S_SPLIT_CALLS``, ``T2S_HEAD_GROUP``, ``T2S_VMEM_LIMIT_MB`` and
+  ``T2S_PAR_SEMANTICS``;
 - the condition's K/V are kept flat, (B*S, D) per layer, as the kernels read
   them;
-- there is one path: the block wrappers launch the kernels for CUDA tensors
-  and run their plain twins for CPU tensors;
+- JAX's non-kernel ``impl`` values (``"xla"``, ``"reference"``) have no
+  counterpart: every kernel wrapper runs its plain twin for CPU tensors;
 - logits are f32 on every path, as the fused tail computes them (the JAX
   engine's non-kernel path rounds them to bf16).
 ``sample_tokens_int8_sharded`` waits for the multi-GPU work.
@@ -24,13 +41,16 @@ Differences from the JAX engine, on purpose:
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ...ops import attention as attn
 from ...ops import fused_sampler as fs
 from ...ops import int8_block as ib
+from ...ops import quant
 from ...ops.quant import QuantizedWeight, quantize_weight, quantize_weight_w4, unpack_weight_w4
 
 __all__ = ["Int8Dense", "Int8Layer", "Int8Denoiser", "quantize_denoiser", "unpack_denoiser",
@@ -189,37 +209,103 @@ def _layer_mods(qp: Int8Denoiser, t: int):
 
 
 def _pair(s):
-    """A layer's (in, out) static scales, or None for dynamic quantization."""
-    return None if s[0] is None else (float(s[0]), float(s[1]))
+    """A layer's static scales of one block ((in, out), or the four of the
+    attention pair), or None for dynamic quantization."""
+    return None if s[0] is None else tuple(float(v) for v in s)
 
 
-def _int8_backbone_hidden(qp: Int8Denoiser, tokens: torch.Tensor, t: Optional[int], cond_kvs,
-                          *, mods=None) -> torch.Tensor:
-    """Pre-head activations (B*L, D) bf16: the embedding, then per layer
-    K4 -> K5 -> K3. ``mods``: per-layer ((2, D), (2, D)) AdaLN modulations for
-    this step (default: gathered from the tables at ``t``)."""
-    B, L = tokens.shape
+IMPLS = ("pallas", "pallas_dense")
+
+
+def _check_impl(impl: Optional[str]) -> str:
+    impl = "pallas" if impl is None else impl
+    if impl in ("xla", "reference"):
+        raise ValueError(f"impl={impl!r} is a non-kernel path of the JAX engine; the port has "
+                         "no counterpart (on a CPU tensor every kernel wrapper runs its plain "
+                         f"twin). Use one of {IMPLS}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl
+
+
+def _block_switches(w4: bool):
+    """(pair, mlp_impl, n_chunks) from the JAX engine's switches, read now as
+    the JAX engine reads them at each backbone call; a W4 engine runs the
+    base blocks."""
+    mlp_impl = os.environ.get("T2S_MLP_IMPL", "base")
+    if w4:
+        mlp_impl = "base"
+    n_chunks = int(os.environ.get("T2S_MLP_CHUNKS", "16" if mlp_impl == "streamed" else "4"))
+    pair = os.environ.get("T2S_ATTN_PAIR", "0") == "1" and not w4
+    return pair, mlp_impl, n_chunks
+
+
+def _blocks(qp: Int8Denoiser, x, cond_kvs, mods, act_s, B: int, L: int, S: int):
+    """impl="pallas": per layer K4 -> K5 (or K8) -> K3 (or K9)."""
     H = qp.n_head
     w4 = qp.weight_bits == 4
-    S = cond_kvs[0][0].shape[0] // B
-    mods = _layer_mods(qp, t) if mods is None else mods
-    act_s = qp.act_scales if qp.act_scales is not None else ((None,) * 6,) * len(qp.layers)
-    x = _embed(qp, tokens)
+    pair, mlp_impl, n_chunks = _block_switches(w4)
     for lyr, (ck, cv), (mod1, mod2), ls in zip(qp.layers, cond_kvs, mods, act_s):
-        x = ib.self_attn_block(x, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw, batch=B,
-                               n_head=H, q_valid=L, static_s=_pair(ls[0:2]), w4=w4)
-        x = ib.cross_attn_block(x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw, batch=B,
-                                n_head=H, kv_valid=S, static_s=_pair(ls[2:4]), w4=w4)
-        x = ib.mlp_block(x, lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw, static_s=_pair(ls[4:6]),
-                         w4=w4)
+        if pair:
+            x = ib.attn_pair_block(x, torch.cat([mod1, mod2]), ck, cv, lyr.q.qw, lyr.k.qw,
+                                   lyr.v.qw, lyr.proj.qw, lyr.crossq.qw, lyr.crossproj.qw,
+                                   batch=B, n_head=H, q_valid=L, kv_valid=S,
+                                   static_s=_pair(ls[0:4]))
+        else:
+            x = ib.self_attn_block(x, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw, batch=B,
+                                   n_head=H, q_valid=L, static_s=_pair(ls[0:2]), w4=w4)
+            x = ib.cross_attn_block(x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw, batch=B,
+                                    n_head=H, kv_valid=S, static_s=_pair(ls[2:4]), w4=w4)
+        mlp_args = (x, lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw)
+        if mlp_impl == "chunked":
+            x = ib.mlp_block_chunked(*mlp_args, n_chunks=n_chunks, static_s=_pair(ls[4:6]))
+        elif mlp_impl == "streamed":
+            x = ib.mlp_block_streamed(*mlp_args, n_chunks=n_chunks, static_s=_pair(ls[4:6]))
+        else:
+            x = ib.mlp_block(*mlp_args, static_s=_pair(ls[4:6]), w4=w4)
     return x
 
 
+def _per_dense(qp: Int8Denoiser, x, cond_kvs, mods, act_s, B: int, L: int, S: int):
+    """impl="pallas_dense": per layer six K6 denses and two K7 attentions
+    (JAX ``int8_runtime.py:455-477``)."""
+    H = qp.n_head
+    dense = quant.fused_quant_dense_multi
+    for lyr, (ck, cv), (mod1, mod2), ls in zip(qp.layers, cond_kvs, mods, act_s):
+        q, k, v = dense(x, (lyr.q.qw, lyr.k.qw, lyr.v.qw), norm="adaln", mod=mod1,
+                        s_static=ls[0])
+        y = attn.fused_mha(q, k, v, batch=B, n_head=H, kv_valid=L)
+        (x,) = dense(y, (lyr.proj.qw,), residual=x, s_static=ls[1])
+        (q2,) = dense(x, (lyr.crossq.qw,), norm="adaln", mod=mod2, s_static=ls[2])
+        y = attn.fused_mha(q2, ck, cv, batch=B, n_head=H, kv_valid=S)
+        (x,) = dense(y, (lyr.crossproj.qw,), residual=x, s_static=ls[3])
+        (h,) = dense(x, (lyr.fc1.qw,), norm="ln", mod=lyr.ln2_mod, act="gelu2", s_static=ls[4])
+        (x,) = dense(h, (lyr.fc2.qw,), residual=x, s_static=ls[5])
+    return x
+
+
+def _int8_backbone_hidden(qp: Int8Denoiser, tokens: torch.Tensor, t: Optional[int], cond_kvs,
+                          *, impl: str = "pallas", mods=None) -> torch.Tensor:
+    """Pre-head activations (B*L, D) bf16: the embedding, then the layers on
+    the ``impl`` path (module docstring). ``mods``: per-layer ((2, D), (2, D))
+    AdaLN modulations for this step (default: gathered from the tables at
+    ``t``)."""
+    impl = _check_impl(impl)
+    if impl == "pallas_dense":
+        qp = unpack_denoiser(qp)   # only the block kernels take packed W4
+    B, L = tokens.shape
+    S = cond_kvs[0][0].shape[0] // B
+    mods = _layer_mods(qp, t) if mods is None else mods
+    act_s = qp.act_scales if qp.act_scales is not None else ((None,) * 6,) * len(qp.layers)
+    run = _blocks if impl == "pallas" else _per_dense
+    return run(qp, _embed(qp, tokens), cond_kvs, mods, act_s, B, L, S)
+
+
 def int8_backbone_logits(qp: Int8Denoiser, tokens: torch.Tensor, t: int, cond_kvs, *,
-                         mods=None) -> torch.Tensor:
+                         impl: str = "pallas", mods=None) -> torch.Tensor:
     """Raw denoiser logits (B, L, K-1) f32 (final LN -> bf16 -> head, f32 sum)."""
     B, L = tokens.shape
-    x = _int8_backbone_hidden(qp, tokens, t, cond_kvs, mods=mods)
+    x = _int8_backbone_hidden(qp, tokens, t, cond_kvs, impl=impl, mods=mods)
     return fs.head_logits(x, qp.norm_out, qp.head_w, qp.head_b).reshape(B, L, -1)
 
 
@@ -233,15 +319,20 @@ def sample_tokens_int8(
     truncation_r: float = 0.0,
     skip_step: int = 0,
     noise: Optional[torch.Tensor] = None,   # (n_steps, B, L, K) Gumbel noise in place of draws
+    impl: Optional[str] = None,             # "pallas" (default) or "pallas_dense"
 ) -> torch.Tensor:
     """Reverse sampler on the int8 engine; returns (B, L) int32 tokens.
 
-    Per step: the embedding, per layer K4 -> K5 -> K3, then K2 (final LN,
-    head and the sampler step; step ``idx`` keyed on ``(seed_base, idx)``).
-    The condition K/V, the AdaLN modulations of the whole plan and the step
-    coefficients are computed once before the loop."""
+    Per step: the embedding, the layers on the ``impl`` path (module
+    docstring), then K2 (final LN, head and the sampler step; step ``idx``
+    keyed on ``(seed_base, idx)``). The condition K/V, the AdaLN modulations
+    of the whole plan, the step coefficients and, for a W4 engine on the
+    per-dense path, the unpacked weights are made once before the loop."""
     from .process import _timestep_plan
 
+    impl = _check_impl(impl)
+    if impl == "pallas_dense":
+        qp = unpack_denoiser(qp)   # once per generation, not once per step
     device = cond_emb.device
     K, T, L = qp.tok_emb.shape[0], qp.num_timesteps, qp.seq_len
     B, D = cond_emb.shape[0], qp.tok_emb.shape[-1]
@@ -257,7 +348,7 @@ def sample_tokens_int8(
                 for lyr in qp.layers]
     tokens = torch.full((B * L,), K - 1, dtype=torch.int32, device=device)   # all-MASK
     for idx in range(len(ts)):
-        x = _int8_backbone_hidden(qp, tokens.reshape(B, L), None, kvs,
+        x = _int8_backbone_hidden(qp, tokens.reshape(B, L), None, kvs, impl=impl,
                                   mods=[(a[idx], b[idx]) for a, b in mods_seq])
         g = None if noise is None else noise[idx].reshape(B * L, K)
         tokens = fs.fused_head_sample(x, tokens, qp.norm_out, qp.head_w, qp.head_b,

@@ -1,8 +1,12 @@
-"""Plain multi-head attention over the flat (B*L, D) layout (PyTorch port).
+"""Multi-head attention over the flat (B*L, D) layout (PyTorch port).
 
-Port of ``mha_reference`` from ``text_to_sound_synthesis_tpu/ops/attention.py``:
-the attention the int8 block twins use. The TPU kernel ``fused_mha`` (K7) is
-not ported yet.
+Port of ``text_to_sound_synthesis_tpu/ops/attention.py``: ``mha_reference``,
+the plain attention that the int8 twins use, and K7 ``fused_mha``, the
+attention of the engine's per-dense path. ``fused_mha`` launches the
+attention kernel of ``csrc/int8_block.cu`` on its own for a CUDA tensor (the
+blocks K4, K5 and K8 launch the same kernel inside their own schedules and do
+not count here) and runs ``mha_reference`` for a CPU one; it counts its calls
+in ``.launches``. The TPU's ``interpret`` option is not carried over.
 """
 
 from __future__ import annotations
@@ -11,7 +15,9 @@ import math
 
 import torch
 
-__all__ = ["mha_reference"]
+from . import int8_kernels as ik
+
+__all__ = ["fused_mha", "mha_reference"]
 
 
 def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int):
@@ -29,3 +35,31 @@ def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int):
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = (p.float() @ vh.float()).to(q.dtype)
     return o.transpose(1, 2).reshape(M, D)
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, n_head: int,
+              kv_valid: int) -> torch.Tensor:
+    """K7: q (B*Lq, D), k/v (B*Lkv, D) bf16 -> (B*Lq, D) bf16, keys at or
+    beyond ``kv_valid`` masked; what ``mha_reference`` computes. On the card:
+    one block per (batch, head), head width 32 or 64, at most 272 keys."""
+    if not ik.on_cuda(q, "fused_mha"):
+        return mha_reference(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
+    lib = ik.load_kernel()
+    M, D = q.shape
+    Mkv = k.shape[0]
+    ik.check("q", q, (M, D), torch.bfloat16, q.device)
+    ik.check("k", k, (Mkv, D), torch.bfloat16, q.device)
+    ik.check("v", v, (Mkv, D), torch.bfloat16, q.device)
+    if M % batch or Mkv % batch or D % n_head or D // n_head not in (32, 64):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, batch {batch}, {n_head} heads: "
+                         "the kernel takes rows = batch * length and a head width of 32 or 64")
+    Lkv = Mkv // batch
+    if not 0 < kv_valid <= Lkv or Lkv > lib.t2s_int8_limits(3):
+        raise ValueError(f"kv_valid {kv_valid} and key length {Lkv} out of the kernel's range "
+                         f"(0 < kv_valid <= keys <= {lib.t2s_int8_limits(3)})")
+    out = ik.mha(lib, q, k, v, batch, n_head, kv_valid)
+    fused_mha.launches += 1
+    return out
+
+
+fused_mha.launches = 0
