@@ -8,7 +8,9 @@ bf16, batch 8, 100 steps, ``top0.85r``), then for the bf16 path
 (``generate``), the W4A8 static-scale engine (``quantize_for_serving(4)``
 -> ``calibrate_serving_engine`` -> ``generate_int8``) and the W8A8 dynamic
 engine (``quantize_for_serving()``) on its block path and on its per-dense
-path (``generate_int8(impl="pallas_dense")``): one warm-up request,
+path (``generate_int8(impl="pallas_dense")``), the W4A8 engine with the int8
+MHA (``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``) and the W4A8 engine's long-form
+request (``generate_long``, 2120 frames, 24 sampler rows): one warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Prints the card line, each
 path's request time, its device time and idle share (1 - device time /
@@ -71,6 +73,11 @@ def main() -> int:
     for impl in ("pallas", "pallas_dense"):
         profile(f"W8A8 dynamic {impl}",
                 lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r", impl=impl))
+    with cs.switches(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base"):
+        profile("W4A8 static, int8 MHA",
+                lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+    profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
+            lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))
     return 0
 
 

@@ -8,7 +8,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
 1. device  — a CUDA card must be present; prints its name and power limit.
 2. build   — builds every kernel from ``csrc/`` with nvcc, one process per
              source, all at once: K1 (fused_sampler.cu), K3-K9
-             (int8_block.cu) and K2 (fused_head_sample.cu).
+             (int8_block.cu), K2 (fused_head_sample.cu) and K10
+             (mha_int8.cu).
 3. K1      — the kernel against its plain PyTorch version at the slice's
              shape (2120 rows x 256 classes): bf16 and f32 logits, r 0 and
              0.85, t_post 0, 50 and 99; Philox determinism and sampled
@@ -19,8 +20,14 @@ Phases (any failed check exits nonzero, and no result line is printed):
              its plain version and against K1 on the same logits; then, W8,
              dynamic and static, K6 at the per-dense path's six sites and
              single, K7 at 265 and 77 keys with and without masked tails, K8
-             full and masked, K9 at 4 and 16 chunks; eager and CUDA-graph
-             times, kernel and plain.
+             full and masked, K9 at 4 and 16 chunks; then K10, the int8
+             MHA, and the bf16 MHA with its softmax divide folded, at 265
+             and 77 keys with and without masked tails (their v four times
+             larger), K10 also on the share of outputs more than K10_ULPS
+             bf16 ulps off, a gate the bf16 MHA must fail; K4, K5 (W8 and
+             W4) and K8 with the int8 MHA, dynamic and static scales; eager
+             and CUDA-graph times, kernel and plain, and for K7 the time of
+             ``scaled_dot_product_attention`` on the same tensors.
 5. slice   — builds the flagship model from ``configs/diffsound_audiocaps.yaml``
              in bf16 on the card (19 layers, d1024, 16 heads, 265 tokens, full
              VQGAN decoder, MelGAN ngf 32) with seeded random weights, checks
@@ -44,11 +51,22 @@ Phases (any failed check exits nonzero, and no result line is printed):
              (K6 multi = 6 x 19 x 100, K7 = 2 x 19 x 100), pair + chunked
              twice (K8 = K9 chunked = 19 x 100) and pair + streamed once
              (K8 = K9 streamed = 19 x 100), K2 = 100 each, every other count 0.
-8. times   — each path's request time and clips/s, beside the card's name
+8. int8 attention — the W4A8 engine of phase 6 under ``T2S_ATTN_INT8=1
+             T2S_ATTN_MHA=base``: three steps checked as in phase 6, then two
+             requests (K10 = 2 x 19 x 100, K4 = K5 = K3 = 19 x 100, K2 = 100);
+             one W8 request of phase 7's engine under ``T2S_ATTN_PAIR=1
+             T2S_ATTN_INT8=1`` (K8 = K3 = 19 x 100, K10 = 2 x 19 x 100).
+9. long    — one W4A8 ``generate_long`` request, batch 8, 2120 frames: 24
+             sampler rows in one sampler call (K2 = 100, K4 = K5 = K3 = 19 x
+             100), a finite (8, 80, 2120, 1) mel whose cross-fade agrees with
+             its segments, then the wav in [-1, 1].
+10. times  — each path's request time and clips/s, beside the card's name
              and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the kernels' record. Imports nothing of JAX.
+the kernels' record, each kernel with its bound at the timed shapes (the
+largest of its bytes over the memory rate, its dots over the tensor cores'
+peak rates and its f32 work over the f32 peak). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,6 +102,13 @@ FREQ_SEEDS = 2000
 # across a .5 step of the int8 grid ("int8 flips"), which moves a few outputs
 # by a few bf16 ulps.
 BLOCK_TOL = 2e-2
+# K10 against its twin, besides BLOCK_TOL: the integer dots are exact, so
+# only P's int8 rounding may differ (a P value on a .5 step of its grid after
+# an ulp of exp). That moved 0.08-1.04 % of the outputs by more than one bf16
+# ulp (H100 runs, PERF.md); at most K10_SHARE of them may lie more than
+# K10_ULPS ulps off. The bf16 MHA lies that far from the int8 twin on about
+# half of the outputs, so the phase also checks that this gate fails it.
+K10_ULPS, K10_SHARE = 2, 2e-2
 # K8 in the serving loop: its two halves run on the model's activations with
 # no reset to the twins' input between them, so an int8 flip of the self half
 # reaches the cross half, as two blocks composed; JAX holds its pair kernel to
@@ -103,6 +128,20 @@ PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
 # are not bitwise equal, so a Gumbel near-tie can tip).
 K2_POST_ATOL = 5e-3
 N_LAYER, D_MODEL, N_HEAD, L_TOK, S_COND, D_MLP = 19, 1024, 16, 265, 77, 4096
+LONG_FRAMES = 2120
+
+# The least time the card could take for a kernel's work: the largest of the
+# bytes it must move (each input read once, each output written once) over
+# the memory rate, its dots over the tensor cores' peak rates, and its f32
+# work over the f32 peak (``_bound``).
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# f32 operations per (row, class) that the sampler step's function needs
+# (K1, K2's tail): log-softmax 4, the posterior's log-add-exps 10, the Gumbel
+# add and argmax 2. The nucleus threshold's search is the algorithm's cost (a
+# bisection in the kernels), not counted.
+SAMPLER_OPS = 16
 
 
 class CheckFailed(Exception):
@@ -237,13 +276,14 @@ def phase_kernel(fs, dd, dev):
     return max_err, ms, plain_ms
 
 
-def _ulp_flips(got: torch.Tensor, want: torch.Tensor) -> int:
-    """Elements off by more than one bf16 ulp of the plain value: differences
-    a single final rounding cannot explain (int8 flips upstream)."""
+def _ulp_flips(got: torch.Tensor, want: torch.Tensor, ulps: int = 1) -> int:
+    """Elements off by more than ``ulps`` bf16 ulps of the plain value: at
+    one, differences a single final rounding cannot explain (int8 flips
+    upstream)."""
     w = want.float()
     ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
                       torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
-    return int(((got.float() - w).abs() > ulp).sum())
+    return int(((got.float() - w).abs() > ulps * ulp).sum())
 
 
 def _block_err(got, want, what: str = "", tol: float = BLOCK_TOL,
@@ -429,7 +469,8 @@ def phase_schedules(dev):
     plain versions at the flagship shapes, W8, dynamic and static scales.
     Returns {name: (max_abs_err, ms, plain_ms)} with times of the served mode
     (W8, dynamic scales): K6 multi per call averaged over a layer's six
-    sites, K7 over its two attentions."""
+    sites, K7 over its two attentions; also the time of PyTorch's one call for
+    K7's function."""
     from text_to_sound_synthesis_torch.ops import attention as attn
     from text_to_sound_synthesis_torch.ops import int8_block as ib
     from text_to_sound_synthesis_torch.ops import quant
@@ -523,12 +564,14 @@ def phase_schedules(dev):
     times["fused_quant_dense"] = time_pair(
         "fused_quant_dense W8 dynamic fc1", lambda: quant.fused_quant_dense(*args, **kw),
         lambda: quant.quant_dense_reference(*args, **kw))
-    mha_times = []
+    mha_times, sdpa_times = [], []
     for label, (qkv, valid) in mha_cases().items():
         if "masked" not in label:
             kw = dict(batch=BATCH, n_head=N_HEAD, kv_valid=valid)
             mha_times.append(time_pair(f"fused_mha {label}", lambda: attn.fused_mha(*qkv, **kw),
                                        lambda: attn.mha_reference(*qkv, **kw)))
+            sdpa_times.append(time_sdpa(f"fused_mha {label}", qkv,
+                                        attn.mha_reference(*qkv, **kw)))
     times["fused_mha"] = tuple(sum(t) / len(t) for t in zip(*mha_times))
     times["attn_pair_block"] = time_pair("attn_pair_block W8 dynamic", *pair(False))
     times["mlp_block_chunked"] = time_pair("mlp_block_chunked W8 dynamic, 4 chunks",
@@ -538,8 +581,142 @@ def phase_schedules(dev):
     print(f"  per call, the served mode (W8 dynamic): K6 multi averaged over a layer's six "
           f"sites {times['fused_quant_dense_multi'][0]:.4f} ms (plain "
           f"{times['fused_quant_dense_multi'][1]:.4f} ms), K7 over its two attentions "
-          f"{times['fused_mha'][0]:.4f} ms (plain {times['fused_mha'][1]:.4f} ms)")
-    return {name: (errs[name], *t) for name, t in times.items()}, quant.fused_quant_dense.launches
+          f"{times['fused_mha'][0]:.4f} ms (plain {times['fused_mha'][1]:.4f} ms, "
+          f"scaled_dot_product_attention {sum(sdpa_times) / len(sdpa_times):.4f} ms)")
+    return ({name: (errs[name], *t) for name, t in times.items()},
+            quant.fused_quant_dense.launches, {"fused_mha": sum(sdpa_times) / len(sdpa_times)})
+
+
+def time_sdpa(label: str, qkv, want) -> float:
+    """PyTorch's one call for the bf16 MHA, ``scaled_dot_product_attention``
+    on the same q, k, v as (B, H, L, hd) views, no key masked: returns its
+    eager time per call, the faster of two runs, as the kernels' (prints its
+    CUDA-graph time too). A yardstick only; the port never calls it. Checks
+    that it computes the same function (within BLOCK_TOL)."""
+    hd = D_MODEL // N_HEAD
+    q, k, v = (t.view(BATCH, -1, N_HEAD, hd).transpose(1, 2) for t in qkv)
+    call = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    _block_err(call().transpose(1, 2).reshape(want.shape), want, f"{label} SDPA: ")
+    ms = min(cuda_time_ms(call, iters=20, warmup=3), cuda_time_ms(call, iters=20, warmup=3))
+    print(f"  {label}, scaled_dot_product_attention per call: eager {ms:.4f} ms, CUDA graph "
+          f"{graph_time_ms(call, reps=10, replays=5):.4f} ms")
+    return ms
+
+
+def phase_int8_attention(dev):
+    """Phase 4 (cont.): K10 and the folded bf16 MHA against their plain
+    versions at the flagship shapes, then K4, K5 (W8 and W4) and K8 with the
+    int8 MHA, dynamic and static scales. Returns {name: (max_abs_err, ms,
+    plain_ms)}: K10 and the folded MHA averaged over the self and the cross
+    attention, K4 / K5 with the int8 MHA in the served mode (W4 static)."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+    from text_to_sound_synthesis_torch.ops.quant import quantize_weight, quantize_weight_w4
+
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=gen, device=dev) * scale
+    M, D = BATCH * L_TOK, D_MODEL
+    x = rnd(M, D).bfloat16()
+    v_self = (rnd(M, D) * 0.5).bfloat16()
+    mods = rnd(4, D, scale=0.2)
+    ck, cv = rnd(BATCH * S_COND, D).bfloat16(), rnd(BATCH * S_COND, D).bfloat16()
+    raw = [(rnd(D, D, scale=0.03), rnd(D, scale=0.05)) for _ in range(6)]
+    lib = ik.load_kernel()
+
+    def tail(v, keys, valid):
+        """v with its masked keys four times larger, so that they set V's
+        column scale (taken over all keys, masked ones included)."""
+        v = v.clone()
+        v.view(BATCH, keys, D)[:, valid:] *= 4
+        return v
+
+    cases = {f"self {L_TOK} keys": ((x, x, v_self), L_TOK),
+             f"self {L_TOK} keys, from {L_TOK - 9} masked (their v x 4)":
+                 ((x, x, tail(v_self, L_TOK, L_TOK - 9)), L_TOK - 9),
+             f"cross {S_COND} keys": ((x, ck, cv), S_COND),
+             f"cross {S_COND} keys, from {S_COND - 20} masked (their v x 4)":
+                 ((x, ck, tail(cv, S_COND, S_COND - 20)), S_COND - 20)}
+
+    def k10(qkv, valid):
+        kw = dict(batch=BATCH, n_head=N_HEAD, kv_valid=valid)
+        return (lambda: ib.mha_inline_int8(*qkv, **kw),
+                lambda: ib.mha_inline_int8_reference(*qkv, **kw).bfloat16())
+
+    def fold(qkv, valid):
+        return (lambda: ik.mha(lib, *qkv, BATCH, N_HEAD, valid, fold_div=True),
+                lambda: attn.mha_reference(*qkv, batch=BATCH, n_head=N_HEAD, kv_valid=valid,
+                                           fold_div=True))
+
+    def blocks(w4, st):
+        q = quantize_weight_w4 if w4 else quantize_weight
+        w = [q(a, b) for a, b in raw]
+        s2 = (0.035, 0.02) if st else None
+        kw = dict(batch=BATCH, n_head=N_HEAD, attn="int8")
+        out = {"self_attn_block": (ib.self_attn_block, ib.self_attn_block_reference,
+                                   (x, mods[:2], *w[:4]),
+                                   dict(q_valid=L_TOK, static_s=s2, w4=w4, **kw)),
+               "cross_attn_block": (ib.cross_attn_block, ib.cross_attn_block_reference,
+                                    (x, mods[2:], ck, cv, *w[4:]),
+                                    dict(kv_valid=S_COND, static_s=s2, w4=w4, **kw))}
+        if not w4:
+            out["attn_pair_block"] = (ib.attn_pair_block, ib.attn_pair_block_reference,
+                                      (x, mods, ck, cv, *w),
+                                      dict(q_valid=L_TOK, kv_valid=S_COND,
+                                           static_s=None if s2 is None else s2 * 2, **kw))
+        return out
+
+    errs = {}
+
+    def run(name, label, kern, plain, tol=BLOCK_TOL, outliers=0.0):
+        want = plain()
+        got = kern()
+        torch.cuda.synchronize()
+        err, flips, n, _ = _check_outputs(got, want, f"{name} {label}: ", tol, outliers)
+        errs[name] = max(errs.get(name, 0.0), err)
+        beyond = int(((got.float() - want.float()).abs()
+                      > BLOCK_TOL + BLOCK_TOL * want.float().abs()).sum())
+        print(f"  {name:<23} {label}: max|d| {err:.3e}, elements off by > 1 bf16 ulp "
+              f"{flips}/{n}, beyond {BLOCK_TOL} {beyond}")
+        return got, want
+
+    for label, (qkv, valid) in cases.items():
+        got, want = run("mha_inline_int8", label, *k10(qkv, valid))
+        # the gate on P's rounding, and the bf16 MHA (plain, kernel) as its control
+        bf16 = (attn.mha_reference(*qkv, batch=BATCH, n_head=N_HEAD, kv_valid=valid),
+                ik.mha(lib, *qkv, BATCH, N_HEAD, valid))
+        n, far = want.numel(), _ulp_flips(got, want, K10_ULPS)
+        ctrl = [_ulp_flips(c, want, K10_ULPS) for c in bf16]
+        print(f"  mha_inline_int8         {label}: elements more than {K10_ULPS} bf16 ulps off "
+              f"{far}/{n} (gate {K10_SHARE}); the bf16 MHA against the int8 twin, plain "
+              f"{ctrl[0]}/{n}, kernel {ctrl[1]}/{n}")
+        check(far <= K10_SHARE * n, f"mha_inline_int8 {label}: {far}/{n} elements more than "
+              f"{K10_ULPS} bf16 ulps off")
+        check(min(ctrl) > K10_SHARE * n, f"mha_inline_int8 {label}: the gate passes the bf16 MHA")
+        run("mha folded divide", label, *fold(qkv, valid))
+    for w4 in (False, True):
+        for st in (False, True):
+            tag = f"{'W4' if w4 else 'W8'} {'static' if st else 'dynamic'}, int8 MHA"
+            for name, (kern, plain, args, kw) in blocks(w4, st).items():
+                # K8: two blocks, x in f32 between them; with the int8 MHA
+                # its flips reach the cross half as in phase 7's serving loop
+                gate = (PAIR_TOL, PAIR_OUTLIERS) if name == "attn_pair_block" else (BLOCK_TOL, 0.0)
+                run(name, tag, lambda: kern(*args, **kw), lambda: plain(*args, **kw), *gate)
+
+    times = {}
+    for name, make in (("mha_inline_int8", k10), ("mha folded divide", fold)):
+        per = [time_pair(f"{name} {label}", *make(qkv, valid))
+               for label, (qkv, valid) in cases.items() if "masked" not in label]
+        times[name] = (errs[name], *(sum(t) / len(t) for t in zip(*per)))
+    for name, (kern, plain, args, kw) in blocks(True, True).items():
+        times[name] = (errs[name], *time_pair(f"{name} W4 static, int8 MHA",
+                                              lambda: kern(*args, **kw),
+                                              lambda: plain(*args, **kw)))
+    print(f"  per call, averaged over the self and the cross attention: K10 "
+          f"{times['mha_inline_int8'][1]:.4f} ms (plain {times['mha_inline_int8'][2]:.4f} ms), "
+          f"folded bf16 MHA {times['mha folded divide'][1]:.4f} ms (plain "
+          f"{times['mha folded divide'][2]:.4f} ms)")
+    return times
 
 
 def caption_ids(rng) -> torch.Tensor:
@@ -597,12 +774,13 @@ def request(generate, vocoder, seed, dev):
     return seconds
 
 
-def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op):
+def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op, attn: str = "bf16"):
     """One layer of the int8 engine on ``schedule`` through ``op(kernel,
     plain, args, kw)``, which checks the kernel on the plain version's input
     and returns the plain output: "blocks" K4 -> K5 -> K3, "pair_chunked" K8
-    -> K9 (4 chunks), "dense" six K6 and two K7."""
-    from text_to_sound_synthesis_torch.ops import attention as attn
+    -> K9 (4 chunks), "dense" six K6 and two K7; the attention blocks with
+    the ``attn`` MHA."""
+    from text_to_sound_synthesis_torch.ops import attention as ta
     from text_to_sound_synthesis_torch.ops import int8_block as ib
     from text_to_sound_synthesis_torch.ops import quant
 
@@ -610,7 +788,7 @@ def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op):
     L, S = xp.shape[0] // BATCH, ck.shape[0] // BATCH
     if schedule == "dense":
         dense, ref = quant.fused_quant_dense_multi, quant.quant_dense_multi_reference
-        mha = lambda q, k, v, valid: op(attn.fused_mha, attn.mha_reference, (q, k, v),
+        mha = lambda q, k, v, valid: op(ta.fused_mha, ta.mha_reference, (q, k, v),
                                         dict(batch=BATCH, n_head=H, kv_valid=valid))
         q, k, v = op(dense, ref, (xp, (lyr.q.qw, lyr.k.qw, lyr.v.qw)),
                      dict(norm="adaln", mod=mod1, s_static=ls[0]))
@@ -628,24 +806,26 @@ def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op):
         x = op(ib.attn_pair_block, ib.attn_pair_block_reference,
                (xp, torch.cat([mod1, mod2]), ck, cv, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw,
                 lyr.crossq.qw, lyr.crossproj.qw),
-               dict(batch=BATCH, n_head=H, q_valid=L, kv_valid=S, static_s=rt._pair(ls[0:4])))
+               dict(batch=BATCH, n_head=H, q_valid=L, kv_valid=S, static_s=rt._pair(ls[0:4]),
+                    attn=attn))
         return op(ib.mlp_block_chunked, ib.mlp_chunked_reference, (x, *mlp_args),
                   dict(n_chunks=4, static_s=rt._pair(ls[4:6])))
     w4 = dict(w4=qp.weight_bits == 4)
     x = op(ib.self_attn_block, ib.self_attn_block_reference,
            (xp, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw),
-           dict(batch=BATCH, n_head=H, q_valid=L, static_s=rt._pair(ls[0:2]), **w4))
+           dict(batch=BATCH, n_head=H, q_valid=L, static_s=rt._pair(ls[0:2]), attn=attn, **w4))
     x = op(ib.cross_attn_block, ib.cross_attn_block_reference,
            (x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw),
-           dict(batch=BATCH, n_head=H, kv_valid=S, static_s=rt._pair(ls[2:4]), **w4))
+           dict(batch=BATCH, n_head=H, kv_valid=S, static_s=rt._pair(ls[2:4]), attn=attn, **w4))
     return op(ib.mlp_block, ib.mlp_block_reference, (x, *mlp_args),
               dict(static_s=rt._pair(ls[4:6]), **w4))
 
 
 def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks",
-                    impl: str = "pallas"):
+                    impl: str = "pallas", attn: str = "bf16"):
     """Three int8 sampler steps (the top0.85r,fast49 plan), kernels against
-    the plain twins on one supplied noise. Each step starts both paths from
+    the plain twins on one supplied noise (the attention blocks' twins with
+    the ``attn`` MHA). Each step starts both paths from
     the plain path's tokens, so a row that tips at one step does not change
     the next step's inputs. The plain path is the twins of ``schedule``
     composed here, layer by layer (``_plain_layer``); on its input each
@@ -696,7 +876,7 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
                                        0, i, truncation_r=0.85, gumbel=g)
             xp = rt._embed(qp, tokens.reshape(BATCH, L))
             for lyr, (ck, cv), mods, ls in zip(qp.layers, kvs, rt._layer_mods(qp, t), act_s):
-                xp = _plain_layer(schedule, qp, rt, xp, lyr, ck, cv, mods, ls, op)
+                xp = _plain_layer(schedule, qp, rt, xp, lyr, ck, cv, mods, ls, op, attn)
             want, _ = fs.head_sample_reference(xp, tokens, qp.norm_out, qp.head_w, qp.head_b,
                                                coeffs[i], gumbel=g, truncation_r=0.85)
             per_step.append((rel(x, xp), int((got != want).sum())))
@@ -704,7 +884,7 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
     rows = BATCH * L
     errs = {k: float(f"{v:.3e}") for k, v in stats["err"].items()}
     pair = f", K8 outputs beyond {PAIR_TOL} {stats['beyond']}" if "attn_pair_block" in errs else ""
-    print(f"  {schedule}: 3 steps (top0.85r,fast49) kernels vs plain twins, from the same "
+    print(f"  {schedule}, {attn} MHA: 3 steps (top0.85r,fast49) kernels vs plain twins, from the same "
           f"tokens each step: each kernel call on the twins' input within its gate (max|d| "
           f"{errs}, elements off by > 1 bf16 ulp {stats['flips']}/{stats['n']}{pair}); after "
           f"{len(qp.layers)} layers backbone output "
@@ -739,7 +919,8 @@ def _counters():
     return {"K1": fs.fused_p_sample, "K2": fs.fused_head_sample, "K3": ib.mlp_block,
             "K4": ib.self_attn_block, "K5": ib.cross_attn_block, "K6": quant.fused_quant_dense,
             "K6m": quant.fused_quant_dense_multi, "K7": attn.fused_mha, "K8": ib.attn_pair_block,
-            "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed}
+            "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed,
+            "K10": ib.mha_inline_int8}
 
 
 def reset_counts():
@@ -793,7 +974,176 @@ def phase_w8(model, fs, dd, vocoder, cond_tokens, dev):
               f"{w8_times[path][-1]:.3f} s; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return w8_times, w8_counts
+    return w8_times, w8_counts, qp8
+
+
+def phase_attention_serving(model, qp, qp8, fs, dd, vocoder, cond_tokens, dev):
+    """Phase 8: the engines with the int8 MHA (module docstring). Returns
+    each path's request times and the launches summed over its requests."""
+    LN = N_LAYER * N_STEPS
+    base = dict(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base")
+    with switches(**base):
+        check_int8_loop(model, qp, fs, dd, cond_tokens, dev, attn="int8")
+    # path: (engine, switches, launches per request)
+    paths = {"W4A8 static": (qp, base, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN,
+                                                       K10=2 * LN)),
+             "W8 dynamic pair": (qp8, dict(T2S_ATTN_PAIR="1", T2S_ATTN_INT8="1"),
+                                 expected_counts(K2=N_STEPS, K3=LN, K8=LN, K10=2 * LN))}
+    times, total = {p: [] for p in paths}, {k: 0 for k in _counters()}
+    for i, path in enumerate(("W4A8 static", "W8 dynamic pair", "W4A8 static")):
+        engine, env, want = paths[path]
+        generate = lambda g: model.generate_int8(engine, g, cond_tokens, sample_type="top0.85r",
+                                                 return_tokens=True)
+        with switches(**env):
+            reset_counts()
+            times[path].append(request(generate, vocoder, SEED + i, dev))
+            counts = read_counts()
+        check(counts == want, f"int8 MHA {path}: launches {counts} per request, expected {want}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        print(f"  {path} request with the int8 MHA, batch {BATCH} x {N_STEPS} steps: "
+              f"{times[path][-1]:.3f} s; launches { {k: v for k, v in counts.items() if v} }")
+    return times, total
+
+
+def phase_long(model, qp, vocoder, cond_tokens, dev):
+    """Phase 9: one W4A8 ``generate_long`` request (module docstring).
+    Returns its seconds, caption ids to wav.
+
+    The cross-fade is checked against the segments it was given (captured
+    from the one sampler call): where one segment alone covers a frame its
+    weight is 1 and the output is that segment's frame exactly; everywhere
+    the output is the weighted mean of the covering segments, recomputed in
+    float64 on the host, to a bf16 rounding or two. The mel of random
+    weights is not bounded (the codec's decoder ends in a convolution), so
+    its range is printed, not checked; the wav is in [-1, 1]."""
+    LN = N_LAYER * N_STEPS
+    seg, ov = 848, 160
+    hop = seg - ov
+    n_seg = -(-(LONG_FRAMES - seg) // hop) + 1
+    segments = []
+    real = model.generate_int8
+
+    def spy(engine, g, c, **kw):
+        mel = real(engine, g, c, **kw)
+        segments.append(mel)
+        return mel
+
+    model.generate_int8 = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        mel = model.generate_long(torch.Generator(dev).manual_seed(SEED), cond_tokens,
+                                  duration_frames=LONG_FRAMES, overlap_frames=ov, qp=qp)
+        wav = vocoder((mel[..., 0].float() + 1.0) / 2.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        del model.generate_int8
+    want = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)
+    rows = [s.shape[0] for s in segments]
+    check(rows == [BATCH * n_seg], f"long: sampler calls of {rows} rows, expected one of "
+          f"{BATCH * n_seg}")
+    check(counts == want, f"long: launches {counts}, expected {want}")
+    check(tuple(mel.shape) == (BATCH, 80, LONG_FRAMES, 1), f"long: mel shape {tuple(mel.shape)}")
+    check(bool(torch.isfinite(mel).all()), "long: mel not finite")
+    check(tuple(wav.shape) == (BATCH, LONG_FRAMES * 256), f"long: wav shape {tuple(wav.shape)}")
+    check(bool(torch.isfinite(wav).all()) and float(wav.abs().max()) <= 1.0,
+          "long: wav not finite or outside [-1, 1]")
+    segs = segments[0].reshape(BATCH, n_seg, 80, seg, 1)
+    for i in range(n_seg):
+        lo = i * hop + (ov if i else 0)
+        hi = min(i * hop + (hop if i < n_seg - 1 else seg), LONG_FRAMES)
+        check(torch.equal(mel[:, :, lo:hi], segs[:, i, :, lo - i * hop:hi - i * hop]),
+              f"long: frames {lo}-{hi} differ from segment {i}, their only cover")
+    s64 = segs.double().cpu()
+    ramp = torch.arange(1, ov + 1, dtype=torch.float64) / (ov + 1)
+    up = torch.cat([ramp, torch.ones(hop, dtype=torch.float64)])
+    num = torch.zeros((BATCH, 80, hop * (n_seg - 1) + seg, 1), dtype=torch.float64)
+    den = torch.zeros(hop * (n_seg - 1) + seg, dtype=torch.float64)
+    for i in range(n_seg):
+        w = (up if i else 1.0) * (up.flip(0) if i < n_seg - 1 else 1.0) * torch.ones(seg)
+        num[:, :, i * hop:i * hop + seg] += s64[:, i] * w[None, None, :, None]
+        den[i * hop:i * hop + seg] += w
+    ref = (num / den[None, None, :, None])[:, :, :LONG_FRAMES]
+    err, _ = _block_err(mel.cpu(), ref, "long: cross-fade against its float64 recomputation: ")
+    lo_v, hi_v = float(mel.min()), float(mel.max())
+    print(f"  W4A8 generate_long, batch {BATCH}, {LONG_FRAMES} frames ({LONG_FRAMES * 256 / 22050:.1f}"
+          f" s of audio): {n_seg} segments a caption, one sampler call of {rows[0]} rows; frames "
+          f"covered by one segment equal it, the cross-fade within {err:.3e} of its float64 "
+          f"recomputation; mel in [{lo_v:.3f}, {hi_v:.3f}] (segments [{float(segs.min()):.3f}, "
+          f"{float(segs.max()):.3f}]); {seconds:.3f} s caption ids -> wav; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return seconds
+
+
+def _bound(nbytes, **ops):
+    """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` operations
+    by type. The tensor cores (int8 and bf16 dots, one after the other) and
+    the f32 pipe run at the same time as the memory, so the bound is the
+    largest of the three times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_mma = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items() if kind != "f32")
+    t_ops = max(t_mma, ops.get("f32", 0) / PEAK_OPS_PER_S["f32"])
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _mean_bound(*bounds):
+    """The bound of a time averaged over several calls: their mean, bounded
+    by what bounds the largest."""
+    return sum(b[0] for b in bounds) / len(bounds), max(bounds)[1]
+
+
+def kernel_bounds():
+    """Each kernel's bound at the shapes its time was taken at (phases 3 and
+    4): K1 bf16 logits; K3-K5 W4 static; K6-K9 W8 dynamic; K6 multi over a
+    layer's six sites, K7 and K10 over the self and the cross attention."""
+    B, L, S, D, F, H, C = BATCH, L_TOK, S_COND, D_MODEL, D_MLP, N_HEAD, 256
+    M, Ms, hd = B * L, B * S, D // H
+    act = lambda rows, width: 2 * rows * width               # bf16 activations
+    w8 = lambda n, k: n * k + 8 * n                           # int8, f32 scale and bias
+    w4 = lambda n, k: n * k // 2 + 8 * n                      # nibble-packed int4
+    norm = 8 * M * D                                          # LayerNorm + quantize, f32
+    sampler = M * (C + 1) * SAMPLER_OPS
+    mma = lambda keys: 4 * B * H * L * keys * hd              # Q K^T and P V
+    soft = lambda keys: 5 * B * H * L * keys                  # f32 softmax
+    mlp = lambda w: _bound(2 * act(M, D) + 8 * D + w(F, D) + w(D, F), int8=4 * M * D * F,
+                           f32=norm + 8 * M * F + 4 * M * D)
+    dense = lambda nbytes, n, k, f32: _bound(nbytes, int8=2 * M * n * k, f32=f32)
+    mha = lambda keys, kind, extra: _bound(2 * act(M, D) + 2 * act(B * keys, D),
+                                           **{kind: mma(keys)}, f32=soft(keys) + extra(keys))
+    return {
+        "fused_p_sample": _bound(act(M, C) + 8 * M, f32=sampler),
+        "fused_head_sample": _bound(act(M, D) + 8 * D + 2 * D * C + 4 * C + 8 * M,
+                                    bf16=2 * M * D * C, f32=norm + sampler),
+        "mlp_block": mlp(w4),
+        "self_attn_block": _bound(2 * act(M, D) + 8 * D + 4 * w4(D, D), int8=8 * M * D * D,
+                                  bf16=mma(L), f32=norm + soft(L) + 4 * M * D),
+        "cross_attn_block": _bound(2 * act(M, D) + 8 * D + 2 * act(Ms, D) + 2 * w4(D, D),
+                                   int8=4 * M * D * D, bf16=mma(S), f32=norm + soft(S) + 4 * M * D),
+        "fused_quant_dense": dense(act(M, D) + 8 * D + w8(F, D) + act(M, F), F, D,
+                                   norm + 8 * M * F),
+        "fused_quant_dense_multi": _mean_bound(
+            _bound(4 * act(M, D) + 8 * D + 3 * w8(D, D), int8=6 * M * D * D, f32=norm + 6 * M * D),
+            dense(3 * act(M, D) + w8(D, D), D, D, 4 * M * D),
+            dense(2 * act(M, D) + 8 * D + w8(D, D), D, D, norm + 2 * M * D),
+            dense(3 * act(M, D) + w8(D, D), D, D, 4 * M * D),
+            dense(act(M, D) + 8 * D + w8(F, D) + act(M, F), F, D, norm + 8 * M * F),
+            dense(act(M, F) + w8(D, F) + 2 * act(M, D), D, F, 4 * M * F + 4 * M * D)),
+        "fused_mha": _mean_bound(mha(L, "bf16", lambda k: 0), mha(S, "bf16", lambda k: 0)),
+        "attn_pair_block": _bound(2 * act(M, D) + 16 * D + 2 * act(Ms, D) + 6 * w8(D, D),
+                                  int8=12 * M * D * D, bf16=mma(L) + mma(S),
+                                  f32=2 * norm + soft(L) + soft(S) + 8 * M * D),
+        "mlp_block_chunked": mlp(w8),
+        "mlp_block_streamed": mlp(w8),
+        # K10: the quantize pass (abs-max, divide, round of q, k and v) and
+        # P's per-row quantize besides the softmax
+        "mha_inline_int8": _mean_bound(
+            *(mha(keys, "int8", lambda k: 2 * B * H * L * k + 3 * (M + 2 * B * k) * D)
+              for keys in (L, S))),
+    }
 
 
 def main() -> int:
@@ -821,20 +1171,23 @@ def main() -> int:
     from text_to_sound_synthesis_torch.utils.cuda_build import find_nvcc
 
     from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, all at once
-        list(pool.map(lambda load: load(), (fs.load_kernel, ib.load_kernel, fs.load_head_kernel)))
-    print(f"[2 build] csrc/fused_sampler.cu, int8_block.cu, fused_head_sample.cu -> sm_90a "
-          f"with {find_nvcc()}: {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, all at once
+        list(pool.map(lambda load: load(), (fs.load_kernel, ib.load_kernel, fs.load_head_kernel,
+                                            ik.load_mha_int8)))
+    print(f"[2 build] csrc/fused_sampler.cu, int8_block.cu, fused_head_sample.cu, mha_int8.cu -> "
+          f"sm_90a with {find_nvcc()}: {time.perf_counter() - t0:.1f} s")
 
     print("[3 K1 vs plain]")
     max_err, k1_ms, plain_ms = phase_kernel(fs, dd, dev)
 
-    print("[4 K2-K9 vs plain]")
+    print("[4 K2-K10 vs plain]")
     block_res = phase_blocks(dev)
     head_res = phase_head(fs, dd, dev)
-    sched_res, k6_launches = phase_schedules(dev)
+    sched_res, k6_launches, library = phase_schedules(dev)
+    att_res = phase_int8_attention(dev)
 
     print("[5 slice]")
     cfg = load_yaml_config(CONFIG)
@@ -893,9 +1246,16 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     print("[7 W8 serving]")
-    w8_times, w8_counts = phase_w8(model, fs, dd, vocoder, cond_tokens, dev)
+    w8_times, w8_counts, qp8 = phase_w8(model, fs, dd, vocoder, cond_tokens, dev)
 
-    print(f"[8 times] on {card}:")
+    print("[8 int8 attention serving]")
+    att_times, att_counts = phase_attention_serving(model, qp, qp8, fs, dd, vocoder, cond_tokens,
+                                                    dev)
+
+    print("[9 long-form]")
+    long_seconds = phase_long(model, qp, vocoder, cond_tokens, dev)
+
+    print(f"[10 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bf16 path, second request (caption ids -> wav, batch {BATCH}, {N_STEPS} steps): "
           f"{times[1]:.3f} s = {BATCH / times[1]:.3f} clips/s")
@@ -906,6 +1266,15 @@ def main() -> int:
         print(f"  W8 dynamic {path} path, faster of its requests (caption ids -> wav, batch "
               f"{BATCH}, {N_STEPS} steps): {t:.3f} s = {BATCH / t:.3f} clips/s, "
               f"{t / best['blocks']:.3f} x the block path")
+    w4_att = min(att_times["W4A8 static"])
+    print(f"  W4A8 static path with the int8 MHA, faster of its requests: {w4_att:.3f} s = "
+          f"{BATCH / w4_att:.3f} clips/s, {w4_att / int8_times[1]:.3f} x the W4A8 request")
+    w8_att = att_times["W8 dynamic pair"][0]
+    print(f"  W8 dynamic pair path with the int8 MHA: {w8_att:.3f} s = {BATCH / w8_att:.3f} "
+          f"clips/s, {w8_att / best['blocks']:.3f} x the W8 block path")
+    print(f"  W4A8 generate_long, batch {BATCH}, {LONG_FRAMES} frames: {long_seconds:.3f} s = "
+          f"{BATCH / long_seconds:.3f} long clips/s, {long_seconds / int8_times[1]:.3f} x the "
+          f"W4A8 request")
     tpu = "text_to_sound_synthesis_tpu/ops/"
     src = "text_to_sound_synthesis_torch/csrc/"
     rows = [("fused_p_sample", "fused_sampler.cu", "fused_sampler.py:223",
@@ -929,11 +1298,15 @@ def main() -> int:
             ("mlp_block_chunked", "int8_block.cu", "int8_block.py:687", w8_counts["K9c"],
              sched_res["mlp_block_chunked"]),
             ("mlp_block_streamed", "int8_block.cu", "int8_block.py:770", w8_counts["K9s"],
-             sched_res["mlp_block_streamed"])]
+             sched_res["mlp_block_streamed"]),
+            ("mha_inline_int8", "mha_int8.cu", "int8_block.py:128", att_counts["K10"],
+             att_res["mha_inline_int8"])]
     check(all(launches > 0 for _, _, _, launches, _ in rows), "a kernel was never launched")
+    bounds = kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": fn, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
-         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms}
+         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": bounds[fn][0], "bound_by": bounds[fn][1], "library_ms": library.get(fn)}
         for fn, source, replaces, launches, (err, ms, pms) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

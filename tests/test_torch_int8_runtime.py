@@ -111,7 +111,7 @@ def test_load_int8_engine_keeps_values_and_metadata(setup):
     _, params, port, _, _ = setup
     scales = tuple(tuple(0.01 * (i + 1) + 0.001 * j for j in range(6)) for i in range(2))
     jqp = _jqp(params, 4).replace(act_scales=scales)
-    got = from_jax.load_int8_engine(jax.device_get(jqp))
+    got = from_jax.load_int8_engine(jax.device_get(jqp), device="cpu")
     assert got.act_scales == scales and got.weight_bits == 4 and got.seq_len == L
     _assert_engines_equal(got, jqp, ada_rtol=0)
 
@@ -124,7 +124,8 @@ def test_precompute_cond_kvs_matches_jax(setup):
     _, params, _, _, cond = setup
     jqp = _jqp(params, 8)
     want = _jax_kvs(jqp, cond)
-    got = trt.precompute_cond_kvs(from_jax.load_int8_engine(jqp), torch.from_numpy(cond))
+    got = trt.precompute_cond_kvs(from_jax.load_int8_engine(jqp, device="cpu"),
+                                  torch.from_numpy(cond))
     for (gk, gv), (wk, wv) in zip(got, want):
         assert gk.shape == (B * S, D) and gk.dtype == torch.bfloat16
         np.testing.assert_allclose(gk.float().numpy(), np.asarray(wk, np.float32).reshape(B * S, D),
@@ -159,7 +160,7 @@ def test_backbone_hidden_matches_jax_block_oracles(setup, static):
     jqp = _jqp(params, 4)
     if static:
         jqp = jqp.replace(act_scales=((0.05, 0.03, 0.05, 0.03, 0.05, 0.01),) * 2)
-    tqp = from_jax.load_int8_engine(jqp)
+    tqp = from_jax.load_int8_engine(jqp, device="cpu")
     want = _jax_hidden_from_block_oracles(jrt.unpack_denoiser(jqp), tokens, 3, cond)
     kvs = trt.precompute_cond_kvs(tqp, torch.from_numpy(cond))
     got = trt._int8_backbone_hidden(tqp, torch.from_numpy(tokens), 3, kvs)
@@ -183,7 +184,7 @@ def test_backbone_logits_track_jax_reference_impl(setup):
     jqp = _jqp(params, 8)
     want = np.asarray(jrt.int8_backbone_logits(jqp, jnp.asarray(tokens), jnp.int32(3),
                                                _jax_kvs(jqp, cond), impl="reference"), np.float64)
-    tqp = from_jax.load_int8_engine(jqp)
+    tqp = from_jax.load_int8_engine(jqp, device="cpu")
     got = trt.int8_backbone_logits(tqp, torch.from_numpy(tokens), 3,
                                    trt.precompute_cond_kvs(tqp, torch.from_numpy(cond)))
     assert got.shape == (B, L, NUM_EMBED) and got.dtype == torch.float32
@@ -204,7 +205,7 @@ def test_backbone_amax_matches_jax(setup):
     cv_st = jnp.stack([v.reshape(B, S, -1) for _, v in kvs])
     stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jqp.layers)
     w_logits, w_amax = jcal._backbone_amax(jqp, jnp.asarray(tokens), 3, stacked, ck_st, cv_st)
-    tqp = from_jax.load_int8_engine(jqp)
+    tqp = from_jax.load_int8_engine(jqp, device="cpu")
     g_logits, g_amax = tcal._backbone_amax(tqp, torch.from_numpy(tokens), 3,
                                            trt.precompute_cond_kvs(tqp, torch.from_numpy(cond)))
     assert g_amax.shape == (2, tcal.N_SITES)
@@ -260,7 +261,7 @@ def test_sampler_loop_matches_jax_loops(setup, bits, static):
     want_blocks = _jax_loop(ref, sched, cond, noise,
                             lambda tok, t: _jax_hidden_from_block_oracles(ref, tok, t, cond))
 
-    tqp = from_jax.load_int8_engine(jqp)
+    tqp = from_jax.load_int8_engine(jqp, device="cpu")
     port_sched = DiscreteDiffusion(transformer_config=TCFG, content_emb_config=ECFG,
                                    diffusion_step=T).schedule()
     got = trt.sample_tokens_int8(tqp, port_sched, torch.from_numpy(cond),
@@ -305,7 +306,7 @@ def tiny():
     """The tiny composite of tests/test_torch_slice.py, seeded at random."""
     from test_torch_slice import TINY_CFG, _cond_tokens
 
-    return build_model(TINY_CFG, seed=0), torch.from_numpy(_cond_tokens())
+    return build_model(TINY_CFG, device="cpu", seed=0), torch.from_numpy(_cond_tokens())
 
 
 def test_serving_entry_points_end_to_end(tiny):

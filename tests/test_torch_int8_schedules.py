@@ -395,7 +395,7 @@ def _engines(engine, bits, static):
     jqp = engine[0] if bits == 8 else engine[1]
     if static:
         jqp = jqp.replace(act_scales=STATIC_SCALES)
-    tqp = from_jax.load_int8_engine(jax.device_get(jqp))
+    tqp = from_jax.load_int8_engine(jax.device_get(jqp), device="cpu")
     return jrt.unpack_denoiser(jqp), tqp
 
 
@@ -555,7 +555,7 @@ def test_generate_int8_per_dense_end_to_end(monkeypatch):
     answers as its unpacked W8 engine does, bit for bit."""
     from test_torch_slice import TINY_CFG, _cond_tokens
 
-    model, cond = build_model(TINY_CFG, seed=0), torch.from_numpy(_cond_tokens())
+    model, cond = build_model(TINY_CFG, device="cpu", seed=0), torch.from_numpy(_cond_tokens())
     qp = model.quantize_for_serving(weight_bits=4)
     noise = torch.from_numpy(np.random.default_rng(4).gumbel(size=(4, 2, 16, 11)).astype(np.float32))
     unpacks = []

@@ -110,7 +110,7 @@ def _jax_slice():
 @lru_cache(maxsize=None)
 def _port_slice():
     _, _, _, params, (_, gen_params) = _jax_slice()
-    model = from_jax.load_diffsound(build_model(TINY_CFG), params)
+    model = from_jax.load_diffsound(build_model(TINY_CFG, device="cpu"), params)
     gen = from_jax.load_melgan_generator(MelGANGenerator(input_size=4, ngf=4), gen_params)
     return model, Vocoder(gen)
 

@@ -243,10 +243,11 @@ def _qweight(w):
     return QuantizedWeight(w_q, _t(w.scale).reshape(-1), _t(w.bias).reshape(-1))
 
 
-def load_int8_engine(qp: Any, device: Any = "cpu"):
+def load_int8_engine(qp: Any, device: Any = "cuda"):
     """A JAX ``Int8Denoiser`` (its leaves as arrays, e.g. after
     ``jax.device_get``) -> the port's ``Int8Denoiser`` with the same int8
-    values, scales, ``act_scales`` and ``weight_bits``."""
+    values, scales, ``act_scales`` and ``weight_bits``, on ``device`` (the
+    card unless the caller asks for another)."""
     from ..models.diffusion.int8_runtime import DENSE_FIELDS, Int8Denoiser, Int8Layer
 
     layers = []

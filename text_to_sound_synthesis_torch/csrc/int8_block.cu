@@ -71,7 +71,10 @@
 // Q K^T and P V on the tensor cores (mma.sync m16n8k16 bf16, f32 sums), 16
 // queries per warp with all of their scores in registers: keys >= kv_valid
 // at -inf, f32 softmax over all keys, p normalised then rounded to bf16, P V
-// summed in f32, rounded to bf16 (see mha_kernel).
+// summed in f32, rounded to bf16 (see mha_kernel); or, with the softmax's
+// divide folded into the output (T2S_SOFTMAX_FOLD_DIV), exp(s - max) rounded
+// to bf16 and the f32 P V sums divided by the row sum before the rounding.
+// K10, the int8 attention, is in mha_int8.cu.
 // The rounding points are the twins': q/k/v, p, the attention output and
 // every block output in bf16. No --use_fast_math.
 
@@ -550,8 +553,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (mma.sync m16n8k16, bf16 in, f32 sums); the warp's whole 16 x NKT*8 score
 // tile stays in registers, so the softmax is exact (max and sum over all keys
 // first, then p = exp(s - max) / sum rounded to bf16), and the rounded p is
-// the A operand of P V straight from the score registers.
-template <int HD, int NKT>
+// the A operand of P V straight from the score registers. FOLD: p =
+// exp(s - max) rounded to bf16, and the f32 output divided by the sum.
+template <int HD, int NKT, bool FOLD>
 __global__ void __launch_bounds__(kMhaWarps * 32)
 mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Lq,
@@ -636,17 +640,18 @@ mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
       sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
     }
 
-    // O = P V, P = bf16(exp / sum) from the score registers
+    // O = P V, P = bf16(exp / sum) (FOLD: bf16(exp)) from the score registers
     float o[HD / 8][4];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+    auto p_of = [&](float e, float sm) { return FOLD ? e : __fdiv_rn(e, sm); };
 #pragma unroll
     for (int kk = 0; kk < NKT / 2; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(__fdiv_rn(s[2 * kk][0], sum[0]), __fdiv_rn(s[2 * kk][1], sum[0]));
-      pa[1] = pack_bf16(__fdiv_rn(s[2 * kk][2], sum[1]), __fdiv_rn(s[2 * kk][3], sum[1]));
-      pa[2] = pack_bf16(__fdiv_rn(s[2 * kk + 1][0], sum[0]), __fdiv_rn(s[2 * kk + 1][1], sum[0]));
-      pa[3] = pack_bf16(__fdiv_rn(s[2 * kk + 1][2], sum[1]), __fdiv_rn(s[2 * kk + 1][3], sum[1]));
+      pa[0] = pack_bf16(p_of(s[2 * kk][0], sum[0]), p_of(s[2 * kk][1], sum[0]));
+      pa[1] = pack_bf16(p_of(s[2 * kk][2], sum[1]), p_of(s[2 * kk][3], sum[1]));
+      pa[2] = pack_bf16(p_of(s[2 * kk + 1][0], sum[0]), p_of(s[2 * kk + 1][1], sum[0]));
+      pa[3] = pack_bf16(p_of(s[2 * kk + 1][2], sum[1]), p_of(s[2 * kk + 1][3], sum[1]));
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n) {
         const __nv_bfloat16* vr = Vt + (n * 8 + gq) * kVRow + kk * 16 + 2 * tq;
@@ -657,6 +662,10 @@ mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
 
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
+      if (FOLD) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = __fdiv_rn(o[n][e], sum[e >> 1]);
+      }
       const int d = h * HD + n * 8 + 2 * tq;
       if (q0 + gq < Lq)
         *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<size_t>(b) * Lq + q0 + gq) * D + d) =
@@ -668,34 +677,37 @@ mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   }
 }
 
-template <int HD, int NKT>
+template <int HD, int NKT, bool FOLD>
 int launch_mha(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
                int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(NKT) * 8 * (HD + 8) + HD * (NKT * 8 + 8)) *
                       sizeof(__nv_bfloat16);
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(mha_kernel<HD, NKT>,
+    const cudaError_t e = cudaFuncSetAttribute(mha_kernel<HD, NKT, FOLD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                200 * 1024);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const dim3 grid(1, n_head, batch);
-  mha_kernel<HD, NKT><<<grid, kMhaWarps * 32, smem, stream>>>(
+  mha_kernel<HD, NKT, FOLD><<<grid, kMhaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Lq, Lkv,
       n_head * HD, kv_valid, sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool FOLD>
 int launch_mha_keys(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
                     int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
-  if (Lkv <= 32) return launch_mha<HD, 4>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
-  if (Lkv <= 80) return launch_mha<HD, 10>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
-  if (Lkv <= 144) return launch_mha<HD, 18>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
-  return launch_mha<HD, 34>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+  if (Lkv <= 32)
+    return launch_mha<HD, 4, FOLD>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+  if (Lkv <= 80)
+    return launch_mha<HD, 10, FOLD>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+  if (Lkv <= 144)
+    return launch_mha<HD, 18, FOLD>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+  return launch_mha<HD, 34, FOLD>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
 }
 
 }  // namespace
@@ -808,13 +820,20 @@ extern "C" int t2s_int8_row_amax(const void* a, int M, int K, void* amax, void* 
 
 // Multi-head attention: q (batch*Lq, H*hd), k/v (batch*Lkv, H*hd) bf16 ->
 // out (batch*Lq, H*hd) bf16; keys >= kv_valid masked (0 < kv_valid <= Lkv).
-// hd 32 or 64.
+// hd 32 or 64. fold_div: the softmax's divide folded into the output.
 extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* out, int batch,
-                            int Lq, int Lkv, int n_head, int hd, int kv_valid, void* stream) {
+                            int Lq, int Lkv, int n_head, int hd, int kv_valid, int fold_div,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || Lq <= 0 || Lkv <= 0 || Lkv > 272 || kv_valid <= 0 || kv_valid > Lkv)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 64) return launch_mha_keys<64>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
-  if (hd == 32) return launch_mha_keys<32>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+#define T2S_MHA(HD, FOLD) \
+  if (hd == HD && (fold_div != 0) == FOLD) \
+    return launch_mha_keys<HD, FOLD>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+  T2S_MHA(64, false)
+  T2S_MHA(64, true)
+  T2S_MHA(32, false)
+  T2S_MHA(32, true)
+#undef T2S_MHA
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@ Port of ``text_to_sound_synthesis_tpu/models/diffsound.py`` (reference
 bf16 generation path: caption BPE ids -> CLIP text tower -> index-carrying
 reverse sampler (fused sampler kernel per step) -> VQGAN ``decode_code``; and
 for the int8 serving path: ``quantize_for_serving`` -> ``calibrate_serving_engine``
--> ``generate_int8`` (``models/diffusion/int8_runtime.py``).
+-> ``generate_int8`` (``models/diffusion/int8_runtime.py``); and long-form
+generation on either, ``generate_long``.
 
 Unlike the JAX package's plain object over three parameter trees, this is one
 ``nn.Module`` laid out as the reference's ``DALLE``: ``content_codec`` (VQModel),
@@ -16,6 +17,7 @@ and ``transformer`` = the denoiser). The JAX package's names ``codec``,
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
@@ -29,7 +31,7 @@ from .clip.tokenize import Tokenize
 from .diffusion.process import DiscreteDiffusion, sample_tokens_fused
 from .vqgan.model import VQModel
 
-__all__ = ["Diffsound", "build_model", "parse_sample_type"]
+__all__ = ["Diffsound", "build_model", "crossfade", "parse_sample_type"]
 
 
 def parse_sample_type(sample_type: str):
@@ -241,13 +243,79 @@ class Diffsound(nn.Module):
             return mel, tokens
         return mel
 
+    # -- long-form generation -------------------------------------------------
 
-def build_model(config: Mapping[str, Any], *, device: Any = "cpu", seed: int = 0) -> Diffsound:
+    @property
+    def time_downsample(self) -> int:
+        """The codec's temporal downsampling (16 for ch_mult [1,1,2,2,4])."""
+        return 2 ** (len(self.codec.decoder.up) - 1)
+
+    @torch.no_grad()
+    def generate_long(self, generator: torch.Generator, cond_tokens: torch.Tensor, *,
+                      duration_frames: int, overlap_frames: int = 160,
+                      sample_type: str = "top0.85r", qp=None, impl: Optional[str] = None):
+        """Long-form generation beyond the 848-frame window: BPE ids (B, 77) ->
+        mel (B, n_mels, duration_frames, 1), each frame a weighted mean of
+        the codec's mels for it (in [-1, 1] only as far as the codec's are:
+        its decoder ends in a convolution).
+
+        Each caption is repeated ``n`` times, so the ``n`` overlapping
+        full-length segments of every caption come from ONE sampler call of
+        B * n rows (``generate``, or with ``qp`` the int8 engine's
+        ``generate_int8`` on the ``impl`` path); their mels are cross-faded:
+        each segment is weighted by linear ramps over its overlaps (the two
+        ramps multiply where they meet, when the overlap passes half a
+        segment), and the sum is divided by the summed weight."""
+        seg = self.time_downsample * self.token_hw[1]
+        if not 0 < overlap_frames < seg:
+            raise ValueError(f"overlap_frames must be in (0, {seg}), got {overlap_frames}")
+        if qp is not None:
+            gen = lambda c: self.generate_int8(qp, generator, c, sample_type=sample_type,
+                                               impl=impl)
+        else:
+            gen = lambda c: self.generate(generator, c, sample_type=sample_type)
+        if duration_frames <= seg:
+            return gen(cond_tokens)[:, :, :duration_frames]
+        B = cond_tokens.shape[0]
+        hop = seg - overlap_frames
+        n = math.ceil((duration_frames - seg) / hop) + 1
+        mels = gen(cond_tokens.repeat_interleave(n, dim=0))
+        n_mels = mels.shape[1]
+        mels = mels.reshape(B, n, n_mels, seg, 1)
+        return crossfade(mels, overlap_frames)[:, :, :duration_frames]
+
+
+def crossfade(mels: torch.Tensor, overlap_frames: int) -> torch.Tensor:
+    """(B, n, n_mels, seg, 1) overlapping segments -> (B, n_mels, hop * (n - 1)
+    + seg, 1), in the segments' dtype: the JAX ``generate_long`` blend
+    (``diffsound.py:393-434``), operation by operation."""
+    B, n, n_mels, seg, _ = mels.shape
+    hop = seg - overlap_frames
+    dt, dev = mels.dtype, mels.device
+    ramp = torch.arange(1, overlap_frames + 1, dtype=dt, device=dev) / (overlap_frames + 1)
+    up = torch.cat([ramp, torch.ones(seg - overlap_frames, dtype=dt, device=dev)])
+    down = up.flip(0)
+    out = torch.zeros((B, n_mels, hop * (n - 1) + seg, 1), dtype=dt, device=dev)
+    wsum = torch.zeros(hop * (n - 1) + seg, dtype=dt, device=dev)
+    for i in range(n):
+        w = torch.ones(seg, dtype=dt, device=dev)
+        if i > 0:
+            w = w * up
+        if i < n - 1:
+            w = w * down
+        sl = slice(i * hop, i * hop + seg)
+        out[:, :, sl] = out[:, :, sl] + mels[:, i] * w[None, None, :, None]
+        wsum[sl] = wsum[sl] + w
+    return out / wsum[None, None, :, None]
+
+
+def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 0) -> Diffsound:
     """``build_model(config['model'])`` of the reference
     (``sound_synthesis/modeling/build.py:4-5``). The modules are made without
-    storage, then materialised on ``device`` and initialised there at random
-    from a generator seeded with ``seed``. ``device="meta"`` leaves them
-    without storage (shape inspection)."""
+    storage, then materialised on ``device`` (the card unless the caller asks
+    for another) and initialised there at random from a generator seeded with
+    ``seed``. ``device="meta"`` leaves them without storage (shape
+    inspection)."""
     with torch.device("meta"):
         model = instantiate_from_config(config.get("model", config))
     model = model.to_empty(device=device)

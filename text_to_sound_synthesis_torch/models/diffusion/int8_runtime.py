@@ -13,7 +13,17 @@ two kernel paths, chosen by ``impl`` as in the JAX engine:
   (``attn_pair_block``); ``T2S_MLP_IMPL=chunked`` or ``streamed`` runs the
   MLP as K9 (``mlp_block_chunked`` / ``mlp_block_streamed``) with
   ``T2S_MLP_CHUNKS`` chunks (default 4 or 16); any other value is K3. A W4
-  engine always runs K4, K5 and K3, as in JAX.
+  engine always runs K4, K5 and K3, as in JAX. The blocks' MHA (``attn``)
+  follows the JAX engine's ``_mha``: ``T2S_ATTN_INT8=1`` runs K10, the int8
+  MHA, inside K8, and inside K4 and K5 when ``T2S_ATTN_MHA`` is ``"base"``;
+  else ``T2S_SOFTMAX_FOLD_DIV=1`` runs the bf16 MHA with its softmax divide
+  folded into the output, at the same places; else the bf16 MHA.
+  ``T2S_ATTN_MHA`` defaults, as in JAX, to ``"pair"`` when two heads fill
+  128 lanes (an even head count of width 64), else ``"base"``. The
+  pair-packed MHA is a TPU schedule with no counterpart here (ROADMAP), so
+  in pair mode K4 and K5 run the bf16 MHA (the TPU's pair kernels divide
+  after P V, from a max shared by two heads: another rounding of the same
+  softmax).
 - ``"pallas_dense"``, the per-dense path: six K6 denses
   (``ops/quant.py::fused_quant_dense_multi``) and two K7 attentions
   (``ops/attention.py::fused_mha``) per layer. A W4 engine is unpacked
@@ -26,10 +36,15 @@ Weights are symmetric per output channel, int8 or nibble-packed int4
 Differences from the JAX engine, on purpose:
 - the kernels take the unpadded sequence (no ``L_pad``), and the TPU
   schedule choices have no counterpart: ``_pad_plan``'s ``block_m``,
-  ``rows_per_program``, ``mha_mode``, and the schedule-only switches
-  ``T2S_MLP_BM``, ``T2S_ATTN_ROWS``, ``T2S_ATTN_MHA``, ``T2S_MLP_PIPE``,
-  ``T2S_SPLIT_CALLS``, ``T2S_HEAD_GROUP``, ``T2S_VMEM_LIMIT_MB`` and
-  ``T2S_PAR_SEMANTICS``;
+  ``rows_per_program``, the pair-packed MHA, and the schedule-only switches
+  ``T2S_MLP_BM``, ``T2S_ATTN_ROWS``, ``T2S_MLP_PIPE``, ``T2S_SPLIT_CALLS``,
+  ``T2S_HEAD_GROUP``, ``T2S_VMEM_LIMIT_MB`` and ``T2S_PAR_SEMANTICS``
+  (``T2S_ATTN_MHA`` is read only for which MHA the blocks run). Unpadded,
+  K10's V scale is the column max over the keys of each batch element; the
+  TPU engine's self-attention programs also hold the pad rows up to
+  ``L_pad`` there;
+- the switches are read at each backbone call (the JAX package reads
+  ``T2S_ATTN_INT8`` and ``T2S_SOFTMAX_FOLD_DIV`` once, at import);
 - the condition's K/V are kept flat, (B*S, D) per layer, as the kernels read
   them;
 - JAX's non-kernel ``impl`` values (``"xla"``, ``"reference"``) have no
@@ -42,7 +57,7 @@ Differences from the JAX engine, on purpose:
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -228,39 +243,55 @@ def _check_impl(impl: Optional[str]) -> str:
     return impl
 
 
-def _block_switches(w4: bool):
-    """(pair, mlp_impl, n_chunks) from the JAX engine's switches, read now as
-    the JAX engine reads them at each backbone call; a W4 engine runs the
-    base blocks."""
+class Switches(NamedTuple):
+    pair: bool          # K8 in place of K4 + K5
+    mlp_impl: str       # "chunked", "streamed" (K9) or anything else (K3)
+    n_chunks: int
+    attn: str           # the MHA of K4 and K5 (int8_block.ATTN)
+    pair_attn: str      # the MHA of K8
+
+
+def _block_switches(w4: bool, n_head: int, head_dim: int) -> Switches:
+    """The JAX engine's kernel-selecting switches, read now; a W4 engine runs
+    the base blocks. The MHA follows JAX's ``_mha``: K8 always reaches it,
+    K4 and K5 only in ``T2S_ATTN_MHA`` mode "base"."""
     mlp_impl = os.environ.get("T2S_MLP_IMPL", "base")
     if w4:
         mlp_impl = "base"
     n_chunks = int(os.environ.get("T2S_MLP_CHUNKS", "16" if mlp_impl == "streamed" else "4"))
     pair = os.environ.get("T2S_ATTN_PAIR", "0") == "1" and not w4
-    return pair, mlp_impl, n_chunks
+    mode = os.environ.get("T2S_ATTN_MHA",
+                          "pair" if n_head % 2 == 0 and 2 * head_dim == 128 else "base")
+    if mode not in ("base", "pair"):
+        raise ValueError(f"T2S_ATTN_MHA must be 'base' or 'pair', got {mode!r}")
+    mha = ("int8" if os.environ.get("T2S_ATTN_INT8", "0") == "1"
+           else "bf16_fold" if os.environ.get("T2S_SOFTMAX_FOLD_DIV", "0") == "1" else "bf16")
+    return Switches(pair, mlp_impl, n_chunks, mha if mode == "base" else "bf16", mha)
 
 
 def _blocks(qp: Int8Denoiser, x, cond_kvs, mods, act_s, B: int, L: int, S: int):
     """impl="pallas": per layer K4 -> K5 (or K8) -> K3 (or K9)."""
     H = qp.n_head
     w4 = qp.weight_bits == 4
-    pair, mlp_impl, n_chunks = _block_switches(w4)
+    sw = _block_switches(w4, H, x.shape[1] // H)
     for lyr, (ck, cv), (mod1, mod2), ls in zip(qp.layers, cond_kvs, mods, act_s):
-        if pair:
+        if sw.pair:
             x = ib.attn_pair_block(x, torch.cat([mod1, mod2]), ck, cv, lyr.q.qw, lyr.k.qw,
                                    lyr.v.qw, lyr.proj.qw, lyr.crossq.qw, lyr.crossproj.qw,
                                    batch=B, n_head=H, q_valid=L, kv_valid=S,
-                                   static_s=_pair(ls[0:4]))
+                                   static_s=_pair(ls[0:4]), attn=sw.pair_attn)
         else:
             x = ib.self_attn_block(x, mod1, lyr.q.qw, lyr.k.qw, lyr.v.qw, lyr.proj.qw, batch=B,
-                                   n_head=H, q_valid=L, static_s=_pair(ls[0:2]), w4=w4)
+                                   n_head=H, q_valid=L, static_s=_pair(ls[0:2]), w4=w4,
+                                   attn=sw.attn)
             x = ib.cross_attn_block(x, mod2, ck, cv, lyr.crossq.qw, lyr.crossproj.qw, batch=B,
-                                    n_head=H, kv_valid=S, static_s=_pair(ls[2:4]), w4=w4)
+                                    n_head=H, kv_valid=S, static_s=_pair(ls[2:4]), w4=w4,
+                                    attn=sw.attn)
         mlp_args = (x, lyr.ln2_mod, lyr.fc1.qw, lyr.fc2.qw)
-        if mlp_impl == "chunked":
-            x = ib.mlp_block_chunked(*mlp_args, n_chunks=n_chunks, static_s=_pair(ls[4:6]))
-        elif mlp_impl == "streamed":
-            x = ib.mlp_block_streamed(*mlp_args, n_chunks=n_chunks, static_s=_pair(ls[4:6]))
+        if sw.mlp_impl == "chunked":
+            x = ib.mlp_block_chunked(*mlp_args, n_chunks=sw.n_chunks, static_s=_pair(ls[4:6]))
+        elif sw.mlp_impl == "streamed":
+            x = ib.mlp_block_streamed(*mlp_args, n_chunks=sw.n_chunks, static_s=_pair(ls[4:6]))
         else:
             x = ib.mlp_block(*mlp_args, static_s=_pair(ls[4:6]), w4=w4)
     return x

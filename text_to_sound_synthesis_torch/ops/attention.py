@@ -20,10 +20,15 @@ from . import int8_kernels as ik
 __all__ = ["fused_mha", "mha_reference"]
 
 
-def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int):
+def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int, fold_div: bool = False):
     """q (B*Lq, D), k/v (B*Lkv, D) -> (B*Lq, D) in q's dtype. Scores from the
     inputs' values in f32, keys at or beyond ``kv_valid`` masked, f32 softmax,
-    probabilities rounded to q's dtype, then P V with an f32 sum."""
+    probabilities rounded to q's dtype, then P V with an f32 sum.
+
+    ``fold_div`` is the JAX engine's ``T2S_SOFTMAX_FOLD_DIV=1``
+    (``int8_block.py::_mha_inline``): the unnormalised ``exp(s - max)`` is
+    rounded to q's dtype, and the f32 P V output is divided by the f32 row
+    sum before its own rounding."""
     M, D = q.shape
     hd = D // n_head
     Lq, Lkv = M // batch, k.shape[0] // batch
@@ -32,9 +37,13 @@ def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int):
     vh = v.reshape(batch, Lkv, n_head, hd).transpose(1, 2)
     s = (qh @ kh.transpose(-1, -2)) / math.sqrt(hd)
     s = s.masked_fill(torch.arange(Lkv, device=q.device) >= kv_valid, float("-inf"))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = (p.float() @ vh.float()).to(q.dtype)
-    return o.transpose(1, 2).reshape(M, D)
+    if fold_div:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = (e.to(q.dtype).float() @ vh.float()) / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        o = p.float() @ vh.float()
+    return o.to(q.dtype).transpose(1, 2).reshape(M, D)
 
 
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, n_head: int,
@@ -45,18 +54,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, 
     if not ik.on_cuda(q, "fused_mha"):
         return mha_reference(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
     lib = ik.load_kernel()
-    M, D = q.shape
-    Mkv = k.shape[0]
-    ik.check("q", q, (M, D), torch.bfloat16, q.device)
-    ik.check("k", k, (Mkv, D), torch.bfloat16, q.device)
-    ik.check("v", v, (Mkv, D), torch.bfloat16, q.device)
-    if M % batch or Mkv % batch or D % n_head or D // n_head not in (32, 64):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, batch {batch}, {n_head} heads: "
-                         "the kernel takes rows = batch * length and a head width of 32 or 64")
-    Lkv = Mkv // batch
-    if not 0 < kv_valid <= Lkv or Lkv > lib.t2s_int8_limits(3):
-        raise ValueError(f"kv_valid {kv_valid} and key length {Lkv} out of the kernel's range "
-                         f"(0 < kv_valid <= keys <= {lib.t2s_int8_limits(3)})")
+    ik.check_mha(q, k, v, batch, n_head, kv_valid, lib.t2s_int8_limits(3))
     out = ik.mha(lib, q, k, v, batch, n_head, kv_valid)
     fused_mha.launches += 1
     return out

@@ -1,4 +1,5 @@
-"""Int8 transformer sub-blocks of the serving engine (K3, K4, K5, K8, K9).
+"""Int8 transformer sub-blocks of the serving engine (K3, K4, K5, K8, K9) and
+their int8 attention (K10).
 
 Port of ``text_to_sound_synthesis_tpu/ops/int8_block.py``: one function per
 sub-block of a denoiser layer (``SelfCrossBlock``), each
@@ -19,12 +20,25 @@ Quantization is per-row dynamic (row abs-max), or static per-tensor when
 ``static_s`` gives the calibrated (in, out/mid) scales. ``w4=True`` takes
 nibble-packed int4 weights (``quantize_weight_w4``).
 
+The attention blocks take ``attn``, which MHA they run (the JAX engine picks
+it with ``T2S_ATTN_INT8`` and ``T2S_SOFTMAX_FOLD_DIV``; the blocks never
+read the environment):
+
+  "bf16"       ``mha_reference``: bf16 P = bf16(exp(s - max) / sum), f32 P V;
+  "bf16_fold"  ``mha_reference(fold_div=True)``: bf16 exp(s - max), the f32
+               P V output divided by the row sum;
+  "int8"       K10 ``mha_inline_int8``: q and k quantized per row over the
+               whole width, V per column over the keys of each batch element,
+               P per (head, query) row after the f32 softmax; int8 Q K^T and
+               P V with exact integer sums.
+
 The ``*_reference`` functions are the plain PyTorch versions and define what
 the kernels compute (the JAX package's ``*_reference`` twins; W4 goes through
 ``unpack_weight_w4``, so W4 is bitwise the unpacked W8 path). The wrappers
-launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` for CUDA
-tensors and run the plain version only for CPU tensors; each counts its
-kernel runs in ``.launches``. The TPU schedule options (``rows_per_program``,
+launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` (K10:
+``csrc/mha_int8.cu``) for CUDA tensors and run the plain version only for
+CPU tensors; each counts its kernel runs in ``.launches`` (K10 counts every
+int8 MHA, inside a block or called alone). The TPU schedule options (``rows_per_program``,
 ``mha_mode``, ``block_m``, ``pipeline_halves``, row padding) are not carried
 over: the Hopper kernels choose their own tiling and take the unpadded
 sequence.
@@ -32,6 +46,7 @@ sequence.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -39,16 +54,56 @@ import torch
 from . import int8_kernels as ik
 from .attention import mha_reference
 from .int8_kernels import load_kernel
-from .quant import (QuantizedWeight, _deq, _gelu2, _prologue, _quant, int_dot,
+from .quant import (QuantizedWeight, _deq, _gelu2, _prologue, _quant, _quantize_rows, int_dot,
                     unpack_weight_w4)
 
 __all__ = ["self_attn_block", "cross_attn_block", "attn_pair_block", "mlp_block",
-           "mlp_block_chunked", "mlp_block_streamed",
+           "mlp_block_chunked", "mlp_block_streamed", "mha_inline_int8",
            "self_attn_block_reference", "cross_attn_block_reference",
            "attn_pair_block_reference", "mlp_block_reference", "mlp_chunked_reference",
-           "load_kernel"]
+           "mha_inline_int8_reference", "load_kernel", "ATTN"]
 
 StaticS = Optional[Tuple[float, ...]]
+ATTN = ("bf16", "bf16_fold", "int8")
+
+
+def _check_attn_mode(attn: str) -> str:
+    if attn not in ATTN:
+        raise ValueError(f"attn must be one of {ATTN}, got {attn!r}")
+    return attn
+
+
+def mha_inline_int8_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int):
+    """Plain twin of K10 (JAX ``int8_block.py::_mha_inline_int8``, applied to
+    each batch element): q (B*Lq, D), k/v (B*Lkv, D) -> (B*Lq, D) f32.
+
+    q and k are quantized per row over the whole width D (one row scale
+    serves every head); V per column over the Lkv keys of its batch element,
+    masked keys included, s_v = max(amax, 1e-8) / 127. Scores are the exact
+    int32 Q K^T times (s_q * s_k), times 1/sqrt(hd); keys at or beyond
+    ``kv_valid`` at -inf, f32 softmax; P quantized per (head, query) row;
+    the exact int32 P V times (s_p * s_v)."""
+    M, D = q.shape
+    hd = D // n_head
+    Lq, Lkv = M // batch, k.shape[0] // batch
+    qq, sq = _quantize_rows(q.float())
+    kq, sk = _quantize_rows(k.float())
+    vf = v.float().reshape(batch, Lkv, D)
+    sv = vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / 127.0        # (B, 1, D)
+    vq = torch.round(vf / sv).clamp(-127, 127)
+
+    def heads(t, L):   # (B*L, D) -> (B, H, L, hd), exact in float64
+        return t.reshape(batch, L, n_head, hd).transpose(1, 2).double()
+
+    acc = (heads(qq, Lq) @ heads(kq, Lkv).transpose(-1, -2)).float()
+    s = acc * (sq.reshape(batch, 1, Lq, 1) * sk.reshape(batch, 1, 1, Lkv))
+    s = (s * (1.0 / math.sqrt(hd))).masked_fill(
+        torch.arange(Lkv, device=q.device) >= kv_valid, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pq, sp = _quantize_rows(p / p.sum(dim=-1, keepdim=True))               # (B, H, Lq, 1)
+    acc = (pq.double() @ heads(vq, Lkv)).float()
+    o = acc * (sp * sv.reshape(batch, n_head, 1, hd))
+    return o.transpose(1, 2).reshape(M, D)
 
 
 def _plain_weights(ws: Sequence[QuantizedWeight], w4: bool):
@@ -70,9 +125,13 @@ def _ref_dense(x, w: QuantizedWeight, norm="none", mod=None, s_static=None):
     return _deq(int_dot(q, w.w_q), s, w)
 
 
-def _ref_mha(q, k, v, batch, n_head, kv_valid):
-    return mha_reference(q.bfloat16(), k.bfloat16(), v.bfloat16(), batch=batch,
-                         n_head=n_head, kv_valid=kv_valid).float()
+def _ref_mha(q, k, v, batch, n_head, kv_valid, attn):
+    """The blocks' attention on bf16 q/k/v: its output rounded to bf16, as f32."""
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    kw = dict(batch=batch, n_head=n_head, kv_valid=kv_valid)
+    if _check_attn_mode(attn) == "int8":
+        return mha_inline_int8_reference(q, k, v, **kw).bfloat16().float()
+    return mha_reference(q, k, v, fold_div=attn == "bf16_fold", **kw).float()
 
 
 def _ref_proj(y, w: QuantizedWeight, s_static):
@@ -82,7 +141,8 @@ def _ref_proj(y, w: QuantizedWeight, s_static):
 
 
 def self_attn_block_reference(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int,
-                              q_valid: int, static_s: StaticS = None, w4: bool = False):
+                              q_valid: int, static_s: StaticS = None, w4: bool = False,
+                              attn: str = "bf16"):
     """Plain twin of K4. x (B*L, D) bf16, mod (2, D) f32 -> (B*L, D) bf16."""
     wq, wk, wv, wproj = _plain_weights((wq, wk, wv, wproj), w4)
     s_in, s_out = _split(static_s)
@@ -92,24 +152,25 @@ def self_attn_block_reference(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: 
     def dense(w):
         return _deq(int_dot(q_, w.w_q), s, w).bfloat16()
 
-    y = _ref_mha(dense(wq), dense(wk), dense(wv), batch, n_head, q_valid)
+    y = _ref_mha(dense(wq), dense(wk), dense(wv), batch, n_head, q_valid, attn)
     return (_ref_proj(y, wproj, s_out) + xf).to(x.dtype)
 
 
 def cross_attn_block_reference(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int,
-                               kv_valid: int, static_s: StaticS = None, w4: bool = False):
+                               kv_valid: int, static_s: StaticS = None, w4: bool = False,
+                               attn: str = "bf16"):
     """Plain twin of K5. ck/cv (B*S, D) bf16: the condition's K/V."""
     wq, wproj = _plain_weights((wq, wproj), w4)
     s_in, s_out = _split(static_s)
     xf = x.float()
     q = _ref_dense(x, wq, "adaln", mod, s_static=s_in).bfloat16()
-    y = _ref_mha(q, ck, cv, batch, n_head, kv_valid)
+    y = _ref_mha(q, ck, cv, batch, n_head, kv_valid, attn)
     return (_ref_proj(y, wproj, s_out) + xf).to(x.dtype)
 
 
 def attn_pair_block_reference(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *,
                               batch: int, n_head: int, q_valid: int, kv_valid: int,
-                              static_s: StaticS = None):
+                              static_s: StaticS = None, attn: str = "bf16"):
     """Plain twin of K8. mods (4, D) f32 = self AdaLN rows; cross AdaLN rows.
     ``static_s``: (self in, self out, cross in, cross out).
 
@@ -125,10 +186,10 @@ def attn_pair_block_reference(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcros
     def dense(w):
         return _deq(int_dot(q_, w.w_q), s, w).bfloat16()
 
-    y = _ref_mha(dense(wq), dense(wk), dense(wv), batch, n_head, q_valid)
+    y = _ref_mha(dense(wq), dense(wk), dense(wv), batch, n_head, q_valid, attn)
     xf = _ref_proj(y, wproj, s_out) + xf
     q2 = _ref_dense(xf, wcrossq, "adaln", mods[2:4], s_static=s2_in).bfloat16()
-    y2 = _ref_mha(q2, ck, cv, batch, n_head, kv_valid)
+    y2 = _ref_mha(q2, ck, cv, batch, n_head, kv_valid, attn)
     return (_ref_proj(y2, wcrossproj, s2_out) + xf).to(x.dtype)
 
 
@@ -198,10 +259,20 @@ def _check_weights(names, ws, n: int, k: int, w4: bool, device):
         ik.check_weight(name, w, n, k, w4, device)
 
 
-def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, *, kv=None, qkv=None,
+def _attend(lib, q, k, v, batch: int, n_head: int, kv_valid: int, attn: str):
+    """The blocks' MHA launch(es) on checked bf16 tensors -> (B*Lq, D) bf16:
+    the bf16 MHA of ``int8_block.cu`` (folded divide or not), or K10 through
+    its wrapper ``mha_inline_int8``."""
+    if attn == "int8":
+        return mha_inline_int8(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
+    return ik.mha(lib, q, k, v, batch, n_head, kv_valid, fold_div=attn == "bf16_fold")
+
+
+def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, attn, *, kv=None, qkv=None,
                batch, n_head, kv_valid):
     """[AdaLN + quantize + q (and k, v) dots] -> MHA -> [quantize + proj +
-    residual] into ``residual_out`` (bf16 or f32), three launches."""
+    residual] into ``residual_out`` (bf16 or f32): three launches, four with
+    K10's quantize pass."""
     if qkv is not None:
         q, k, v = (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) for _ in range(3))
         ik.dense(lib, x, qkv, (q, k, v), norm="adaln", mod=mod, s=s_in, w4=w4)
@@ -209,59 +280,81 @@ def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, *, kv=None
         q = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
         ik.dense(lib, x, (wq,), (q,), norm="adaln", mod=mod, s=s_in, w4=w4)
         k, v = kv
-    y = ik.mha(lib, q, k, v, batch, n_head, kv_valid)
+    y = _attend(lib, q, k, v, batch, n_head, kv_valid, attn)
     ik.dense(lib, y, (wproj,), (residual_out,), s=s_out, residual=x, w4=w4)
     return residual_out
 
 
+def mha_inline_int8(q, k, v, *, batch: int, n_head: int, kv_valid: int):
+    """K10: q (B*Lq, D), k/v (B*Lkv, D) bf16 -> (B*Lq, D) bf16, the int8
+    attention ``mha_inline_int8_reference`` computes, rounded once to bf16.
+    On the card: a quantize pass, then an int8 MHA, one block per (batch,
+    head), head width 32 or 64, at most 272 keys."""
+    if not ik.on_cuda(q, "mha_inline_int8"):
+        return mha_inline_int8_reference(q, k, v, batch=batch, n_head=n_head,
+                                         kv_valid=kv_valid).to(q.dtype)
+    lib = ik.load_mha_int8()
+    ik.check_mha(q, k, v, batch, n_head, kv_valid, lib.t2s_mha_int8_max_keys())
+    out = ik.mha_int8(lib, q, k, v, batch, n_head, kv_valid)
+    mha_inline_int8.launches += 1
+    return out
+
+
 def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_valid: int,
-                    static_s: StaticS = None, w4: bool = False):
+                    static_s: StaticS = None, w4: bool = False, attn: str = "bf16"):
     """K4: x (B*L, D) bf16 -> x + proj(MHA(adaln(x))) (B*L, D) bf16; keys at or
-    beyond ``q_valid`` are masked. Three launches on a CUDA tensor."""
+    beyond ``q_valid`` are masked; ``attn`` picks the MHA (module docstring).
+    Three launches on a CUDA tensor, four with ``attn="int8"``."""
+    _check_attn_mode(attn)
     if not ik.on_cuda(x, "self_attn_block"):
         return self_attn_block_reference(x, mod, wq, wk, wv, wproj, batch=batch, n_head=n_head,
-                                         q_valid=q_valid, static_s=static_s, w4=w4)
+                                         q_valid=q_valid, static_s=static_s, w4=w4, attn=attn)
     lib = load_kernel()
     _check_attn(x, 2, batch, n_head, lib, mod, x.shape[0] // batch, q_valid, "q_valid")
     D = x.shape[1]
     _check_weights(("wq", "wk", "wv", "wproj"), (wq, wk, wv, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), w4,
+    out = _attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), w4, attn,
                      qkv=(wq, wk, wv), batch=batch, n_head=n_head, kv_valid=q_valid)
     self_attn_block.launches += 1
     return out
 
 
 def cross_attn_block(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int, kv_valid: int,
-                     static_s: StaticS = None, w4: bool = False):
+                     static_s: StaticS = None, w4: bool = False, attn: str = "bf16"):
     """K5: x (B*L, D) bf16; ck/cv (B*S, D) bf16 condition K/V, keys at or beyond
-    ``kv_valid`` masked -> (B*L, D) bf16. Three launches on a CUDA tensor."""
+    ``kv_valid`` masked -> (B*L, D) bf16. Three launches on a CUDA tensor, four
+    with ``attn="int8"``."""
+    _check_attn_mode(attn)
     if not ik.on_cuda(x, "cross_attn_block"):
         return cross_attn_block_reference(x, mod, ck, cv, wq, wproj, batch=batch,
                                           n_head=n_head, kv_valid=kv_valid,
-                                          static_s=static_s, w4=w4)
+                                          static_s=static_s, w4=w4, attn=attn)
     lib = load_kernel()
     S = _check_cond(x, ck, cv, batch)
     _check_attn(x, 2, batch, n_head, lib, mod, S, kv_valid, "kv_valid")
     D = x.shape[1]
     _check_weights(("wq", "wproj"), (wq, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, wq, wproj, s_in, s_out, torch.empty_like(x), w4, kv=(ck, cv),
-                     batch=batch, n_head=n_head, kv_valid=kv_valid)
+    out = _attn_half(lib, x, mod, wq, wproj, s_in, s_out, torch.empty_like(x), w4, attn,
+                     kv=(ck, cv), batch=batch, n_head=n_head, kv_valid=kv_valid)
     cross_attn_block.launches += 1
     return out
 
 
 def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, batch: int,
-                    n_head: int, q_valid: int, kv_valid: int, static_s: StaticS = None):
+                    n_head: int, q_valid: int, kv_valid: int, static_s: StaticS = None,
+                    attn: str = "bf16"):
     """K8: K4 then K5 on x (B*L, D) bf16 with mods (4, D) f32, x kept in f32
-    between the two halves -> (B*L, D) bf16. W8 weights. Six launches on a
-    CUDA tensor: the self proj writes x + proj in f32, the cross AdaLN panel
-    reads it, and the cross proj adds it and rounds once."""
+    between the two halves -> (B*L, D) bf16; both halves run the ``attn``
+    MHA. W8 weights. Six launches on a CUDA tensor (eight with
+    ``attn="int8"``): the self proj writes x + proj in f32, the cross AdaLN
+    panel reads it, and the cross proj adds it and rounds once."""
+    _check_attn_mode(attn)
     if not ik.on_cuda(x, "attn_pair_block"):
         return attn_pair_block_reference(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq,
                                          wcrossproj, batch=batch, n_head=n_head, q_valid=q_valid,
-                                         kv_valid=kv_valid, static_s=static_s)
+                                         kv_valid=kv_valid, static_s=static_s, attn=attn)
     lib = load_kernel()
     L = x.shape[0] // batch
     _check_attn(x, 4, batch, n_head, lib, mods, L, q_valid, "q_valid")
@@ -272,10 +365,10 @@ def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, 
                    (wq, wk, wv, wproj, wcrossq, wcrossproj), D, D, False, x.device)
     s_in, s_out, s2_in, s2_out = _split(static_s, 4)
     x1 = _attn_half(lib, x, mods[0:2], None, wproj, s_in, s_out,
-                    torch.empty(x.shape, dtype=torch.float32, device=x.device), False,
+                    torch.empty(x.shape, dtype=torch.float32, device=x.device), False, attn,
                     qkv=(wq, wk, wv), batch=batch, n_head=n_head, kv_valid=q_valid)
     out = _attn_half(lib, x1, mods[2:4], wcrossq, wcrossproj, s2_in, s2_out,
-                     torch.empty_like(x), False, kv=(ck, cv), batch=batch, n_head=n_head,
+                     torch.empty_like(x), False, attn, kv=(ck, cv), batch=batch, n_head=n_head,
                      kv_valid=kv_valid)
     attn_pair_block.launches += 1
     return out
@@ -368,3 +461,4 @@ attn_pair_block.launches = 0
 mlp_block.launches = 0
 mlp_block_chunked.launches = 0
 mlp_block_streamed.launches = 0
+mha_inline_int8.launches = 0

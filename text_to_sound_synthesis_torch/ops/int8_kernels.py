@@ -1,7 +1,8 @@
-"""ctypes bindings of ``csrc/int8_block.cu`` and the launch helpers that the
-int8 kernel wrappers share: ``quant.fused_quant_dense[_multi]`` (K6),
-``attention.fused_mha`` (K7) and the blocks of ``int8_block`` (K3-K5, K8,
-K9). Nothing here counts launches: each wrapper counts its own calls.
+"""ctypes bindings of ``csrc/int8_block.cu`` and ``csrc/mha_int8.cu``, and
+the launch helpers that the int8 kernel wrappers share:
+``quant.fused_quant_dense[_multi]`` (K6), ``attention.fused_mha`` (K7) and
+the blocks of ``int8_block`` (K3-K5, K8, K9) and their int8 attention (K10).
+Nothing here counts launches: each wrapper counts its own calls.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from ..utils.cuda_build import load_library
 
-__all__ = ["load_kernel", "on_cuda", "check", "check_weight", "dense", "row_amax", "mha",
+__all__ = ["load_kernel", "load_mha_int8", "on_cuda", "check", "check_weight", "check_mha",
+           "dense", "row_amax", "mha", "mha_int8",
            "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED"]
 
 PANEL, STREAM, INT8 = 0, 1, 2
@@ -33,10 +35,22 @@ def load_kernel() -> ctypes.CDLL:
     lib.t2s_int8_dense.restype = I
     lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
     lib.t2s_int8_row_amax.restype = I
-    lib.t2s_int8_mha.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.t2s_int8_mha.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.t2s_int8_mha.restype = I
     lib.t2s_int8_limits.argtypes = [I]
     lib.t2s_int8_limits.restype = I
+    return lib
+
+
+@functools.cache
+def load_mha_int8() -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/mha_int8.cu`` (K10)."""
+    lib = load_library("mha_int8", ["mha_int8.cu"])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.t2s_mha_int8.argtypes = [P] * 10 + [I] * 6 + [P]
+    lib.t2s_mha_int8.restype = I
+    lib.t2s_mha_int8_max_keys.argtypes = []
+    lib.t2s_mha_int8_max_keys.restype = I
     return lib
 
 
@@ -125,15 +139,58 @@ def row_amax(lib, a: torch.Tensor) -> torch.Tensor:
     return amax
 
 
+def check_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
+              kv_valid: int, max_keys: int) -> None:
+    """What the attention kernels take: bf16 q (B*Lq, D), k/v (B*Lkv, D), a
+    head width of 32 or 64, 0 < kv_valid <= Lkv <= ``max_keys``."""
+    M, D = q.shape
+    Mkv = k.shape[0]
+    check("q", q, (M, D), torch.bfloat16, q.device)
+    check("k", k, (Mkv, D), torch.bfloat16, q.device)
+    check("v", v, (Mkv, D), torch.bfloat16, q.device)
+    if M % batch or Mkv % batch or D % n_head or D // n_head not in (32, 64):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, batch {batch}, {n_head} heads: "
+                         "the kernel takes rows = batch * length and a head width of 32 or 64")
+    if not 0 < kv_valid <= Mkv // batch or Mkv // batch > max_keys:
+        raise ValueError(f"kv_valid {kv_valid} and key length {Mkv // batch} out of the kernel's "
+                         f"range (0 < kv_valid <= keys <= {max_keys})")
+
+
 def mha(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
-        kv_valid: int) -> torch.Tensor:
-    """The attention launch on checked bf16 tensors: q (B*Lq, D), k/v (B*Lkv, D)."""
+        kv_valid: int, fold_div: bool = False) -> torch.Tensor:
+    """The bf16 attention launch on checked bf16 tensors: q (B*Lq, D), k/v
+    (B*Lkv, D); ``fold_div`` divides the P V output by the row sum instead of
+    P (``attention.mha_reference``)."""
     M, D = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.t2s_int8_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch,
                                M // batch, k.shape[0] // batch, n_head, D // n_head, kv_valid,
-                               _stream(q))
+                               int(fold_div), _stream(q))
     if err != 0:
         raise RuntimeError(f"int8 attention kernel launch failed: cudaError {err}")
+    return out
+
+
+def mha_int8(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
+             kv_valid: int) -> torch.Tensor:
+    """K10's two launches on checked bf16 tensors: the quantize pass (int8 q
+    and k with row scales, int8 V with one scale per (batch, column)) into
+    scratch allocated here, then the int8 MHA -> (B*Lq, D) bf16."""
+    M, D = q.shape
+    Mkv = k.shape[0]
+    dev = q.device
+    qq = torch.empty((M, D), dtype=torch.int8, device=dev)
+    kq, vq = (torch.empty((Mkv, D), dtype=torch.int8, device=dev) for _ in range(2))
+    sq = torch.empty((M,), dtype=torch.float32, device=dev)
+    sk = torch.empty((Mkv,), dtype=torch.float32, device=dev)
+    sv = torch.empty((batch, D), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = lib.t2s_mha_int8(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), sq.data_ptr(),
+                               sk.data_ptr(), sv.data_ptr(), batch, M // batch, Mkv // batch,
+                               n_head, D // n_head, kv_valid, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"int8 MHA kernel launch failed: cudaError {err}")
     return out
