@@ -12,10 +12,13 @@ path (``generate_int8(impl="pallas_dense")``), the W4A8 engine with the int8
 MHA (``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``) and the W4A8 engine's long-form
 request (``generate_long``, 2120 frames, 24 sampler rows): one warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
-under ``torch.profiler``. The vocoder is left out. Prints the card line, each
-path's request time, its device time and idle share (1 - device time /
-unprofiled request time), and the kernels by device time. Exits 1 without a
-CUDA card. Imports nothing of JAX.
+under ``torch.profiler``. The vocoder is left out. Then K11, which no request
+runs, the same way: five ``gn_swish_conv`` calls at each of the flagship
+decoder's five stages (its A/B tool's inputs), to split its time between its
+launches (a single short call left the profiler without device rows on
+three stages of five on the H100). Prints the card line, each path's request (or call) time, its
+device time and idle share (1 - device time / unprofiled time), and the
+kernels by device time. Exits 1 without a CUDA card. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from torch.autograd import DeviceType
 import chip_smoke as cs
 
 
-def profile(name: str, run) -> None:
+def profile(name: str, run, what: str = "request without the vocoder") -> None:
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -45,7 +48,7 @@ def profile(name: str, run) -> None:
     ka = prof.key_averages()
     # kernel rows only: an aten op's row repeats the time of the kernels it launched
     device_ms = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA) / 1e3
-    print(f"[{name}] request without the vocoder {wall:.4f} s; device time {device_ms:.1f} ms; "
+    print(f"[{name}] {what} {wall:.4f} s; device time {device_ms:.3f} ms; "
           f"idle share {1 - device_ms / (wall * 1e3):.3f}")
     print(ka.table(sort_by="self_device_time_total", row_limit=16, max_name_column_width=90))
 
@@ -78,6 +81,16 @@ def main() -> int:
                 lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
     profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
             lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))
+
+    from text_to_sound_synthesis_torch.ops.fused_gn_conv import gn_swish_conv
+    from text_to_sound_synthesis_torch.tools import bench_gn_conv as gnt
+
+    with torch.no_grad():
+        for H, W, C in gnt.SHAPES:
+            args = gnt.stage_inputs(H, W, C, dev)
+            profile(f"K11 gn_swish_conv at ({gnt.B}, {H}, {W}, {C})",
+                    lambda: [gn_swish_conv(*args, groups=gnt.GROUPS) for _ in range(5)],
+                    what="five calls")
     return 0
 
 

@@ -7,14 +7,14 @@ Phases (any failed check exits nonzero, and no result line is printed):
 
 1. device  — a CUDA card must be present; prints its name and power limit.
 2. build   — builds every kernel from ``csrc/`` with nvcc, one process per
-             source, all at once: K1 (fused_sampler.cu), K3-K9
-             (int8_block.cu), K2 (fused_head_sample.cu) and K10
-             (mha_int8.cu).
+             source, all at once: K1 (fused_sampler.cu), K3-K9 and T1
+             (int8_block.cu), K2 (fused_head_sample.cu), K10 (mha_int8.cu)
+             and K11 (gn_swish_conv.cu).
 3. K1      — the kernel against its plain PyTorch version at the slice's
              shape (2120 rows x 256 classes): bf16 and f32 logits, r 0 and
              0.85, t_post 0, 50 and 99; Philox determinism and sampled
              frequencies over 2000 seeds; kernel and plain times.
-4. K2-K9   — the int8 kernels against their plain versions at the flagship
+4. K2-K11, T1 — the int8 kernels against their plain versions at the flagship
              shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP 4096): the
              blocks K3-K5, W8 and W4, dynamic and static scales; K2 against
              its plain version and against K1 on the same logits; then, W8,
@@ -27,14 +27,24 @@ Phases (any failed check exits nonzero, and no result line is printed):
              bf16 ulps off, a gate the bf16 MHA must fail; K4, K5 (W8 and
              W4) and K8 with the int8 MHA, dynamic and static scales; eager
              and CUDA-graph times, kernel and plain, and for K7 the time of
-             ``scaled_dot_product_attention`` on the same tensors.
+             ``scaled_dot_product_attention`` on the same tensors. K11 (no
+             request path reaches it) at the flagship decoder's five stages
+             (batch 8, bf16, 32 groups) against its twin within GN_TOL, its
+             gradient at GN_GRAD_SHAPE within GN_GRAD_TOL (its backward, given
+             one upstream gradient, bit for bit the twin's VJP with cuDNN's
+             deterministic algorithms), the times of kernel,
+             twin and the cuDNN composition, then its path, the port's
+             ``tools/bench_gn_conv``; T1 (the dot probe) at 2176 x 1024 x 4096,
+             its int cases bit for bit and bf16 -> f32 within the bound of an
+             f32 sum, ``torch._int_mm`` and bf16 ``torch.matmul`` beside it,
+             then its path, the port's ``tools/bench_kernel_dot``.
 5. slice   — builds the flagship model from ``configs/diffsound_audiocaps.yaml``
              in bf16 on the card (19 layers, d1024, 16 heads, 265 tokens, full
              VQGAN decoder, MelGAN ngf 32) with seeded random weights, checks
              three sampler steps against a loop over the plain step, then
              answers two batch-8 requests of 100 steps each, caption BPE ids
              to wav, and checks what comes out and that every step went
-             through K1.
+             through K1 and no other kernel.
 6. serving — the W4A8 static-scale engine of the same model:
              ``quantize_for_serving(weight_bits=4)`` -> ``calibrate_serving_engine``
              on the smoke's captions -> three steps, kernels against the plain
@@ -42,7 +52,7 @@ Phases (any failed check exits nonzero, and no result line is printed):
              and the 19-layer outputs and tokens) -> two batch-8, 100-step
              ``generate_int8`` requests to a wav, with the same output checks
              and exact launch counts (K4 = K5 = K3 = 19 x 100, K2 = 100, every
-             other kernel 0 per request).
+             other kernel, K11 and T1 too, 0 per request).
 7. W8      — the W8A8 dynamic engine, ``quantize_for_serving()``: three steps
              of the per-dense path (``impl="pallas_dense"``) and three of
              ``T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked``, each kernel call against
@@ -127,6 +137,26 @@ PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
 # r = 0). Tokens may differ in BOUNDARY_ROWS of the rows at any r (the logits
 # are not bitwise equal, so a Gumbel near-tie can tip).
 K2_POST_ATOL = 5e-3
+# K11 against its twin, bf16 out (cuDNN's TF32 off for the twin, though with
+# bf16-valued operands TF32 would round nothing): the group statistics and the
+# conv's f32 sums run in another order, so an f32 value can round to the
+# other bf16 neighbour, one bf16 ulp, at most 2^-7 of the value; an
+# activation rounded the other way moves an output by |k| 2^-8 |a|, far less.
+# Gradients of sum(y.float()^2) through the Function (kernel forward, the
+# twin's VJP) and through the twin differ only where y does (the upstream 2 y):
+# within GN_GRAD_TOL of each gradient's largest value (the H100 read up to
+# 0.42 %, the kernel's gradient, PERF.md). Given one upstream gradient, the
+# Function's backward is the twin's VJP recomputed, the same ops on the same
+# values: bit for bit equal once cuDNN runs its deterministic algorithms (its
+# default backward convs add with atomics, so the twin's VJP itself differs
+# from run to run, on the H100 up to 1.1e-4 of x's largest gradient).
+GN_TOL, GN_GRAD_TOL = 1e-2, 1e-2
+GN_GRAD_SHAPE = (8, 20, 212, 256)
+# T1 bf16 -> f32: exact products, f32 sums in another order; each side lies
+# within 2 K 2^-24 sum_k |x_k w_k| of the exact sum even where the tensor
+# cores' adds truncate (2^-23 per add), so the two within DOT_BOUND_K times
+# K 2^-24 sum_k |x_k w_k| of each other. The int cases are exact.
+DOT_BOUND_K = 4
 N_LAYER, D_MODEL, N_HEAD, L_TOK, S_COND, D_MLP = 19, 1024, 16, 265, 77, 4096
 LONG_FRAMES = 2120
 
@@ -142,6 +172,10 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 # add and argmax 2. The nucleus threshold's search is the algorithm's cost (a
 # bisection in the kernels), not counted.
 SAMPLER_OPS = 16
+# f32 operations per input element of K11 besides its products: the
+# statistics 3 (x, x^2, their sums), the affine 2, swish 5 (negate, exp, add,
+# reciprocal, multiply)
+GN_F32_OPS = 10
 
 
 class CheckFailed(Exception):
@@ -719,6 +753,153 @@ def phase_int8_attention(dev):
     return times
 
 
+def phase_gn_conv(dev):
+    """Phase 4 (cont.): K11 against its plain twin at the flagship decoder's
+    five stages (batch 8, bf16, C == Co, 32 groups; random affine and bias),
+    its gradient at GN_GRAD_SHAPE, eager and CUDA-graph times of kernel, twin
+    and the cuDNN composition (the tool's yardstick), then K11's own path, the
+    port's A/B tool, with its launches counted from 0. Returns ((max_abs_err,
+    ms, plain_ms) summed over the stages, the tool's launches)."""
+    from torch.nn import functional as F
+
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+    from text_to_sound_synthesis_torch.tools import bench_gn_conv as tool
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def inputs(H, W, C, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=gen, device=dev) * scale
+        return (rnd(tool.B, H, W, C).bfloat16(), 1 + rnd(C, scale=0.2), rnd(C, scale=0.2),
+                rnd(3, 3, C, C, scale=0.05), rnd(C, scale=0.1))
+
+    err = ms = plain_ms = 0.0
+    for i, (H, W, C) in enumerate(tool.SHAPES):
+        args = inputs(H, W, C, SEED + 10 + i)
+        kern = lambda: gn.gn_swish_conv(*args, groups=tool.GROUPS)
+        plain = lambda: gn.gn_swish_conv_reference(*args, groups=tool.GROUPS)
+        label = f"gn_swish_conv ({tool.B},{H},{W},{C})"
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        e, flips, n, _ = _check_outputs(got, want, f"{label}: ", GN_TOL)
+        # the cuDNN composition on the same values, bf16 weights and intermediates
+        x, gamma, beta, k, b = args
+        k_cl = k.permute(3, 2, 0, 1).bfloat16().contiguous(memory_format=torch.channels_last)
+        cudnn = lambda: F.conv2d(F.silu(F.group_norm(x.permute(0, 3, 1, 2), tool.GROUPS,
+                                                     gamma.bfloat16(), beta.bfloat16(), eps=1e-6)),
+                                 k_cl, b.bfloat16(), padding=1)
+        d_cudnn = float((cudnn().permute(0, 2, 3, 1).float() - want.float()).abs().max())
+        print(f"  {label}: max|d| {e:.3e}, elements off by > 1 bf16 ulp {flips}/{n}, differing "
+              f"{int((got != want).sum())}/{n}; the cuDNN composition max|d| {d_cudnn:.3e}")
+        err = max(err, e)
+        t_kern, t_plain = time_pair(label, kern, plain)
+        t_cudnn = min(cuda_time_ms(cudnn, iters=20, warmup=3) for _ in range(2))
+        print(f"  {label}, cuDNN composition per call: eager {t_cudnn:.4f} ms, CUDA graph "
+              f"{graph_time_ms(cudnn, reps=10, replays=5):.4f} ms")
+        ms, plain_ms = ms + t_kern, plain_ms + t_plain
+
+    # the gradient: Function (kernel forward, the twin's VJP) against the twin,
+    # of sum(y^2); then the backward alone, one upstream gradient through both,
+    # with cuDNN's deterministic backward convs
+    H, W, C = GN_GRAD_SHAPE[1:]
+    names = ("x", "gamma", "beta", "kernel", "bias")
+    grads, vjps = [], []
+    up = None
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for fn in (gn.gn_swish_conv_reference, gn.gn_swish_conv):
+            leaves = [t.clone().requires_grad_(True) for t in inputs(H, W, C, SEED + 20)]
+            y = fn(*leaves, groups=tool.GROUPS)
+            up = 2 * y.detach() if up is None else up          # the twin's 2 y, for both
+            grads.append(torch.autograd.grad(y.float().square().sum(), leaves,
+                                             retain_graph=True))
+            vjps.append(torch.autograd.grad(y, leaves, up))
+    torch.cuda.synchronize()
+    for name, w, g, vw, vg in zip(names, *grads, *vjps):
+        check(g.dtype == w.dtype and g.shape == w.shape, f"K11 grad {name}: {g.dtype} {g.shape}")
+        d, top = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        dv = float((vg.float() - vw.float()).abs().max())
+        print(f"  gn_swish_conv grad of sum(y^2) at {GN_GRAD_SHAPE} wrt {name}: max|d| {d:.3e} "
+              f"of max|grad| {top:.3e}; with the twin's upstream 2 y for both, max|d| {dv:.3e}"
+              f"{' (equal)' if torch.equal(vg, vw) else ''}")
+        check(d <= GN_GRAD_TOL * top, f"K11 grad {name}: max|d| {d:.3e} beyond {GN_GRAD_TOL} "
+              f"of {top:.3e}")
+        check(torch.equal(vg, vw), f"K11 backward {name}: max|d| {dv:.3e} from the twin's VJP")
+    # why the deterministic algorithms: the twin's VJP twice, cuDNN's defaults
+    again = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in inputs(H, W, C, SEED + 20)]
+            y = gn.gn_swish_conv_reference(*leaves, groups=tool.GROUPS)
+            again.append(torch.autograd.grad(y, leaves, up))
+    print("  the twin's VJP run twice with cuDNN's default backward convs, max|d|: " + ", ".join(
+        f"{name} {float((a.float() - b.float()).abs().max()):.3e}"
+        for name, a, b in zip(names, *again)))
+
+    print("  K11's path, the port's A/B tool (python -m text_to_sound_synthesis_torch.tools."
+          "bench_gn_conv 10):")
+    gn.gn_swish_conv.launches = 0
+    check(tool.main(["10"]) == 0, "bench_gn_conv failed")
+    launches = gn.gn_swish_conv.launches
+    print(f"  K11 launches in the tool run: {launches}")
+    return (err, ms, plain_ms), launches
+
+
+def phase_dot(dev):
+    """Phase 4 (cont.): T1 against its plain twin at the probe's fc1 shape
+    (int cases bit for bit, bf16 -> f32 within DOT_BOUND_K K 2^-24 sum|x w|),
+    the one-call yardsticks against the twin, eager and CUDA-graph times,
+    then T1's own path, the port's dot probe, with its launches counted from
+    0. Returns ((max_abs_err, ms, plain_ms) of int8 -> int32, the tool's
+    launches, the ms of ``torch._int_mm``)."""
+    from text_to_sound_synthesis_torch.tools import bench_kernel_dot as tool
+    from text_to_sound_synthesis_torch.ops import dot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = tool.cases(dev)
+    x8, w8, xb, wb = tool.inputs(dev)
+    bound = DOT_BOUND_K * tool.K * 2.0 ** -24 * (xb.float().abs() @ wb.float().abs())
+    err = 0.0
+    for name, (dt, _) in dot.CASES.items():
+        kern, plain = cases[name]
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape, f"T1 {name}: {got.dtype}")
+        d = (got.double() - want.double()).abs()
+        err = max(err, float(d.max()))
+        if dt == torch.int8:
+            check(torch.equal(got, want), f"T1 {name}: {int((got != want).sum())} outputs differ")
+            print(f"  tiled_dot {name}: equal to the twin ({got.numel()} outputs)")
+        else:
+            over = int((d > bound).sum())
+            print(f"  tiled_dot {name}: max|d| {float(d.max()):.3e}, worst at "
+                  f"{float((d / bound).max()):.3f} x the bound")
+            check(over == 0, f"T1 {name}: {over} outputs beyond the bound")
+    int_mm, mm = cases["torch._int_mm int8->int32"][0], cases["torch.matmul bf16->bf16"][0]
+    check(torch.equal(int_mm(), cases["int8->int32"][1]()), "torch._int_mm differs from the twin")
+    d_mm = float((mm().float() - cases["bf16->f32"][1]()).abs().max())
+    print(f"  torch._int_mm equal to the twin; bf16 torch.matmul (bf16 out) max|d| {d_mm:.3e}")
+
+    times = {}
+    for name in dot.CASES:
+        times[name] = time_pair(f"tiled_dot {name} at {tool.M}x{tool.K}x{tool.N}", *cases[name])
+    lib = {}
+    for name in ("torch._int_mm int8->int32", "torch.matmul bf16->bf16"):
+        call = cases[name][0]
+        lib[name] = min(cuda_time_ms(call, iters=20, warmup=3) for _ in range(2))
+        print(f"  {name} per call: eager {lib[name]:.4f} ms, CUDA graph "
+              f"{graph_time_ms(call, reps=10, replays=5):.4f} ms")
+
+    print("  T1's path, the port's dot probe (python -m text_to_sound_synthesis_torch.tools."
+          "bench_kernel_dot 50):")
+    dot.tiled_dot.launches = 0
+    check(tool.main(["50"]) == 0, "bench_kernel_dot failed")
+    launches = dot.tiled_dot.launches
+    print(f"  T1 launches in the tool run: {launches}")
+    return (err, *times["int8->int32"]), launches, lib["torch._int_mm int8->int32"]
+
+
 def caption_ids(rng) -> torch.Tensor:
     """BPE ids of the form the tokenizer emits: SOT, word ids, EOT, zero padding."""
     ids = np.zeros((BATCH, CTX), np.int32)
@@ -912,6 +1093,8 @@ def switches(**env):
 
 def _counters():
     from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import dot
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
     from text_to_sound_synthesis_torch.ops import fused_sampler as fs
     from text_to_sound_synthesis_torch.ops import int8_block as ib
     from text_to_sound_synthesis_torch.ops import quant
@@ -920,7 +1103,7 @@ def _counters():
             "K4": ib.self_attn_block, "K5": ib.cross_attn_block, "K6": quant.fused_quant_dense,
             "K6m": quant.fused_quant_dense_multi, "K7": attn.fused_mha, "K8": ib.attn_pair_block,
             "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed,
-            "K10": ib.mha_inline_int8}
+            "K10": ib.mha_inline_int8, "K11": gn.gn_swish_conv, "T1": dot.tiled_dot}
 
 
 def reset_counts():
@@ -1096,10 +1279,21 @@ def _mean_bound(*bounds):
     return sum(b[0] for b in bounds) / len(bounds), max(bounds)[1]
 
 
+def _sum_bound(*bounds):
+    """The bound of a time summed over several calls: their sum, bounded by
+    what bounds the largest."""
+    return sum(b[0] for b in bounds), max(bounds)[1]
+
+
 def kernel_bounds():
     """Each kernel's bound at the shapes its time was taken at (phases 3 and
     4): K1 bf16 logits; K3-K5 W4 static; K6-K9 W8 dynamic; K6 multi over a
-    layer's six sites, K7 and K10 over the self and the cross attention."""
+    layer's six sites, K7 and K10 over the self and the cross attention; K11
+    summed over the decoder's five stages (x and y in bf16, the f32 kernel,
+    gamma, beta and bias read once); T1 int8 -> int32 at the fc1 shape."""
+    from text_to_sound_synthesis_torch.tools import bench_gn_conv as gnt
+    from text_to_sound_synthesis_torch.tools import bench_kernel_dot as dt
+
     B, L, S, D, F, H, C = BATCH, L_TOK, S_COND, D_MODEL, D_MLP, N_HEAD, 256
     M, Ms, hd = B * L, B * S, D // H
     act = lambda rows, width: 2 * rows * width               # bf16 activations
@@ -1114,7 +1308,13 @@ def kernel_bounds():
     dense = lambda nbytes, n, k, f32: _bound(nbytes, int8=2 * M * n * k, f32=f32)
     mha = lambda keys, kind, extra: _bound(2 * act(M, D) + 2 * act(B * keys, D),
                                            **{kind: mma(keys)}, f32=soft(keys) + extra(keys))
+    gn_stage = lambda h, w, c: _bound(2 * act(gnt.B * h * w, c) + 4 * (9 * c * c + 3 * c),
+                                      bf16=18 * gnt.B * h * w * c * c,
+                                      f32=GN_F32_OPS * gnt.B * h * w * c)
     return {
+        "gn_swish_conv": _sum_bound(*(gn_stage(*shape) for shape in gnt.SHAPES)),
+        "make_pallas_dot": _bound(dt.M * dt.K + dt.K * dt.N + 4 * dt.M * dt.N,
+                                  int8=2 * dt.M * dt.K * dt.N),
         "fused_p_sample": _bound(act(M, C) + 8 * M, f32=sampler),
         "fused_head_sample": _bound(act(M, D) + 8 * D + 2 * D * C + 4 * C + 8 * M,
                                     bf16=2 * M * D * C, f32=norm + sampler),
@@ -1170,24 +1370,27 @@ def main() -> int:
 
     from text_to_sound_synthesis_torch.utils.cuda_build import find_nvcc
 
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
     from text_to_sound_synthesis_torch.ops import int8_block as ib
     from text_to_sound_synthesis_torch.ops import int8_kernels as ik
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, all at once
-        list(pool.map(lambda load: load(), (fs.load_kernel, ib.load_kernel, fs.load_head_kernel,
-                                            ik.load_mha_int8)))
-    print(f"[2 build] csrc/fused_sampler.cu, int8_block.cu, fused_head_sample.cu, mha_int8.cu -> "
-          f"sm_90a with {find_nvcc()}: {time.perf_counter() - t0:.1f} s")
+    loads = (fs.load_kernel, ib.load_kernel, fs.load_head_kernel, ik.load_mha_int8, gn.load_kernel)
+    with ThreadPoolExecutor(len(loads)) as pool:   # one nvcc per source, all at once
+        list(pool.map(lambda load: load(), loads))
+    print(f"[2 build] csrc/fused_sampler.cu, int8_block.cu, fused_head_sample.cu, mha_int8.cu, "
+          f"gn_swish_conv.cu -> sm_90a with {find_nvcc()}: {time.perf_counter() - t0:.1f} s")
 
     print("[3 K1 vs plain]")
     max_err, k1_ms, plain_ms = phase_kernel(fs, dd, dev)
 
-    print("[4 K2-K10 vs plain]")
+    print("[4 K2-K11, T1 vs plain]")
     block_res = phase_blocks(dev)
     head_res = phase_head(fs, dd, dev)
     sched_res, k6_launches, library = phase_schedules(dev)
     att_res = phase_int8_attention(dev)
+    gn_res, gn_launches = phase_gn_conv(dev)
+    dot_res, dot_launches, library["make_pallas_dot"] = phase_dot(dev)
 
     print("[5 slice]")
     cfg = load_yaml_config(CONFIG)
@@ -1214,8 +1417,8 @@ def main() -> int:
     bf16_counts = read_counts()
     print(f"  two requests of batch {BATCH} x {N_STEPS} steps: {times[0]:.3f} s, {times[1]:.3f} s; "
           f"launches {bf16_counts}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(bf16_counts["K1"] == 2 * N_STEPS,
-          f"K1 launched {bf16_counts['K1']} times, expected {2 * N_STEPS}")
+    check(bf16_counts == expected_counts(K1=2 * N_STEPS),
+          f"bf16 path: launches {bf16_counts}, expected {expected_counts(K1=2 * N_STEPS)}")
 
     print("[6 serving]")
     t0 = time.perf_counter()
@@ -1275,36 +1478,44 @@ def main() -> int:
     print(f"  W4A8 generate_long, batch {BATCH}, {LONG_FRAMES} frames: {long_seconds:.3f} s = "
           f"{BATCH / long_seconds:.3f} long clips/s, {long_seconds / int8_times[1]:.3f} x the "
           f"W4A8 request")
+    print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
+          f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
+          f"torch._int_mm {library['make_pallas_dot']:.4f} ms")
     tpu = "text_to_sound_synthesis_tpu/ops/"
     src = "text_to_sound_synthesis_torch/csrc/"
-    rows = [("fused_p_sample", "fused_sampler.cu", "fused_sampler.py:223",
+    rows = [("fused_p_sample", "fused_sampler.cu", tpu + "fused_sampler.py:223",
              bf16_counts["K1"], (max_err, k1_ms, plain_ms)),
-            ("fused_head_sample", "fused_head_sample.cu", "fused_sampler.py:300",
+            ("fused_head_sample", "fused_head_sample.cu", tpu + "fused_sampler.py:300",
              int8_counts["K2"], head_res),
-            ("mlp_block", "int8_block.cu", "int8_block.py:609", int8_counts["K3"],
+            ("mlp_block", "int8_block.cu", tpu + "int8_block.py:609", int8_counts["K3"],
              block_res["mlp_block"]),
-            ("self_attn_block", "int8_block.cu", "int8_block.py:375", int8_counts["K4"],
+            ("self_attn_block", "int8_block.cu", tpu + "int8_block.py:375", int8_counts["K4"],
              block_res["self_attn_block"]),
-            ("cross_attn_block", "int8_block.cu", "int8_block.py:455", int8_counts["K5"],
+            ("cross_attn_block", "int8_block.cu", tpu + "int8_block.py:455", int8_counts["K5"],
              block_res["cross_attn_block"]),
-            ("fused_quant_dense", "int8_block.cu", "quant.py:170", k6_launches,
+            ("fused_quant_dense", "int8_block.cu", tpu + "quant.py:170", k6_launches,
              sched_res["fused_quant_dense"]),
-            ("fused_quant_dense_multi", "int8_block.cu", "quant.py:260", w8_counts["K6m"],
+            ("fused_quant_dense_multi", "int8_block.cu", tpu + "quant.py:260", w8_counts["K6m"],
              sched_res["fused_quant_dense_multi"]),
-            ("fused_mha", "int8_block.cu", "attention.py:56", w8_counts["K7"],
+            ("fused_mha", "int8_block.cu", tpu + "attention.py:56", w8_counts["K7"],
              sched_res["fused_mha"]),
-            ("attn_pair_block", "int8_block.cu", "int8_block.py:530", w8_counts["K8"],
+            ("attn_pair_block", "int8_block.cu", tpu + "int8_block.py:530", w8_counts["K8"],
              sched_res["attn_pair_block"]),
-            ("mlp_block_chunked", "int8_block.cu", "int8_block.py:687", w8_counts["K9c"],
+            ("mlp_block_chunked", "int8_block.cu", tpu + "int8_block.py:687", w8_counts["K9c"],
              sched_res["mlp_block_chunked"]),
-            ("mlp_block_streamed", "int8_block.cu", "int8_block.py:770", w8_counts["K9s"],
+            ("mlp_block_streamed", "int8_block.cu", tpu + "int8_block.py:770", w8_counts["K9s"],
              sched_res["mlp_block_streamed"]),
-            ("mha_inline_int8", "mha_int8.cu", "int8_block.py:128", att_counts["K10"],
-             att_res["mha_inline_int8"])]
+            ("mha_inline_int8", "mha_int8.cu", tpu + "int8_block.py:128", att_counts["K10"],
+             att_res["mha_inline_int8"]),
+            # K11 and T1 run on no request path: their launches are their tools' runs
+            ("gn_swish_conv", "gn_swish_conv.cu", tpu + "fused_gn_conv.py:289", gn_launches,
+             gn_res),
+            ("make_pallas_dot", "int8_block.cu", "tools/bench_kernel_dot.py:34", dot_launches,
+             dot_res)]
     check(all(launches > 0 for _, _, _, launches, _ in rows), "a kernel was never launched")
     bounds = kernel_bounds()
     print(json.dumps({"kernels": [
-        {"name": fn, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+        {"name": fn, "route": "cuda", "source": src + source, "replaces": replaces,
          "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
          "bound_ms": bounds[fn][0], "bound_by": bounds[fn][1], "library_ms": library.get(fn)}
         for fn, source, replaces, launches, (err, ms, pms) in rows]}))

@@ -335,3 +335,97 @@ def test_attention_blocks_with_other_mha_match_plain(cuda, shape, attn, static):
             else:
                 _check_kernel(kernel, got, want, launches)
             assert ib.mha_inline_int8.launches == k10 + (n_mha if attn == "int8" else 0)
+
+
+# ---------------------------------------------------------------------------
+# K11 (fused GroupNorm -> swish -> conv3x3, with its gradient) and T1 (the
+# bare tiled dot)
+# ---------------------------------------------------------------------------
+
+# K11's bf16 output against the twin (TF32 off): the statistics are summed in
+# another order and the conv's f32 sums too, so an f32 pre-rounding value can
+# land on the other side of a bf16 rounding boundary: one bf16 ulp, at most
+# 2^-7 of the value (an activation rounded the other way moves an output by
+# |k| * 2^-8 * |a|, far less).
+GN_TOL = 1e-2
+# gradients of sum(y.float()^2) through the Function (kernel forward, the
+# twin's VJP) and through the twin: the upstream gradients 2 y differ where y
+# does, by a bf16 ulp (the H100 read up to 0.42 % of a gradient's largest
+# value at the flagship stage, chip_smoke.py); given one upstream gradient
+# the Function's backward is the twin's VJP, the same ops on the same values:
+# bit for bit equal with cuDNN's deterministic algorithms (its default
+# backward convs add with atomics, so the twin's VJP differs run to run)
+GN_GRAD_TOL = 1e-2
+
+
+def _gn_inputs(dev, B, H, W, C, Co, beta_shift=0.0, seed=5):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((B, H, W, C), generator=g, device=dev).bfloat16()
+    gamma = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+    beta = beta_shift + 0.2 * torch.randn(C, generator=g, device=dev)
+    k = torch.randn((3, 3, C, Co), generator=g, device=dev) * 0.05
+    return x, gamma, beta, k, 0.1 * torch.randn(Co, generator=g, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 20, 212, 256, 256, 32),   # a flagship decoder stage
+                                   (2, 5, 53, 64, 128, 32),      # ragged strips (W = 53)
+                                   (2, 5, 53, 64, 128, 8)])
+@pytest.mark.parametrize("beta_shift", [0.0, 6.0])               # 6: the zero ring matters
+def test_gn_swish_conv_kernel_matches_plain(cuda, shape, beta_shift):
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+
+    B, H, W, C, Co, G = shape
+    args = _gn_inputs(cuda, B, H, W, C, Co, beta_shift)
+    launches = gn.gn_swish_conv.launches
+    got = gn.gn_swish_conv(*args, groups=G)
+    want = gn.gn_swish_conv_reference(*args, groups=G)
+    _check_kernel(gn.gn_swish_conv, got, want, launches, tol=GN_TOL)
+    with pytest.raises(TypeError):
+        gn.gn_swish_conv(args[0].float(), *args[1:], groups=G)
+
+
+@pytest.mark.gpu
+def test_gn_swish_conv_gradient_matches_plain(cuda):
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+
+    grads, vjps, up = [], [], None
+    # the twin's backward convs, run here: full f32, deterministic
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for fn in (gn.gn_swish_conv_reference, gn.gn_swish_conv):
+            leaves = [t.clone().requires_grad_(True) for t in _gn_inputs(cuda, 2, 5, 53, 64, 128)]
+            y = fn(*leaves, groups=32)
+            up = 2 * y.detach() if up is None else up      # the twin's upstream, for both
+            grads.append(torch.autograd.grad(y.float().square().sum(), leaves,
+                                             retain_graph=True))
+            vjps.append(torch.autograd.grad(y, leaves, up))
+    for want, got, vwant, vgot in zip(*grads, *vjps):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert float((got.float() - want.float()).abs().max()) <= GN_GRAD_TOL * float(
+            want.float().abs().max())
+        assert torch.equal(vgot, vwant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["int8->int32", "int8->f32", "bf16->f32"])
+def test_tiled_dot_kernel_matches_plain(cuda, case):
+    """The probe's fc1 shape; the int cases bit for bit, bf16 -> f32 within
+    4 K 2^-24 sum_k |x_k w_k|: each side within 2 K 2^-24 of the exact sum in
+    any order, even where the tensor cores' adds truncate (2^-23 per add)."""
+    from text_to_sound_synthesis_torch.ops import dot as D
+    from text_to_sound_synthesis_torch.tools import bench_kernel_dot as tool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain = tool.cases(cuda)[case]
+    launches = D.tiled_dot.launches
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert D.tiled_dot.launches == launches + 1
+    assert got.dtype == want.dtype and got.shape == want.shape == (tool.M, tool.N)
+    if case.startswith("int8"):
+        assert torch.equal(got, want)
+    else:
+        x8, w8, xb, wb = tool.inputs(cuda)
+        bound = 4 * tool.K * 2.0 ** -24 * (xb.float().abs() @ wb.float().abs())
+        assert bool(((got - want).abs() <= bound).all())

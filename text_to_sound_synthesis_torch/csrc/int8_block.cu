@@ -77,6 +77,13 @@
 // K10, the int8 attention, is in mha_int8.cu.
 // The rounding points are the twins': q/k/v, p, the attention output and
 // every block output in bf16. No --use_fast_math.
+// T1 (tools/bench_kernel_dot.py::make_pallas_dot, the bare dot probe) runs
+// this GEMM in its int8 mode with a raw epilogue (two more instantiations;
+// the others' code is unchanged), and its bf16 case a kernel of the same
+// tiling on mma.sync bf16 (bf16_dot_kernel): t2s_tiled_dot. At the probe's
+// fc1 shape (2176 x 1024 x 4096) bytes bound it: 42 MB (mostly the int32
+// output) take 12.6 us at 3.35 TB/s, the 18.2 GOP of products 9.2 us at the
+// int8 peak; the probe reads how far the shared mainloop is from either.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -99,8 +106,9 @@ enum AMode { kPanel = 0, kStream = 1, kInt8 = 2 };
 // kEpiStore: [GELU2] [+ residual] -> bf16 or f32 (and the row max |y| per N
 // chunk when amax_out is set); kEpiGeluInt8: GELU2 quantized to int8;
 // kEpiChunked: int32 sums flushed per K chunk into an f32 accumulator that
-// starts at the residual, then + bias -> bf16 or f32.
-enum Epi { kEpiStore = 0, kEpiGeluInt8 = 1, kEpiChunked = 2 };
+// starts at the residual, then + bias -> bf16 or f32; kEpiRaw (T1, the bare
+// dot probe): the int32 sums stored as they are, or converted to f32.
+enum Epi { kEpiStore = 0, kEpiGeluInt8 = 1, kEpiChunked = 2, kEpiRaw = 3 };
 // What an epilogue applies and which dtypes its operands have, as bits of a
 // template parameter: the engines' combinations compile with their flags
 // folded, as fast as a GEMM written for one of them (a run-time flag in the
@@ -398,6 +406,27 @@ int8_gemm_kernel(const GemmArgs g) {
       }
     }
 
+    if (EPI == kEpiRaw) {
+      // T1: no scale, no bias; out32 converts each exact int32 sum to f32 once
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = m0 + wm * 32 + i * 16 + gq + hf * 8;
+            if (r >= M) continue;
+            const size_t o = static_cast<size_t>(r) * N + n0 + wn * 32 + j * 8 + tq * 2;
+            const int s0 = acc[i][j][2 * hf], s1 = acc[i][j][2 * hf + 1];
+            if (out32)
+              *reinterpret_cast<float2*>(static_cast<float*>(g.out[z]) + o) =
+                  make_float2(static_cast<float>(s0), static_cast<float>(s1));
+            else
+              *reinterpret_cast<int2*>(static_cast<int*>(g.out[z]) + o) = make_int2(s0, s1);
+          }
+      continue;
+    }
+
     // epilogue
     const float* __restrict__ scale = g.scale[z];
     const float* __restrict__ bias = g.bias[z];
@@ -481,6 +510,94 @@ __global__ void __launch_bounds__(256) row_amax_kernel(const __nv_bfloat16* __re
   if (lane == 0) amax[row] = m;
 }
 
+// T1's bf16 case, out (M, N) f32 = a (M, K) bf16 . w (N, K) bf16: the int8
+// mode's tiling with mma.sync m16n8k16 bf16 -> f32. A block owns a 64 x 128
+// tile, 8 warps of 32 x 32; A and the weight stream through the same two-stage
+// cp.async ring of 64-byte rows (32 bf16, two k16 slices), padded to
+// kBStride; every fragment sits at the bytes of its s8 counterpart.
+__global__ void __launch_bounds__(kThreads) bf16_dot_kernel(const __nv_bfloat16* __restrict__ a,
+                                                            const __nv_bfloat16* __restrict__ w,
+                                                            float* __restrict__ out, int M, int K,
+                                                            int N) {
+  __shared__ __align__(16) int8_t sm[2 * (BM + BN) * kBStride];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const size_t Kb = 2 * static_cast<size_t>(K);    // bytes of a row
+  const int nsteps = static_cast<int>(Kb / KS);
+  const char* A = reinterpret_cast<const char*>(a);
+  const char* W = reinterpret_cast<const char*>(w);
+
+  auto load_stage = [&](int step, int stage) {
+    int8_t* As = sm + stage * (BM + BN) * kBStride;
+    int8_t* Bs = As + BM * kBStride;
+    for (int c = tid; c < (BM + BN) * (KS / 16); c += kThreads) {
+      const int row = c / (KS / 16), part = c % (KS / 16);
+      if (row >= BM) {
+        const int n = row - BM;
+        cp_async16(Bs + n * kBStride + part * 16, W + (n0 + n) * Kb + step * KS + part * 16);
+      } else if (m0 + row < M) {
+        cp_async16(As + row * kBStride + part * 16, A + (m0 + row) * Kb + step * KS + part * 16);
+      } else {
+        *reinterpret_cast<uint4*>(As + row * kBStride + part * 16) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  load_stage(0, 0);
+  for (int step = 0; step < nsteps; ++step) {
+    if (step + 1 < nsteps) load_stage(step + 1, (step + 1) & 1);
+    if (step + 1 < nsteps) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const int8_t* Ast = sm + (step & 1) * (BM + BN) * kBStride;
+    const int8_t* Bst = Ast + BM * kBStride;
+#pragma unroll
+    for (int ks = 0; ks < KS / 32; ++ks) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* bp = Bst + (wn * 32 + j * 8 + gq) * kBStride + ks * 32 + tq * 4;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(bp);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* ap = Ast + (wm * 32 + i * 16 + gq) * kBStride + ks * 32 + tq * 4;
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(ap);
+        af[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * kBStride);
+        af[2] = *reinterpret_cast<const uint32_t*>(ap + 16);
+        af[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * kBStride + 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, b[j][0], b[j][1]);
+      }
+    }
+    __syncthreads();  // this stage consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = m0 + wm * 32 + i * 16 + gq + hf * 8;
+        if (r < M)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + n0 + wn * 32 + j * 8 + tq * 2) =
+              make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+      }
+}
+
 int num_sms() {
   static int n = 0;
   if (n == 0) {
@@ -529,18 +646,6 @@ int launch_gemm(GemmArgs g, int n_w, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 constexpr int kMhaWarps = 8;               // each warp takes 16 queries at a time
-
-// D += A (16x16, row, bf16) * B (16x8, col, bf16), f32 accumulate.
-// A regs: {row g, k 2t,2t+1}, {row g+8, k 2t..}, {row g, k 2t+8..}, {row g+8, k 2t+8..};
-// B regs: {k 2t,2t+1, col g}, {k 2t+8, 2t+9, col g}; D as mma_s8's.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -816,6 +921,40 @@ extern "C" int t2s_int8_row_amax(const void* a, int M, int K, void* amax, void* 
   row_amax_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), M, K, static_cast<float*>(amax));
   return static_cast<int>(cudaGetLastError());
+}
+
+// T1, the bare tiled dot out (M, N) = a (M, K) . w (N, K)^T (weight
+// K-contiguous): kind 0 int8 -> int32 and kind 1 int8 -> f32 through the
+// engine's GEMM in its int8 A mode with the raw epilogue; kind 2 bf16 -> f32
+// through bf16_dot_kernel. N a multiple of 128; K a multiple of 64 (int8) or
+// 32 (bf16). Returns the CUDA error code.
+extern "C" int t2s_tiled_dot(int kind, const void* a, const void* w, void* out, int M, int K,
+                             int N, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0 || N <= 0 || N % BN != 0 || kind < 0 || kind > 2 ||
+      (kind < 2 ? K % KS : (2 * K) % KS) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 2) {
+    const dim3 grid(N / BN, (M + BM - 1) / BM);
+    bf16_dot_kernel<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(a),
+                                             static_cast<const __nv_bfloat16*>(w),
+                                             static_cast<float*>(out), M, K, N);
+    return static_cast<int>(cudaGetLastError());
+  }
+  GemmArgs g = {};
+  g.a = a;
+  g.ef = kind == 1 ? kEfOutF32 : 0;
+  g.s_static = g.inv_static = 1.0f;   // the row scales are not read by the raw epilogue
+  g.is_static = 1;
+  g.w[0] = static_cast<const int8_t*>(w);
+  g.out[0] = out;
+  g.M = M;
+  g.K = K;
+  g.N = N;
+  g.nch = 1;
+  g.nt = 1;
+  return kind == 1 ? launch_gemm<kInt8, kNormNone, false, kEpiRaw, kEfOutF32>(g, 1, s)
+                   : launch_gemm<kInt8, kNormNone, false, kEpiRaw, 0>(g, 1, s);
 }
 
 // Multi-head attention: q (batch*Lq, H*hd), k/v (batch*Lkv, H*hd) bf16 ->

@@ -1,7 +1,8 @@
 """ctypes bindings of ``csrc/int8_block.cu`` and ``csrc/mha_int8.cu``, and
 the launch helpers that the int8 kernel wrappers share:
 ``quant.fused_quant_dense[_multi]`` (K6), ``attention.fused_mha`` (K7) and
-the blocks of ``int8_block`` (K3-K5, K8, K9) and their int8 attention (K10).
+the blocks of ``int8_block`` (K3-K5, K8, K9) and their int8 attention (K10);
+``dot.tiled_dot`` (T1) and ``fused_gn_conv`` (K11) use its checks.
 Nothing here counts launches: each wrapper counts its own calls.
 """
 
@@ -39,6 +40,8 @@ def load_kernel() -> ctypes.CDLL:
     lib.t2s_int8_mha.restype = I
     lib.t2s_int8_limits.argtypes = [I]
     lib.t2s_int8_limits.restype = I
+    lib.t2s_tiled_dot.argtypes = [I, P, P, P, I, I, I, P]
+    lib.t2s_tiled_dot.restype = I
     return lib
 
 
