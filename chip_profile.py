@@ -6,7 +6,8 @@
 Builds the flagship model as ``chip_smoke.py`` does (seeded random weights,
 bf16, batch 8, 100 steps, ``top0.85r``), then for the bf16 path
 (``generate``), the W4A8 static-scale engine (``quantize_for_serving(4)``
--> ``calibrate_serving_engine`` -> ``generate_int8``) and the W8A8 dynamic
+-> ``calibrate_serving_engine`` -> ``generate_int8``; with its default
+pair-packed MHA and under ``T2S_ATTN_MHA=base``) and the W8A8 dynamic
 engine (``quantize_for_serving()``) on its block path and on its per-dense
 path (``generate_int8(impl="pallas_dense")``), the W4A8 engine with the int8
 MHA (``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``) and the W4A8 engine's long-form
@@ -72,6 +73,9 @@ def main() -> int:
     qp = model.quantize_for_serving(weight_bits=4)
     model.calibrate_serving_engine(qp, gen(), cond)
     profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+    with cs.switches(T2S_ATTN_MHA="base"):
+        profile("W4A8 static, bf16 MHA (T2S_ATTN_MHA=base)",
+                lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
     qp8 = model.quantize_for_serving()
     for impl in ("pallas", "pallas_dense"):
         profile(f"W8A8 dynamic {impl}",

@@ -1,19 +1,21 @@
-"""K10, the int8 attention of the serving engine's blocks, and the bf16
-attention with its softmax divide folded into the output, against the JAX
-package.
+"""K10, the int8 attention of the serving engine's blocks, the bf16
+attention with its softmax divide folded into the output, and the pair-packed
+MHA that the engine serves at a head width of 64, against the JAX package.
 
-The JAX engine reaches both through ``int8_block.py::_mha``:
+The JAX engine reaches the first two through ``int8_block.py::_mha``:
 ``T2S_ATTN_INT8=1`` runs ``_mha_inline_int8``, ``T2S_SOFTMAX_FOLD_DIV=1`` the
 folded ``_mha_inline``, inside K4 and K5 when the attention mode is "base"
-and inside K8 always. The port's blocks take that choice as ``attn``
-("int8", "bf16_fold" or "bf16"), and the engine maps the switches onto it
-(``int8_runtime._block_switches``). Here the plain twins are held against the
-JAX functions called directly (per batch element, as one JAX block program
-holds one), the block twins against the JAX Pallas kernels in interpret mode
-with the module flag set, and the engine's backbone under each switch setting
-against the JAX oracles composed per layer. The CUDA kernels are checked
-against the same twins on the card (``tests/test_torch_kernels_gpu.py``,
-``chip_smoke.py``).
+and inside K8 always. In mode "pair" (``T2S_ATTN_MHA``'s default at two heads
+of 64 a 128-lane group) K4 and K5 run ``_mha_pair_premasked`` / ``_mha_pair``
+whatever those flags say. The port's blocks take that choice as ``attn``
+("int8", "bf16_fold", "bf16" or "pair"), and the engine maps the switches
+onto it (``int8_runtime._block_switches``). Here the plain twins are held
+against the JAX functions called directly (per batch element, as one JAX
+block program holds one), the block twins against the JAX Pallas kernels in
+interpret mode with the module flag or ``mha_mode`` set, and the engine's
+backbone under each switch setting against the JAX oracles composed per
+layer with that MHA. The CUDA kernels are checked against the same twins on
+the card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 
 Geometry of tests/test_torch_int8_blocks.py: batch 2, 32 tokens, width 128,
 condition 16, MLP 512; 4 heads of 32 (JAX's default attention mode there is
@@ -150,6 +152,37 @@ def test_mha_twin_matches_jax_mha_inline(monkeypatch, n_head, fold, keys, kv_val
     _close(got, want, MHA_TOL)
 
 
+def _pair_masked(k):
+    """k with head B's lanes zeroed, and with head A's: each 128-lane group
+    of a pair, as JAX folds the masks into its K/V dequants."""
+    lane = jnp.arange(k.shape[1]) % 128
+    return jnp.where(lane < 64, k, 0).astype(k.dtype), jnp.where(lane >= 64, k, 0).astype(k.dtype)
+
+
+@pytest.mark.parametrize("keys,kv_valid", KEYS)
+@pytest.mark.parametrize("fn", ["_mha_pair_premasked", "_mha_pair"])
+def test_pair_twin_matches_jax_pair_mha(fn, keys, kv_valid):
+    """``mha_pair_reference`` against JAX's two pair-packed MHAs on bf16
+    inputs, output rounded to bf16 (one row max shared by a pair, the
+    divide after P V): one bf16 ulp at values up to 2 (MHA_TOL)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(60, keys, kv_valid)
+    if fn == "_mha_pair":
+        call = JB._mha_pair
+    else:
+        call = lambda q, k, v, n_head, valid: JB._mha_pair_premasked(
+            q, *_pair_masked(k), *_pair_masked(v), n_head, valid)
+    want = _jax_per_element(call, jq, jk, jv, 2, kv_valid).astype(jnp.bfloat16)
+    got = TA.mha_pair_reference(tq, tk, tv, batch=B, n_head=2, kv_valid=kv_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, D)
+    _close(got, want, MHA_TOL)
+
+
+def test_pair_twin_refuses_other_heads():
+    (_, tq), (_, tk), (_, tv) = _qkv(61, Skv, Skv)
+    with pytest.raises(ValueError, match="even number of heads of width 64"):
+        TA.mha_pair_reference(tq, tk, tv, batch=B, n_head=4, kv_valid=Skv)
+
+
 def test_fold_div_rounds_otherwise():
     """The folded divide rounds exp(s - max), not p, to bf16: another result."""
     (_, tq), (_, tk), (_, tv) = _qkv(20, Lp, Lp)
@@ -212,13 +245,58 @@ def test_block_twins_match_jax_kernel_interpret(monkeypatch, block, attn, n_head
     _close(got, jax_call())
 
 
+def _pair_case(block, seed, rows):
+    """(JAX call, port call) of K4 or K5 in pair mode on the same inputs:
+    two heads of 64, W4 weights, static scales; the JAX kernel with
+    ``rows_per_program`` ``rows``."""
+    jx, tx = _bf16(_rows(seed, M, D))
+    jmods, tmods = jnp.asarray(_rows(seed + 1, 2, D, 0.2)), torch.from_numpy(_rows(seed + 1, 2, D, 0.2))
+    jck, tck = _bf16(_rows(seed + 2, B * Skv, D))
+    jcv, tcv = _bf16(_rows(seed + 3, B * Skv, D))
+    jws = [_jweight(seed + 4 + i, D, D, True) for i in range(4)]
+    tws = [_tw(w) for w in jws]
+    kw = dict(batch=B, n_head=2, static_s=(0.03, 0.02), w4=True)
+    if block == "self":
+        return (lambda: JB.self_attn_block(jx, jmods, *jws, q_valid=Lp - 3, interpret=True,
+                                           mha_mode="pair", rows_per_program=rows, **kw),
+                lambda attn: TB.self_attn_block(tx, tmods, *tws, q_valid=Lp - 3, attn=attn, **kw))
+    return (lambda: JB.cross_attn_block(jx, jmods, jck, jcv, *jws[:2], kv_valid=Skv - 4,
+                                        interpret=True, mha_mode="pair", rows_per_program=rows,
+                                        **kw),
+            lambda attn: TB.cross_attn_block(tx, tmods, tck, tcv, *tws[:2], kv_valid=Skv - 4,
+                                             attn=attn, **kw))
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("block", ["self", "cross"])
+def test_pair_blocks_match_jax_kernel_interpret(block, rows):
+    """K4 / K5 with ``attn="pair"`` against the Pallas kernels with
+    ``mha_mode="pair"`` (interpret mode), one or two batch rows a program."""
+    jax_call, port_call = _pair_case(block, 70, rows)
+    got = port_call("pair")
+    assert got.dtype == torch.bfloat16 and got.shape == (M, D)
+    _close(got, jax_call())
+
+
+@pytest.mark.parametrize("block", ["self", "cross"])
+def test_bf16_mha_was_further_from_jax_pair_kernel(block):
+    """The MHA the port ran in pair mode before (``attn="bf16"``: a max per
+    head, the divide before P V) lies further from JAX's pair kernel than
+    ``attn="pair"`` does: more outputs differ, and by more."""
+    jax_call, port_call = _pair_case(block, 80, 1)
+    want = torch.from_numpy(np.array(jax_call().astype(jnp.float32)))
+    d = {attn: (port_call(attn).float() - want).abs() for attn in ("pair", "bf16")}
+    assert int((d["pair"] > 0).sum()) < int((d["bf16"] > 0).sum())
+    assert float(d["pair"].mean()) < float(d["bf16"].mean())
+
+
 def _jax_mha(kind):
     """JAX's MHA of the blocks for ``kind``, with ``mha_reference``'s
     signature and output dtype: the bf16 oracle, or ``_mha_inline`` (flag as
-    set) / ``_mha_inline_int8`` per batch element."""
+    set) / ``_mha_inline_int8`` / ``_mha_pair`` per batch element."""
     if kind == "bf16":
         return _JAX_MHA_REFERENCE
-    fn = JB._mha_inline_int8 if kind == "int8" else JB._mha_inline
+    fn = {"int8": JB._mha_inline_int8, "pair": JB._mha_pair}.get(kind, JB._mha_inline)
 
     def mha(q, k, v, *, batch, n_head, kv_valid):
         assert batch == B
@@ -320,8 +398,9 @@ SWITCH_CASES = {
     "hd32 int8 and fold": (4, 8, dict(T2S_ATTN_INT8="1", T2S_SOFTMAX_FOLD_DIV="1"), False,
                            "int8"),
     "hd32 pair int8": (4, 8, dict(T2S_ATTN_PAIR="1", T2S_ATTN_INT8="1"), True, "int8"),
-    "hd64 int8, pair mode": (2, 8, dict(T2S_ATTN_INT8="1"), False, "bf16"),
-    "hd64 fold, pair mode": (2, 8, dict(T2S_SOFTMAX_FOLD_DIV="1"), False, "bf16"),
+    "hd64 default": (2, 8, {}, False, "pair"),
+    "hd64 int8, pair mode": (2, 8, dict(T2S_ATTN_INT8="1"), False, "pair"),
+    "hd64 fold, pair mode": (2, 8, dict(T2S_SOFTMAX_FOLD_DIV="1"), False, "pair"),
     "hd64 int8, base mode": (2, 8, dict(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base"), False, "int8"),
     "hd64 fold, base mode": (2, 8, dict(T2S_SOFTMAX_FOLD_DIV="1", T2S_ATTN_MHA="base"), False,
                              "bf16_fold"),
@@ -333,10 +412,11 @@ SWITCH_CASES = {
 
 @pytest.mark.parametrize("case", list(SWITCH_CASES))
 def test_backbone_attention_switches_match_jax_oracles(monkeypatch, case):
-    """The switches pick each block's MHA as the JAX engine's ``_mha`` is
-    reached: K8 always, K4 and K5 only in mode "base" (the default at a head
-    width of 32, ``T2S_ATTN_MHA=base`` at 64; in mode "pair" they keep the
-    bf16 MHA). The layers against the JAX oracles with that MHA."""
+    """The switches pick each block's MHA as the JAX engine does: K8 always
+    reaches ``_mha``, K4 and K5 only in mode "base" (the default at a head
+    width of 32, ``T2S_ATTN_MHA=base`` at 64); in mode "pair", the default at
+    64, K4 and K5 run the pair-packed MHA whatever the other switches say.
+    The layers against the JAX oracles with that MHA."""
     n_head, bits, env, pair, attn = SWITCH_CASES[case]
     for name, value in env.items():
         monkeypatch.setenv(name, value)
@@ -352,6 +432,17 @@ def test_backbone_attention_switches_match_jax_oracles(monkeypatch, case):
     want = _jax_hidden(engines[bits], tokens, cond, n_head, pair)
     assert got.dtype == torch.bfloat16 and got.shape == (M, D)
     _close(got, want, LAYERS_TOL)
+
+
+def test_w4_engine_serves_the_pair_mha(monkeypatch):
+    """The served configuration, W4 at a head width of 64 under the default
+    switches, runs K4 and K5 with the pair-packed MHA (their W4 numerics
+    against JAX: test_pair_blocks_match_jax_kernel_interpret)."""
+    engines, tokens, cond = _engine(2)
+    tqp = from_jax.load_int8_engine(jax.device_get(engines[4]), device="cpu")
+    seen = _spy_attn(monkeypatch)
+    _port_hidden(tqp, tokens, cond)
+    assert seen == [("self_attn_block", "pair"), ("cross_attn_block", "pair")] * N_LAYER
 
 
 def test_attention_switches_change_the_answer(monkeypatch):

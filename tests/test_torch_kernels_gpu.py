@@ -109,6 +109,23 @@ def test_int8_block_kernels_match_plain(cuda, shape, w4, static):
 # K6 (per-dense), K7 (MHA), K8 (attention pair) and K9 (chunked MLP)
 # ---------------------------------------------------------------------------
 
+def _ulp_flips(got, want, ulps: int) -> int:
+    """Elements of got more than ``ulps`` bf16 ulps off the plain value."""
+    w = want.float()
+    ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
+                      torch.exp2(torch.floor(torch.log2(w.abs())) - 7))
+    return int(((got.float() - w).abs() > ulps * ulp).sum())
+
+
+def _ulp_gate(got, want, ulps: int, share: float, controls=()):
+    """At most ``share`` of got's elements more than ``ulps`` bf16 ulps off
+    want; each control (another function on the same inputs) more."""
+    n = want.numel()
+    assert _ulp_flips(got, want, ulps) <= share * n
+    for c in controls:
+        assert _ulp_flips(c, want, ulps) > share * n
+
+
 def _check_kernel(kernel, got, want, launches, tol=BLOCK_TOL):
     torch.cuda.synchronize()
     assert kernel.launches == launches + 1
@@ -257,7 +274,7 @@ def _masked_tail_x4(v, batch, valid):
 @pytest.mark.parametrize("shape", ["small", "flagship"])
 def test_int8_and_folded_mha_match_plain(cuda, shape):
     """K10 against its twin, rounded once to bf16, and the folded bf16 MHA
-    (``int8_kernels.mha(fold_div=True)``, the blocks' ``attn="bf16_fold"``)
+    (``int8_kernels.mha(mode="bf16_fold")``, the blocks' ``attn="bf16_fold"``)
     against ``mha_reference(fold_div=True)``, at the self and the cross
     attention's key counts with and without masked tails (their v four times
     larger)."""
@@ -279,7 +296,7 @@ def test_int8_and_folded_mha_match_plain(cuda, shape):
         _check_kernel(ib.mha_inline_int8, got, want, launches)
         assert _share_beyond_ulps(got, want, K10_ULPS) <= K10_SHARE
         assert _share_beyond_ulps(attn.mha_reference(x, k, v, **kw), want, K10_ULPS) > K10_SHARE
-        got = ik.mha(ik.load_kernel(), x, k, v, B, H, valid, fold_div=True)
+        got = ik.mha(ik.load_kernel(), x, k, v, B, H, valid, mode="bf16_fold")
         torch.cuda.synchronize()
         want = attn.mha_reference(x, k, v, fold_div=True, **kw)
         torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
@@ -335,6 +352,138 @@ def test_attention_blocks_with_other_mha_match_plain(cuda, shape, attn, static):
             else:
                 _check_kernel(kernel, got, want, launches)
             assert ib.mha_inline_int8.launches == k10 + (n_mha if attn == "int8" else 0)
+
+
+# the pair-packed MHA takes heads of 64: the flagship, and a small shape of two
+PAIR_SHAPES = {"small64": (2, 40, 128, 2, 16, 512), "flagship": SHAPES["flagship"]}
+# The pair MHA against its twin: f32 sums in another order move an output by
+# one bf16 ulp at a rounding step, by more only where a rounded p moved too;
+# at most PAIR_MHA_SHARE of the outputs may lie more than PAIR_MHA_ULPS off
+# (the H100 read at most 9.2e-5, none at small64). The MHA that divides before
+# P's rounding (the bf16 MHA beside "pair", the pair MHA beside "pair_nofold")
+# lies that far on 0.3-16 %, and must fail the gate. K4 / K5 with the pair
+# MHA: int8 flips too (up to 0.17 % of outputs more than one ulp off here on
+# the H100, 0.50 % at chip_smoke.py's inputs), with the bf16 MHA 7.9-24 %.
+PAIR_MHA_ULPS, PAIR_MHA_SHARE = 1, 5e-4
+PAIR_BLOCK_ULPS, PAIR_BLOCK_SHARE = 1, 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(PAIR_SHAPES))
+@pytest.mark.parametrize("mode", ["pair", "pair_nofold"])
+def test_pair_mha_matches_plain(cuda, shape, mode):
+    """The pair-packed MHA (``int8_kernels.mha(mode="pair")``, the blocks'
+    ``attn="pair"``) and T3's ``pair_nofold`` against
+    ``mha_pair_reference``, at the self (265) and the cross attention's (77)
+    key counts, with and without masked tails: bf16 outputs of f32 sums run
+    in another order, within BLOCK_TOL and the PAIR_MHA gate."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    B, L, D, H, S, Dh = PAIR_SHAPES[shape]
+    d = _block_inputs(cuda, PAIR_SHAPES[shape], False)
+    x = d["x"]
+    lib = ik.load_kernel()
+    v = torch.randn((B * L, D), generator=torch.Generator(cuda).manual_seed(9), device=cuda).bfloat16()
+    for k, v, valid in ((x, v, L), (x, v, L - 3), (d["ck"], d["cv"], S), (d["ck"], d["cv"], S - 4)):
+        got = ik.mha(lib, x, k, v, B, H, valid, mode=mode)
+        torch.cuda.synchronize()
+        want = attn.mha_pair_reference(x, k, v, batch=B, n_head=H, kv_valid=valid,
+                                       fold=mode == "pair")
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
+        if mode == "pair":
+            controls = (ik.mha(lib, x, k, v, B, H, valid),
+                        attn.mha_reference(x, k, v, batch=B, n_head=H, kv_valid=valid))
+        else:
+            controls = (ik.mha(lib, x, k, v, B, H, valid, mode="pair"),)
+        _ulp_gate(got, want, PAIR_MHA_ULPS, PAIR_MHA_SHARE, controls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(PAIR_SHAPES))
+@pytest.mark.parametrize("static", [False, True])
+def test_attention_blocks_with_pair_mha_match_plain(cuda, shape, static):
+    """K4 and K5 (W8 and W4) with ``attn="pair"``, the engine's default at a
+    head width of 64; one launch each, within BLOCK_TOL and the PAIR_BLOCK
+    gate, which the blocks with the bf16 MHA (kernel, twin) fail."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    B, L, D, H, S, Dh = PAIR_SHAPES[shape]
+    ss = (0.035, 0.02) if static else None
+    for w4 in (False, True):
+        d = _block_inputs(cuda, PAIR_SHAPES[shape], w4)
+        for kernel, plain, args, kw in (
+                (ib.self_attn_block, ib.self_attn_block_reference, (d["x"], d["mod"], *d["attn"]),
+                 dict(q_valid=L - 3)),
+                (ib.cross_attn_block, ib.cross_attn_block_reference,
+                 (d["x"], d["mod"], d["ck"], d["cv"], *d["cross"]), dict(kv_valid=S - 4))):
+            launches = kernel.launches
+            kw.update(batch=B, n_head=H, static_s=ss, w4=w4)
+            got = kernel(*args, attn="pair", **kw)
+            want = plain(*args, attn="pair", **kw)
+            _check_kernel(kernel, got, want, launches)
+            _ulp_gate(got, want, PAIR_BLOCK_ULPS, PAIR_BLOCK_SHARE,
+                      (kernel(*args, attn="bf16", **kw), plain(*args, attn="bf16", **kw)))
+
+
+# ---------------------------------------------------------------------------
+# T2 and T3, the MLP and self-attention ablation probes, at their tools' shapes
+# ---------------------------------------------------------------------------
+
+# T2's outputs against its twins: dots_only is integers end to end (bf16 of
+# an exact int32 sum) and mid_bf16 rounds every op of the middle to bf16 in
+# the twin's order, its row scale too, so both are equal (as on the H100); the
+# others are int8 blocks, BLOCK_TOL. mid_bf16b and mid_bf16c change K3's
+# middle by a bf16 rounding (K3's twin misses BLOCK_TOL on only 238-335
+# outputs): they, fast_sigmoid and no_gelu are also held to at most T2_SHARE
+# of their outputs more than T2_ULPS off (the kernels read up to 0.31 %),
+# which K3's twin (and for mid_bf16b / c the other's twin) must fail (27-99 %).
+T2_EXACT = ("dots_only", "mid_bf16")
+T2_ULPS, T2_SHARE = 1, 3e-2
+T2_CONTROLS = {"mid_bf16b": ("K3", "mid_bf16c"), "mid_bf16c": ("K3", "mid_bf16b"),
+               "fast_sigmoid": ("K3",), "no_gelu": ("K3",)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["dots_only", "no_prologue", "ln_onepass", "no_gelu",
+                                     "no_quant_mid", "no_deq_mid", "mid_bf16", "mid_bf16b",
+                                     "mid_bf16c", "fast_sigmoid"])
+def test_mlp_ablate_kernels_match_plain(cuda, variant):
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import mlp_ablate as T2
+    from text_to_sound_synthesis_torch.tools import bench_mlp_ablate as tool
+
+    x, mod, w1, w2 = tool.inputs(cuda)
+    launches = T2.mlp_variant.launches
+    got = T2.mlp_variant(x, mod, w1, w2, variant=variant)
+    want = T2.mlp_variant_reference(x, mod, w1, w2, variant=variant)
+    if variant in T2_EXACT:
+        torch.cuda.synchronize()
+        assert T2.mlp_variant.launches == launches + 1 and torch.equal(got, want)
+    else:
+        _check_kernel(T2.mlp_variant, got, want, launches)
+    if variant in T2_CONTROLS:
+        twin = lambda c: (ib.mlp_block_reference(x, mod, w1, w2) if c == "K3" else
+                          T2.mlp_variant_reference(x, mod, w1, w2, variant=c))
+        _ulp_gate(got, want, T2_ULPS, T2_SHARE, [twin(c) for c in T2_CONTROLS[variant]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["qkvp_dots_only", "no_softmax", "no_av", "no_scores", "pair",
+                                     "pair_nofold"])
+@pytest.mark.parametrize("static", [False, True])
+def test_attn_ablate_kernels_match_plain(cuda, variant, static):
+    """At the tool's padded shape: 8 x 272 rows, keys from 265 masked."""
+    from text_to_sound_synthesis_torch.ops import attn_ablate as T3
+    from text_to_sound_synthesis_torch.tools import bench_attn_ablate as tool
+
+    x, mod, ws = tool.inputs(cuda)
+    kw = dict(batch=tool.B, n_head=tool.H, q_valid=tool.Q_VALID, variant=variant,
+              static_s=(0.05, 0.05) if static else None)
+    launches = T3.attn_variant.launches
+    got = T3.attn_variant(x, mod, *ws, **kw)
+    _check_kernel(T3.attn_variant, got, T3.attn_variant_reference(x, mod, *ws, **kw), launches)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +554,22 @@ def test_gn_swish_conv_gradient_matches_plain(cuda):
         assert float((got.float() - want.float()).abs().max()) <= GN_GRAD_TOL * float(
             want.float().abs().max())
         assert torch.equal(vgot, vwant)
+
+
+@pytest.mark.gpu
+def test_gn_swish_conv_backward_is_deterministic(cuda):
+    """Two runs of the Function's backward, under the global cuDNN settings
+    (its own are the deterministic algorithms), give the same gradients, bit
+    for bit, at a flagship decoder stage."""
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in _gn_inputs(cuda, 8, 20, 212, 256, 256)]
+        y = gn.gn_swish_conv(*leaves, groups=32)
+        runs.append(torch.autograd.grad(y, leaves, torch.ones_like(y)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

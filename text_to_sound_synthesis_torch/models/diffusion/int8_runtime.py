@@ -19,11 +19,10 @@ two kernel paths, chosen by ``impl`` as in the JAX engine:
   else ``T2S_SOFTMAX_FOLD_DIV=1`` runs the bf16 MHA with its softmax divide
   folded into the output, at the same places; else the bf16 MHA.
   ``T2S_ATTN_MHA`` defaults, as in JAX, to ``"pair"`` when two heads fill
-  128 lanes (an even head count of width 64), else ``"base"``. The
-  pair-packed MHA is a TPU schedule with no counterpart here (ROADMAP), so
-  in pair mode K4 and K5 run the bf16 MHA (the TPU's pair kernels divide
-  after P V, from a max shared by two heads: another rounding of the same
-  softmax).
+  128 lanes (an even head count of width 64), else ``"base"``. In pair mode
+  K4 and K5 run the pair-packed MHA (``attn="pair"``: one row max shared by
+  two heads, the divide after P V), whatever the other two switches say, as
+  JAX's pair kernels do; K8 keeps ``_mha``'s choice.
 - ``"pallas_dense"``, the per-dense path: six K6 denses
   (``ops/quant.py::fused_quant_dense_multi``) and two K7 attentions
   (``ops/attention.py::fused_mha``) per layer. A W4 engine is unpacked
@@ -36,10 +35,9 @@ Weights are symmetric per output channel, int8 or nibble-packed int4
 Differences from the JAX engine, on purpose:
 - the kernels take the unpadded sequence (no ``L_pad``), and the TPU
   schedule choices have no counterpart: ``_pad_plan``'s ``block_m``,
-  ``rows_per_program``, the pair-packed MHA, and the schedule-only switches
+  ``rows_per_program``, and the schedule-only switches
   ``T2S_MLP_BM``, ``T2S_ATTN_ROWS``, ``T2S_MLP_PIPE``, ``T2S_SPLIT_CALLS``,
-  ``T2S_HEAD_GROUP``, ``T2S_VMEM_LIMIT_MB`` and ``T2S_PAR_SEMANTICS``
-  (``T2S_ATTN_MHA`` is read only for which MHA the blocks run). Unpadded,
+  ``T2S_HEAD_GROUP``, ``T2S_VMEM_LIMIT_MB`` and ``T2S_PAR_SEMANTICS``. Unpadded,
   K10's V scale is the column max over the keys of each batch element; the
   TPU engine's self-attention programs also hold the pad rows up to
   ``L_pad`` there;
@@ -254,7 +252,8 @@ class Switches(NamedTuple):
 def _block_switches(w4: bool, n_head: int, head_dim: int) -> Switches:
     """The JAX engine's kernel-selecting switches, read now; a W4 engine runs
     the base blocks. The MHA follows JAX's ``_mha``: K8 always reaches it,
-    K4 and K5 only in ``T2S_ATTN_MHA`` mode "base"."""
+    K4 and K5 only in ``T2S_ATTN_MHA`` mode "base"; in mode "pair" they run
+    the pair-packed MHA."""
     mlp_impl = os.environ.get("T2S_MLP_IMPL", "base")
     if w4:
         mlp_impl = "base"
@@ -266,7 +265,7 @@ def _block_switches(w4: bool, n_head: int, head_dim: int) -> Switches:
         raise ValueError(f"T2S_ATTN_MHA must be 'base' or 'pair', got {mode!r}")
     mha = ("int8" if os.environ.get("T2S_ATTN_INT8", "0") == "1"
            else "bf16_fold" if os.environ.get("T2S_SOFTMAX_FOLD_DIV", "0") == "1" else "bf16")
-    return Switches(pair, mlp_impl, n_chunks, mha if mode == "base" else "bf16", mha)
+    return Switches(pair, mlp_impl, n_chunks, mha if mode == "base" else "pair", mha)
 
 
 def _blocks(qp: Int8Denoiser, x, cond_kvs, mods, act_s, B: int, L: int, S: int):

@@ -156,9 +156,23 @@ def _gn_swish_conv_cuda(x, gamma, beta, kernel, bias, groups: int) -> torch.Tens
     return y
 
 
+@contextlib.contextmanager
+def _deterministic_conv(t: torch.Tensor):
+    """On a CUDA tensor, cuDNN's deterministic algorithms in full f32: its
+    default backward convolutions add with atomics, so two runs of the same
+    gradient would differ in their last bits."""
+    if t.device.type != "cuda":
+        yield
+        return
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        yield
+
+
 class _GnSwishConv(torch.autograd.Function):
     """Forward: the kernel on a CUDA tensor, the twin on a CPU one. Backward:
-    the twin's VJP at the saved inputs, recomputed (JAX ``_bwd``)."""
+    the twin's VJP at the saved inputs, recomputed (JAX ``_bwd``), with
+    cuDNN's deterministic algorithms: the same gradient every run."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, kernel, bias, groups):
@@ -172,7 +186,7 @@ class _GnSwishConv(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad[:5]
         leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad(), _ieee_conv(g):
+        with torch.enable_grad(), _deterministic_conv(g):
             y = gn_swish_conv_reference(*leaves, groups=ctx.groups)
             grads = iter(torch.autograd.grad(y, [t for t, n in zip(leaves, need) if n], g))
         return (*(next(grads) if n else None for n in need), None)

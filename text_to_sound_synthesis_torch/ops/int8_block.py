@@ -30,7 +30,12 @@ read the environment):
   "int8"       K10 ``mha_inline_int8``: q and k quantized per row over the
                whole width, V per column over the keys of each batch element,
                P per (head, query) row after the f32 softmax; int8 Q K^T and
-               P V with exact integer sums.
+               P V with exact integer sums;
+  "pair"       ``mha_pair_reference``, the pair-packed MHA the JAX engine
+               serves at a head width of 64 (``T2S_ATTN_MHA=pair``, its
+               default there): one row max shared by heads 2g and 2g + 1, p
+               rounded unnormalised, the divide after P V. An even number of
+               heads of width 64, else ValueError.
 
 The ``*_reference`` functions are the plain PyTorch versions and define what
 the kernels compute (the JAX package's ``*_reference`` twins; W4 goes through
@@ -39,9 +44,10 @@ launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` (K10:
 ``csrc/mha_int8.cu``) for CUDA tensors and run the plain version only for
 CPU tensors; each counts its kernel runs in ``.launches`` (K10 counts every
 int8 MHA, inside a block or called alone). The TPU schedule options (``rows_per_program``,
-``mha_mode``, ``block_m``, ``pipeline_halves``, row padding) are not carried
-over: the Hopper kernels choose their own tiling and take the unpadded
-sequence.
+``block_m``, ``pipeline_halves``, row padding) are not carried over: the
+Hopper kernels choose their own tiling and take any sequence length up to
+their limit (the TPU's padded one too, its pad keys masked by ``q_valid``).
+``mha_mode="pair"`` is ``attn="pair"`` here.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import int8_kernels as ik
-from .attention import mha_reference
+from .attention import check_pair, mha_pair_reference, mha_reference
 from .int8_kernels import load_kernel
 from .quant import (QuantizedWeight, _deq, _gelu2, _prologue, _quant, _quantize_rows, int_dot,
                     unpack_weight_w4)
@@ -64,12 +70,14 @@ __all__ = ["self_attn_block", "cross_attn_block", "attn_pair_block", "mlp_block"
            "mha_inline_int8_reference", "load_kernel", "ATTN"]
 
 StaticS = Optional[Tuple[float, ...]]
-ATTN = ("bf16", "bf16_fold", "int8")
+ATTN = ("bf16", "bf16_fold", "int8", "pair")
 
 
-def _check_attn_mode(attn: str) -> str:
+def _check_attn_mode(attn: str, n_head: int, width: int) -> str:
     if attn not in ATTN:
         raise ValueError(f"attn must be one of {ATTN}, got {attn!r}")
+    if attn == "pair":
+        check_pair(n_head, width)
     return attn
 
 
@@ -129,8 +137,10 @@ def _ref_mha(q, k, v, batch, n_head, kv_valid, attn):
     """The blocks' attention on bf16 q/k/v: its output rounded to bf16, as f32."""
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     kw = dict(batch=batch, n_head=n_head, kv_valid=kv_valid)
-    if _check_attn_mode(attn) == "int8":
+    if _check_attn_mode(attn, n_head, q.shape[1]) == "int8":
         return mha_inline_int8_reference(q, k, v, **kw).bfloat16().float()
+    if attn == "pair":
+        return mha_pair_reference(q, k, v, **kw).float()
     return mha_reference(q, k, v, fold_div=attn == "bf16_fold", **kw).float()
 
 
@@ -140,10 +150,8 @@ def _ref_proj(y, w: QuantizedWeight, s_static):
     return _deq(int_dot(qy, w.w_q), sy, w)
 
 
-def self_attn_block_reference(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int,
-                              q_valid: int, static_s: StaticS = None, w4: bool = False,
-                              attn: str = "bf16"):
-    """Plain twin of K4. x (B*L, D) bf16, mod (2, D) f32 -> (B*L, D) bf16."""
+def _self_attn_twin(x, mod, wq, wk, wv, wproj, mha, static_s: StaticS, w4: bool):
+    """K4's twin around ``mha``: bf16 q, k, v -> the attention output as f32."""
     wq, wk, wv, wproj = _plain_weights((wq, wk, wv, wproj), w4)
     s_in, s_out = _split(static_s)
     xf = x.float()
@@ -152,8 +160,17 @@ def self_attn_block_reference(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: 
     def dense(w):
         return _deq(int_dot(q_, w.w_q), s, w).bfloat16()
 
-    y = _ref_mha(dense(wq), dense(wk), dense(wv), batch, n_head, q_valid, attn)
+    y = mha(dense(wq), dense(wk), dense(wv))
     return (_ref_proj(y, wproj, s_out) + xf).to(x.dtype)
+
+
+def self_attn_block_reference(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int,
+                              q_valid: int, static_s: StaticS = None, w4: bool = False,
+                              attn: str = "bf16"):
+    """Plain twin of K4. x (B*L, D) bf16, mod (2, D) f32 -> (B*L, D) bf16."""
+    return _self_attn_twin(x, mod, wq, wk, wv, wproj,
+                           lambda q, k, v: _ref_mha(q, k, v, batch, n_head, q_valid, attn),
+                           static_s, w4)
 
 
 def cross_attn_block_reference(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int,
@@ -259,20 +276,20 @@ def _check_weights(names, ws, n: int, k: int, w4: bool, device):
         ik.check_weight(name, w, n, k, w4, device)
 
 
-def _attend(lib, q, k, v, batch: int, n_head: int, kv_valid: int, attn: str):
-    """The blocks' MHA launch(es) on checked bf16 tensors -> (B*Lq, D) bf16:
-    the bf16 MHA of ``int8_block.cu`` (folded divide or not), or K10 through
-    its wrapper ``mha_inline_int8``."""
+def _attend(lib, batch: int, n_head: int, kv_valid: int, attn: str):
+    """The blocks' MHA launch(es), as a function of checked bf16 q, k, v ->
+    (B*Lq, D) bf16: the bf16 MHA of ``int8_block.cu`` in the ``attn`` mode,
+    or K10 through its wrapper ``mha_inline_int8``."""
     if attn == "int8":
-        return mha_inline_int8(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
-    return ik.mha(lib, q, k, v, batch, n_head, kv_valid, fold_div=attn == "bf16_fold")
+        return lambda q, k, v: mha_inline_int8(q, k, v, batch=batch, n_head=n_head,
+                                               kv_valid=kv_valid)
+    return lambda q, k, v: ik.mha(lib, q, k, v, batch, n_head, kv_valid, mode=attn)
 
 
-def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, attn, *, kv=None, qkv=None,
-               batch, n_head, kv_valid):
-    """[AdaLN + quantize + q (and k, v) dots] -> MHA -> [quantize + proj +
-    residual] into ``residual_out`` (bf16 or f32): three launches, four with
-    K10's quantize pass."""
+def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, mha, *, kv=None, qkv=None):
+    """[AdaLN + quantize + q (and k, v) dots] -> ``mha`` (``_attend``) ->
+    [quantize + proj + residual] into ``residual_out`` (bf16 or f32): three
+    launches, four with K10's quantize pass."""
     if qkv is not None:
         q, k, v = (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) for _ in range(3))
         ik.dense(lib, x, qkv, (q, k, v), norm="adaln", mod=mod, s=s_in, w4=w4)
@@ -280,7 +297,7 @@ def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, attn, *, k
         q = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
         ik.dense(lib, x, (wq,), (q,), norm="adaln", mod=mod, s=s_in, w4=w4)
         k, v = kv
-    y = _attend(lib, q, k, v, batch, n_head, kv_valid, attn)
+    y = mha(q, k, v)
     ik.dense(lib, y, (wproj,), (residual_out,), s=s_out, residual=x, w4=w4)
     return residual_out
 
@@ -305,7 +322,7 @@ def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_val
     """K4: x (B*L, D) bf16 -> x + proj(MHA(adaln(x))) (B*L, D) bf16; keys at or
     beyond ``q_valid`` are masked; ``attn`` picks the MHA (module docstring).
     Three launches on a CUDA tensor, four with ``attn="int8"``."""
-    _check_attn_mode(attn)
+    _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "self_attn_block"):
         return self_attn_block_reference(x, mod, wq, wk, wv, wproj, batch=batch, n_head=n_head,
                                          q_valid=q_valid, static_s=static_s, w4=w4, attn=attn)
@@ -314,8 +331,8 @@ def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_val
     D = x.shape[1]
     _check_weights(("wq", "wk", "wv", "wproj"), (wq, wk, wv, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), w4, attn,
-                     qkv=(wq, wk, wv), batch=batch, n_head=n_head, kv_valid=q_valid)
+    out = _attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), w4,
+                     _attend(lib, batch, n_head, q_valid, attn), qkv=(wq, wk, wv))
     self_attn_block.launches += 1
     return out
 
@@ -325,7 +342,7 @@ def cross_attn_block(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int, kv_v
     """K5: x (B*L, D) bf16; ck/cv (B*S, D) bf16 condition K/V, keys at or beyond
     ``kv_valid`` masked -> (B*L, D) bf16. Three launches on a CUDA tensor, four
     with ``attn="int8"``."""
-    _check_attn_mode(attn)
+    _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "cross_attn_block"):
         return cross_attn_block_reference(x, mod, ck, cv, wq, wproj, batch=batch,
                                           n_head=n_head, kv_valid=kv_valid,
@@ -336,8 +353,8 @@ def cross_attn_block(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int, kv_v
     D = x.shape[1]
     _check_weights(("wq", "wproj"), (wq, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, wq, wproj, s_in, s_out, torch.empty_like(x), w4, attn,
-                     kv=(ck, cv), batch=batch, n_head=n_head, kv_valid=kv_valid)
+    out = _attn_half(lib, x, mod, wq, wproj, s_in, s_out, torch.empty_like(x), w4,
+                     _attend(lib, batch, n_head, kv_valid, attn), kv=(ck, cv))
     cross_attn_block.launches += 1
     return out
 
@@ -350,7 +367,7 @@ def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, 
     MHA. W8 weights. Six launches on a CUDA tensor (eight with
     ``attn="int8"``): the self proj writes x + proj in f32, the cross AdaLN
     panel reads it, and the cross proj adds it and rounds once."""
-    _check_attn_mode(attn)
+    _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "attn_pair_block"):
         return attn_pair_block_reference(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq,
                                          wcrossproj, batch=batch, n_head=n_head, q_valid=q_valid,
@@ -365,11 +382,11 @@ def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, 
                    (wq, wk, wv, wproj, wcrossq, wcrossproj), D, D, False, x.device)
     s_in, s_out, s2_in, s2_out = _split(static_s, 4)
     x1 = _attn_half(lib, x, mods[0:2], None, wproj, s_in, s_out,
-                    torch.empty(x.shape, dtype=torch.float32, device=x.device), False, attn,
-                    qkv=(wq, wk, wv), batch=batch, n_head=n_head, kv_valid=q_valid)
+                    torch.empty(x.shape, dtype=torch.float32, device=x.device), False,
+                    _attend(lib, batch, n_head, q_valid, attn), qkv=(wq, wk, wv))
     out = _attn_half(lib, x1, mods[2:4], wcrossq, wcrossproj, s2_in, s2_out,
-                     torch.empty_like(x), False, attn, kv=(ck, cv), batch=batch, n_head=n_head,
-                     kv_valid=kv_valid)
+                     torch.empty_like(x), False, _attend(lib, batch, n_head, kv_valid, attn),
+                     kv=(ck, cv))
     attn_pair_block.launches += 1
     return out
 

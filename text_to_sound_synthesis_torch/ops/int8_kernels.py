@@ -2,6 +2,7 @@
 the launch helpers that the int8 kernel wrappers share:
 ``quant.fused_quant_dense[_multi]`` (K6), ``attention.fused_mha`` (K7) and
 the blocks of ``int8_block`` (K3-K5, K8, K9) and their int8 attention (K10);
+the ablation probes ``mlp_ablate`` (T2) and ``attn_ablate`` (T3);
 ``dot.tiled_dot`` (T1) and ``fused_gn_conv`` (K11) use its checks.
 Nothing here counts launches: each wrapper counts its own calls.
 """
@@ -18,12 +19,21 @@ import torch
 from ..utils.cuda_build import load_library
 
 __all__ = ["load_kernel", "load_mha_int8", "on_cuda", "check", "check_weight", "check_mha",
-           "dense", "row_amax", "mha", "mha_int8",
-           "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED"]
+           "dense", "row_amax", "mha", "mha_int8", "MHA_MODES",
+           "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
+           "EPI_WRAP8", "EPI_CLIP8", "EPI_SHIFT8", "EF_MID_BF16", "EF_SIG_C", "EF_FAST_SIG",
+           "EF_Q_BF16", "EF_RAW_BF16"]
 
 PANEL, STREAM, INT8 = 0, 1, 2
-_NORM = {"none": 0, "adaln": 1, "ln": 2}
-EPI_STORE, EPI_GELU_INT8, EPI_CHUNKED = 0, 1, 2
+# the panel's inputs; "cast", "ln_onepass" and "sum3" are the T2 / T3 probes'
+_NORM = {"none": 0, "adaln": 1, "ln": 2, "cast": 3, "ln_onepass": 4, "sum3": 5}
+EPI_STORE, EPI_GELU_INT8, EPI_CHUNKED, EPI_RAW = 0, 1, 2, 3
+EPI_WRAP8, EPI_CLIP8, EPI_SHIFT8 = 4, 5, 6              # the T2 probe's int8 middles
+# the T2 probe's epilogue / quantize flags (``kEfProbe`` in csrc/int8_block.cu)
+EF_MID_BF16, EF_SIG_C, EF_FAST_SIG, EF_Q_BF16, EF_RAW_BF16 = 64, 128, 256, 512, 1024
+# the attention launch's MHA (``MhaMode`` in csrc/int8_block.cu)
+MHA_MODES = {"bf16": 0, "bf16_fold": 1, "pair": 2, "pair_nofold": 3, "no_softmax": 4,
+             "no_av": 5, "no_scores": 6}
 
 
 @functools.cache
@@ -32,7 +42,7 @@ def load_kernel() -> ctypes.CDLL:
     lib = load_library("int8_block", ["int8_block.cu"])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.t2s_int8_dense.argtypes = ([I, I, I, I, P, I, P, P, F, F, I, I] + [P] * 12
-                                   + [P, I, I, I, P, F, I, I, I, I, P])
+                                   + [P, I, I, I, P, F, I, I, I, I, I, F, P])
     lib.t2s_int8_dense.restype = I
     lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
     lib.t2s_int8_row_amax.restype = I
@@ -106,13 +116,17 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
           mod: Optional[torch.Tensor] = None, s: Optional[float] = None,
           amax_in: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
           gelu: bool = False, amax_out: Optional[torch.Tensor] = None,
-          s_out: Optional[float] = None, nch: int = 1, w4: bool = False) -> None:
+          s_out: Optional[float] = None, nch: int = 1, w4: bool = False, probe: int = 0,
+          amax_floor: float = 0.0) -> None:
     """One ``t2s_int8_dense`` launch (see its comment in ``csrc/int8_block.cu``)
     on tensors the caller has checked. The dtypes of ``a``, ``residual`` and
-    ``outs`` (bf16 or f32) pick the kernel's loads and stores."""
-    M, K = a.shape
+    ``outs`` (bf16 or f32) pick the kernel's loads and stores. ``a`` is (M, K),
+    or (3, M, K) f32 for ``norm="sum3"``; ``probe`` holds the T2 probe's
+    ``EF_*`` flags, ``amax_floor`` the floor of ``EF_MID_BF16``'s row max."""
+    M, K = a.shape[-2:]
     N = ws[0].w_q.shape[0]
     s_static, inv, is_static = _static_args(s)
+    out_inv = _static_args(s_out)[1]
     wargs = []
     for i in range(3):
         if i < len(ws):
@@ -125,8 +139,8 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
         err = lib.t2s_int8_dense(amode, _NORM[norm], int(w4), epi, a.data_ptr(), f32(a),
                                  _ptr(mod), _ptr(amax_in), s_static, inv, is_static, len(ws),
                                  *wargs, _ptr(residual), f32(residual), int(gelu), f32(outs[0]),
-                                 _ptr(amax_out), _static_args(s_out)[1], nch, M, K, N,
-                                 _stream(a))
+                                 _ptr(amax_out), out_inv, nch, M, K, N, probe,
+                                 float(np.float32(amax_floor)), _stream(a))
     if err != 0:
         raise RuntimeError(f"int8 dense kernel launch failed: cudaError {err}")
 
@@ -160,16 +174,19 @@ def check_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_h
 
 
 def mha(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
-        kv_valid: int, fold_div: bool = False) -> torch.Tensor:
+        kv_valid: int, mode: str = "bf16") -> torch.Tensor:
     """The bf16 attention launch on checked bf16 tensors: q (B*Lq, D), k/v
-    (B*Lkv, D); ``fold_div`` divides the P V output by the row sum instead of
-    P (``attention.mha_reference``)."""
+    (B*Lkv, D). ``mode`` (``MHA_MODES``): "bf16" and "bf16_fold"
+    (``attention.mha_reference``, the divide before or after P V), "pair"
+    (``attention.mha_pair_reference``), T3's "pair_nofold", "no_softmax",
+    "no_av" and "no_scores" (``attn_ablate.mha_probe_reference``);
+    all but the first two take a head width of 64 only."""
     M, D = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.t2s_int8_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch,
                                M // batch, k.shape[0] // batch, n_head, D // n_head, kv_valid,
-                               int(fold_div), _stream(q))
+                               MHA_MODES[mode], _stream(q))
     if err != 0:
         raise RuntimeError(f"int8 attention kernel launch failed: cudaError {err}")
     return out

@@ -13,6 +13,12 @@ the JAX tool chains them in a scan):
   GroupNorm takes two passes: the same function to bf16 rounding, not the
   same numerics.
 
+Then the backward at each stage, given one upstream gradient, as eager
+device time per call: the Function's (the twin's VJP recomputed, with
+cuDNN's deterministic algorithms) beside the same VJP with cuDNN's default
+algorithms, which add with atomics (the backward before it was made
+deterministic).
+
 Usage: python -m text_to_sound_synthesis_torch.tools.bench_gn_conv [repeats] [shape_idx...]
 """
 
@@ -86,6 +92,39 @@ def bench_one(H: int, W: int, C: int, repeats: int, dev=None) -> Dict[str, float
         return {"fused": graph_us(fused, repeats), "cudnn": graph_us(cudnn, repeats)}
 
 
+def _events_ms(fn, iters: int) -> float:
+    """Eager device ms per call of ``fn`` over ``iters`` calls, after two."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def backward_ms(H: int, W: int, C: int, iters: int, dev=None) -> Dict[str, float]:
+    """{"deterministic": ms, "cudnn_default": ms} per backward at one stage:
+    the Function's backward, and the same VJP under cuDNN's defaults."""
+    from ..ops.fused_gn_conv import gn_swish_conv, gn_swish_conv_reference
+
+    dev = dev or torch.device("cuda")
+    leaves = [t.clone().requires_grad_(True) for t in stage_inputs(H, W, C, dev)]
+    y = gn_swish_conv(*leaves, groups=GROUPS)
+    up = torch.randn(y.shape, generator=torch.Generator(dev).manual_seed(1), device=dev).to(y.dtype)
+
+    def default():
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=False):
+            torch.autograd.grad(gn_swish_conv_reference(*leaves, groups=GROUPS), leaves, up)
+
+    return {"deterministic": _events_ms(lambda: torch.autograd.grad(y, leaves, up,
+                                                                    retain_graph=True), iters),
+            "cudnn_default": _events_ms(default, iters)}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not require_card("bench_gn_conv"):
@@ -107,6 +146,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"TOTAL per-site pass: fused {tot_f:.0f} us, cudnn {tot_c:.0f} us, "
           f"speedup {tot_c / tot_f:.2f}x, bound {tot_b:.0f} us ({100 * tot_b / tot_f:.1f} % of "
           f"fused)")
+    tot_d = tot_o = 0.0
+    for i in idxs:
+        H, W, C = SHAPES[i]
+        r = backward_ms(H, W, C, repeats)
+        tot_d, tot_o = tot_d + r["deterministic"], tot_o + r["cudnn_default"]
+        print(f"({H:3d},{W:3d},{C:3d}) backward: deterministic {r['deterministic']:.3f} ms, "
+              f"cuDNN default {r['cudnn_default']:.3f} ms ({r['deterministic'] / r['cudnn_default']:.2f}x)")
+    print(f"TOTAL backward: deterministic {tot_d:.3f} ms, cuDNN default {tot_o:.3f} ms "
+          f"({tot_d / tot_o:.2f}x; eager device time per call)")
     return 0
 
 

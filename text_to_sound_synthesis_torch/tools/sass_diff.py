@@ -1,7 +1,8 @@
 """Compare the machine code (SASS) of two versions of a CUDA source, function
 by function, on a machine with the CUDA toolkit.
 
-    python -m text_to_sound_synthesis_torch.tools.sass_diff OLD.cu NEW.cu
+    python -m text_to_sound_synthesis_torch.tools.sass_diff OLD.cu NEW.cu \
+        [--rename PATTERN REPLACEMENT ...]
 
 Both are compiled to sm_90a cubins with the package's device flags (each with
 its own directory on the include path), disassembled with ``cuobjdump
@@ -9,7 +10,10 @@ its own directory on the include path), disassembled with ``cuobjdump
 and the anonymous namespace's per-file tag left out). It prints how many of
 OLD's functions are identical in NEW, which differ and which are new: the
 check that a template flag added to a kernel left its other instantiations'
-code as it was. Exits nonzero if any function of OLD differs or is missing.
+code as it was. ``--rename`` maps OLD's (mangled) function names through a
+regular expression first, for a template parameter that changed type (a
+bool flag become an int mode) but not the code of its old values. Exits
+nonzero if any function of OLD differs or is missing.
 """
 
 from __future__ import annotations
@@ -51,9 +55,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new")
+    ap.add_argument("--rename", nargs=2, action="append", default=[],
+                    metavar=("PATTERN", "REPLACEMENT"),
+                    help="re.sub applied to OLD's function names before matching")
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
         old, new = sass(args.old, tmp), sass(args.new, tmp)
+    for pattern, repl in args.rename:
+        old = {re.sub(pattern, repl, k): v for k, v in old.items()}
     same = [k for k in old if new.get(k) == old[k]]
     print(f"{args.old}: {len(old)} functions; {args.new}: {len(new)}; identical SASS {len(same)}")
     print("differ or missing:", [k for k in old if k not in same])
