@@ -7,16 +7,17 @@ Phases (any failed check exits nonzero, and no result line is printed):
 
 1. device  — a CUDA card must be present; prints its name and power limit.
 2. build   — builds every kernel from ``csrc/`` with nvcc, one process per
-             source, all at once: K1 (fused_sampler.cu), K3-K9 and T1-T3
-             (int8_block.cu), K2 (fused_head_sample.cu), K10 (mha_int8.cu)
-             and K11 (gn_swish_conv.cu).
+             source, all at once: K1 (fused_sampler.cu), K3-K9 (int8_block.cu),
+             T1-T3 (int8_probe.cu), K2 (fused_head_sample.cu), K10
+             (mha_int8.cu) and K11 (gn_swish_conv.cu); prints each one's time.
 3. K1      — the kernel against its plain PyTorch version at the slice's
              shape (2120 rows x 256 classes): bf16 and f32 logits, r 0 and
              0.85, t_post 0, 50 and 99; Philox determinism and sampled
              frequencies over 2000 seeds; kernel and plain times.
 4. K2-K11, T1-T3 — the int8 kernels against their plain versions at the
              flagship shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP
-             4096): the blocks K3-K5, W8 and W4, dynamic and static scales,
+             4096): the blocks K3-K5, W8 and W4, dynamic and static scales
+             (K3 with static scales, W8 and W4, bit for bit),
              K4 and K5 with the bf16 MHA and with the pair-packed MHA the
              engine serves at this head width (held also to the share of
              outputs more than PAIR_BLOCK_ULPS off, a gate the blocks with the
@@ -495,6 +496,11 @@ def phase_blocks(dev):
                            if name != "mlp_block" or attn == "pair"}
                     for attn in ("pair", "bf16")}
             torch.cuda.synchronize()
+            if st:   # static K3: integer dots and the twin's f32 ops in its order
+                got, want = outs["pair"]["mlp_block"]
+                check(torch.equal(got, want), f"mlp_block {label}: {int((got != want).sum())} "
+                      "outputs differ from the twin")
+                print(f"  mlp_block         {label}: equal to the twin")
             for attn, per in outs.items():
                 for name, (got, want) in per.items():
                     err, _ = _block_err(got, want, f"{name} {attn}: ")
@@ -1585,11 +1591,19 @@ def main() -> int:
     from text_to_sound_synthesis_torch.ops import int8_kernels as ik
 
     t0 = time.perf_counter()
-    loads = (fs.load_kernel, ib.load_kernel, fs.load_head_kernel, ik.load_mha_int8, gn.load_kernel)
+    loads = {"fused_sampler.cu": fs.load_kernel, "int8_block.cu": ib.load_kernel,
+             "int8_probe.cu": ik.load_probe_kernel, "fused_head_sample.cu": fs.load_head_kernel,
+             "mha_int8.cu": ik.load_mha_int8, "gn_swish_conv.cu": gn.load_kernel}
+
+    def timed(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
     with ThreadPoolExecutor(len(loads)) as pool:   # one nvcc per source, all at once
-        list(pool.map(lambda load: load(), loads))
-    print(f"[2 build] csrc/fused_sampler.cu, int8_block.cu, fused_head_sample.cu, mha_int8.cu, "
-          f"gn_swish_conv.cu -> sm_90a with {find_nvcc()}: {time.perf_counter() - t0:.1f} s")
+        secs = dict(zip(loads, pool.map(timed, loads.values())))
+    print(f"[2 build] csrc/{', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} -> sm_90a "
+          f"with {find_nvcc()}, in parallel: {time.perf_counter() - t0:.1f} s")
 
     print("[3 K1 vs plain]")
     max_err, k1_ms, plain_ms = phase_kernel(fs, dd, dev)
@@ -1733,10 +1747,10 @@ def main() -> int:
             # K11 and T1-T3 run on no request path: their launches are their tools' runs
             ("gn_swish_conv", "gn_swish_conv.cu", tpu + "fused_gn_conv.py:289", gn_launches,
              gn_res),
-            ("make_pallas_dot", "int8_block.cu", "tools/bench_kernel_dot.py:34", dot_launches,
+            ("make_pallas_dot", "int8_probe.cu", "tools/bench_kernel_dot.py:34", dot_launches,
              dot_res),
-            ("mlp_variant", "int8_block.cu", "tools/bench_mlp_ablate.py:37", t2_launches, t2_res),
-            ("attn_variant", "int8_block.cu", "tools/bench_attn_ablate.py:35", t3_launches, t3_res)]
+            ("mlp_variant", "int8_probe.cu", "tools/bench_mlp_ablate.py:37", t2_launches, t2_res),
+            ("attn_variant", "int8_probe.cu", "tools/bench_attn_ablate.py:35", t3_launches, t3_res)]
     check(all(launches > 0 for _, _, _, launches, _ in rows), "a kernel was never launched")
     bounds = kernel_bounds()
     print(json.dumps({"kernels": [

@@ -383,10 +383,11 @@ def test_pair_mha_matches_plain(cuda, shape, mode):
     B, L, D, H, S, Dh = PAIR_SHAPES[shape]
     d = _block_inputs(cuda, PAIR_SHAPES[shape], False)
     x = d["x"]
-    lib = ik.load_kernel()
+    lib = ik.load_kernel()                # the engine's MHAs; T3's pair_nofold is the probe's
+    mode_lib = ik.load_probe_kernel() if mode == "pair_nofold" else lib
     v = torch.randn((B * L, D), generator=torch.Generator(cuda).manual_seed(9), device=cuda).bfloat16()
     for k, v, valid in ((x, v, L), (x, v, L - 3), (d["ck"], d["cv"], S), (d["ck"], d["cv"], S - 4)):
-        got = ik.mha(lib, x, k, v, B, H, valid, mode=mode)
+        got = ik.mha(mode_lib, x, k, v, B, H, valid, mode=mode)
         torch.cuda.synchronize()
         want = attn.mha_pair_reference(x, k, v, batch=B, n_head=H, kv_valid=valid,
                                        fold=mode == "pair")
@@ -594,3 +595,157 @@ def test_tiled_dot_kernel_matches_plain(cuda, case):
         x8, w8, xb, wb = tool.inputs(cuda)
         bound = 4 * tool.K * 2.0 ** -24 * (xb.float().abs() @ wb.float().abs())
         assert bool(((got - want).abs() <= bound).all())
+
+
+# ---------------------------------------------------------------------------
+# The Hopper mainloop (csrc/int8_gemm_sm90.cuh) at ragged and edge shapes:
+# K3's two launches (fc1 on the LN panel, the static fc2 in the int8 A mode),
+# T1's int8 dots and T2's fc1 epilogues. Integer sums are exact, so every
+# launch that is bit-equal to its twin at the flagship is so here too.
+# ---------------------------------------------------------------------------
+
+# rows: one, a warpgroup's edge, a tile's edge, past a tile, the flagship's
+# 2120 (17 tiles, the last of 72 rows) and the probes' 2176
+SM90_ROWS = [1, 63, 65, 129, 2120, 2176]
+
+
+def _mlp_inputs(dev, M, D, Dh, w4, seed=11):
+    """x (M, D) bf16 whose rows are half +2^e, half -2^e (e in -1..1 per row),
+    in a random order: their mean (0) and variance (4^e) are exact in f32
+    whatever order the sums run in, so the kernel's LayerNorm and the twin's
+    agree bit for bit and no int8 flip can hide or fake a difference of the
+    GEMM (on Gaussian rows an ulp of the statistics moves a value across a .5
+    step now and then, in the mma.sync mainloop as in this one). The LN
+    affine, the weights and biases are Gaussian."""
+    from text_to_sound_synthesis_torch.ops.quant import quantize_weight, quantize_weight_w4
+
+    g = torch.Generator(dev).manual_seed(seed)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale
+    q = quantize_weight_w4 if w4 else quantize_weight
+    signs = torch.ones((M, D), device=dev)
+    signs[:, D // 2:] = -1.0
+    order = torch.argsort(torch.rand((M, D), generator=g, device=dev), dim=1)
+    x = signs.gather(1, order) * 2.0 ** torch.randint(-1, 2, (M, 1), generator=g, device=dev)
+    ln = rnd(2, D, scale=0.2)
+    ln[0] += 1.0
+    return (x.bfloat16(), ln, q(rnd(Dh, D, scale=0.03 * (1024 / D) ** 0.5), rnd(Dh, scale=0.05)),
+            q(rnd(D, Dh, scale=0.03 * (1024 / Dh) ** 0.5), rnd(D, scale=0.05)))
+
+
+def _counters_zero(dev):
+    """The stream-K counters (the workspace's tail) are back at zero."""
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    ws = ik.workspace(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int(ws[-sms:].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SM90_ROWS)
+@pytest.mark.parametrize("width", [(128, 512), (1024, 4096)])
+@pytest.mark.parametrize("w4", [False, True])
+def test_sm90_mlp_static_matches_plain_bitwise(cuda, M, width, w4):
+    """K3 with static scales, W8 and W4: fc1 on the panel (K = D: 128 or
+    1024; N = Dh) with the GELU2 -> int8 epilogue, fc2 in the int8 A mode (K
+    = Dh: 512 or 4096; N = D: 128 or 1024; at the flagship 17 x 8 = 136 tiles,
+    the stream-K tail) with the residual epilogue: equal to the twin bit for
+    bit, and the stream-K counters back at zero."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    D, Dh = width
+    x, ln, w1, w2 = _mlp_inputs(cuda, M, D, Dh, w4)
+    launches = ib.mlp_block.launches
+    got = ib.mlp_block(x, ln, w1, w2, static_s=(0.035, 0.012), w4=w4)
+    want = ib.mlp_block_reference(x, ln, w1, w2, static_s=(0.035, 0.012), w4=w4)
+    torch.cuda.synchronize()
+    assert ib.mlp_block.launches == launches + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = got != want
+    assert torch.equal(got, want), (int(diff.sum()), int(diff.any(1).sum()), int(diff.any(0).sum()))
+    assert _counters_zero(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SM90_ROWS)
+@pytest.mark.parametrize("w4", [False, True])
+def test_sm90_fc1_row_max_epilogue(cuda, M, w4):
+    """K3's dynamic fc1 (the panel, GELU2 -> f32 with the kEfMax row max per
+    N chunk, 1 and 4 chunks as K3 and K9 take it) at D 1024 -> 4096: the
+    output within BLOCK_TOL of the twin's middle (the f32 LayerNorm sums run
+    in another order: int8 flips), each row max equal to the max |u| of the
+    kernel's own output over its chunk."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+    from text_to_sound_synthesis_torch.ops.quant import _deq, _gelu2, _prologue, _quantize_rows, int_dot
+
+    x, ln, w1, _ = _mlp_inputs(cuda, M, 1024, 4096, w4)
+    lib = ik.load_kernel()
+    w_plain = ib._plain_weights((w1,), w4)[0]
+    qx, s = _quantize_rows(_prologue(x.float(), ln[0:1], ln[1:2], "ln"))
+    want = _gelu2(_deq(int_dot(qx, w_plain.w_q), s, w_plain))
+    for nch in (1, 4):
+        u = torch.empty((M, 4096), dtype=torch.float32, device=cuda)
+        amax = torch.empty((M, nch), dtype=torch.float32, device=cuda)
+        ik.dense(lib, x, (w1,), (u,), norm="ln", mod=ln, gelu=True, amax_out=amax, nch=nch, w4=w4)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(u, want, rtol=BLOCK_TOL, atol=BLOCK_TOL)
+        assert torch.equal(amax, u.abs().reshape(M, nch, -1).amax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SM90_ROWS)
+@pytest.mark.parametrize("N", [128, 1024, 4096])
+@pytest.mark.parametrize("K", [64, 1024, 4096])
+def test_sm90_tiled_dot_int_matches_plain_bitwise(cuda, M, N, K):
+    """T1's int8 cases on the int8 A mode at ragged rows, one to 32 column
+    tiles and K from half a step (its TMA boxes zero-filled past K) to 32
+    steps: int32 and f32 outputs equal to the twin's; counters back at zero."""
+    from text_to_sound_synthesis_torch.ops import dot as D
+
+    g = torch.Generator(cuda).manual_seed(M + N + K)
+    x = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    w = D.k_contiguous(torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8))
+    for out_dtype in (torch.int32, torch.float32):
+        got = D.tiled_dot(x, w, out_dtype)
+        want = D.tiled_dot_reference(x, w, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), int((got != want).sum())
+    assert _counters_zero(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 65, 2120])
+@pytest.mark.parametrize("variant", ["dots_only", "mid_bf16", "no_quant_mid", "no_deq_mid"])
+def test_sm90_mlp_ablate_epilogues(cuda, M, variant):
+    """T2's fc1 epilogues on the panel at ragged rows (D 1024 -> 4096):
+    dots_only (kEpiWrap8, then the raw bf16 fc2) and mid_bf16 (kEfMidBf16)
+    equal to their twins; no_quant_mid (kEpiClip8) and no_deq_mid
+    (kEpiShift8, both storing the panel's row max for fc2) within BLOCK_TOL."""
+    from text_to_sound_synthesis_torch.ops import mlp_ablate as T2
+
+    x, ln, w1, w2 = _mlp_inputs(cuda, M, 1024, 4096, False)
+    launches = T2.mlp_variant.launches
+    got = T2.mlp_variant(x, ln, w1, w2, variant=variant)
+    want = T2.mlp_variant_reference(x, ln, w1, w2, variant=variant)
+    if variant in T2_EXACT:
+        torch.cuda.synchronize()
+        assert T2.mlp_variant.launches == launches + 1 and torch.equal(got, want)
+    else:
+        _check_kernel(T2.mlp_variant, got, want, launches)
+
+
+@pytest.mark.gpu
+def test_sm90_refuses_what_it_does_not_take(cuda):
+    """A shape outside the kernels' limits raises from the wrapper, before a
+    launch: N not a multiple of 128, K not a multiple of 64 (T1)."""
+    from text_to_sound_synthesis_torch.ops import dot as D
+
+    x = torch.zeros((8, 96), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        D.tiled_dot(x, D.k_contiguous(torch.zeros((96, 128), dtype=torch.int8, device=cuda)),
+                    torch.int32)
+    x = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        D.tiled_dot(x, D.k_contiguous(torch.zeros((128, 192), dtype=torch.int8, device=cuda)),
+                    torch.int32)

@@ -3,7 +3,8 @@
 Port of ``tools/bench_attn_ablate.py`` (``make_variant``, ``make_variant2``,
 ``make_rows2``): K4 (AdaLN -> quantize -> q/k/v dots -> MHA -> quantize ->
 proj -> + x) with one stage taken out or changed, picked by name. Each is a
-compile-time configuration of K4's launches in ``csrc/int8_block.cu``;
+compile-time configuration of K4's launches: the probe's own in
+``csrc/int8_probe.cu``, those it shares with K4 in ``csrc/int8_block.cu``;
 ``attn_variant`` launches them for a CUDA tensor and runs the plain twin
 ``attn_variant_reference`` for a CPU one, counting its launches in
 ``.launches``. W8 weights, as the JAX tool runs them:
@@ -136,14 +137,16 @@ def attn_variant(x, mod, wq: QuantizedWeight, wk: QuantizedWeight, wv: Quantized
     D = x.shape[1]
     ib._check_weights(("wq", "wk", "wv", "wproj"), (wq, wk, wv, wproj), D, D, False, x.device)
     s_in, s_out = ib._split(static_s)
+    probe = ik.load_probe_kernel()
     if variant == "qkvp_dots_only":
         qkv = torch.empty((3,) + tuple(x.shape), dtype=torch.float32, device=x.device)
-        ik.dense(lib, x, (wq, wk, wv), tuple(qkv), norm="adaln", mod=mod, s=s_in)
+        ik.dense(probe, x, (wq, wk, wv), tuple(qkv), norm="adaln", mod=mod, s=s_in)
         out = torch.empty_like(x)
-        ik.dense(lib, qkv, (wproj,), (out,), norm="sum3", s=s_out, residual=x)
+        ik.dense(probe, qkv, (wproj,), (out,), norm="sum3", s=s_out, residual=x)
     else:
         _check_probe_mha(variant, n_head, D, L)
-        mha = lambda q, k, v: ik.mha(lib, q, k, v, batch, n_head, q_valid, mode=variant)
+        mha_lib = probe if variant in PROBES else lib   # "pair" is the engine's own MHA
+        mha = lambda q, k, v: ik.mha(mha_lib, q, k, v, batch, n_head, q_valid, mode=variant)
         out = ib._attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), False,
                             mha, qkv=(wq, wk, wv))
     attn_variant.launches += 1

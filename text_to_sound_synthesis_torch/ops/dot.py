@@ -3,14 +3,15 @@
 Port of ``tools/bench_kernel_dot.py::make_pallas_dot``: ``x (M, K) @ w (K,
 N)`` in the probe's three cases, int8 x int8 -> int32, int8 x int8 -> f32
 (the exact int32 sums converted once) and bf16 x bf16 -> f32.
-``tiled_dot`` launches ``t2s_tiled_dot`` of ``csrc/int8_block.cu`` for a
+``tiled_dot`` launches ``t2s_tiled_dot`` of ``csrc/int8_probe.cu`` for a
 CUDA tensor and runs the plain twin ``tiled_dot_reference`` for a CPU one,
 counting its launches in ``.launches``. The int8 cases run the serving
-engine's own GEMM mainloop (``int8_gemm_kernel`` in its int8 A mode, a raw
-epilogue), so the probe reads the rate of the GEMM that K3-K9 run; the bf16
-case a kernel of the same tiling on ``mma.sync`` bf16. The TPU's ``block_m``
-/ ``block_n`` are schedule knobs of the TPU and are not carried over: the
-Hopper tile is the engine's 64 x 128.
+engine's Hopper GEMM mainloop (``sm90::gemm_kernel`` of
+``csrc/int8_gemm_sm90.cuh`` in its int8 A mode, the one K3's fc2 runs, with a
+raw epilogue), so the probe reads the rate of the engine's GEMM; the bf16
+case a kernel of the older ``mma.sync`` tiling (64 x 128) on bf16. The TPU's
+``block_m`` / ``block_n`` are schedule knobs of the TPU and are not carried
+over: the Hopper tile is the engine's 128 x 128.
 
 The kernel reads the weight as the engine stores it, (N, K) K-contiguous:
 ``tiled_dot`` takes the (K, N) operand as a view of such a tensor, which
@@ -30,7 +31,7 @@ CASES = {"int8->int32": (torch.int8, torch.int32),
          "int8->f32": (torch.int8, torch.float32),
          "bf16->f32": (torch.bfloat16, torch.float32)}
 _KIND = {v: i for i, v in enumerate(CASES.values())}   # t2s_tiled_dot's kind
-TILE = (64, 128)                                        # the kernel's output tile (rows, cols)
+TILE = (128, 128)                                       # the int8 kernel's output tile (rows, cols)
 
 
 def _check_case(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -82,10 +83,12 @@ def tiled_dot(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch
         raise ValueError(f"({M}, {K}) @ ({K}, {N}): the kernel takes N a multiple of {TILE[1]} "
                          f"and K a multiple of {k_mult}")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    lib = ik.load_kernel()
+    lib = ik.load_probe_kernel()
+    ws = ik.workspace(dev).data_ptr()
     with torch.cuda.device(dev):
         err = lib.t2s_tiled_dot(_KIND[(x.dtype, out_dtype)], x.data_ptr(), wt.data_ptr(),
-                                out.data_ptr(), M, K, N, torch.cuda.current_stream(dev).cuda_stream)
+                                out.data_ptr(), M, K, N, ws,
+                                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tiled dot kernel launch failed: cudaError {err}")
     tiled_dot.launches += 1

@@ -1,10 +1,12 @@
-"""ctypes bindings of ``csrc/int8_block.cu`` and ``csrc/mha_int8.cu``, and
-the launch helpers that the int8 kernel wrappers share:
-``quant.fused_quant_dense[_multi]`` (K6), ``attention.fused_mha`` (K7) and
-the blocks of ``int8_block`` (K3-K5, K8, K9) and their int8 attention (K10);
-the ablation probes ``mlp_ablate`` (T2) and ``attn_ablate`` (T3);
-``dot.tiled_dot`` (T1) and ``fused_gn_conv`` (K11) use its checks.
-Nothing here counts launches: each wrapper counts its own calls.
+"""ctypes bindings of ``csrc/int8_block.cu`` (the engine), ``csrc/int8_probe.cu``
+(the T1-T3 probes) and ``csrc/mha_int8.cu``, and the launch helpers that the
+int8 kernel wrappers share: ``quant.fused_quant_dense[_multi]`` (K6),
+``attention.fused_mha`` (K7) and the blocks of ``int8_block`` (K3-K5, K8, K9)
+and their int8 attention (K10); the ablation probes ``mlp_ablate`` (T2) and
+``attn_ablate`` (T3) and ``dot.tiled_dot`` (T1) launch the probe library for
+their own configurations and the engine's for the launches they share with
+it; ``fused_gn_conv`` (K11) uses the checks. Nothing here counts launches:
+each wrapper counts its own calls.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import torch
 
 from ..utils.cuda_build import load_library
 
-__all__ = ["load_kernel", "load_mha_int8", "on_cuda", "check", "check_weight", "check_mha",
-           "dense", "row_amax", "mha", "mha_int8", "MHA_MODES",
+__all__ = ["load_kernel", "load_probe_kernel", "load_mha_int8", "workspace", "on_cuda", "check",
+           "check_weight", "check_mha", "dense", "row_amax", "mha", "mha_int8", "MHA_MODES",
            "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
            "EPI_WRAP8", "EPI_CLIP8", "EPI_SHIFT8", "EF_MID_BF16", "EF_SIG_C", "EF_FAST_SIG",
            "EF_Q_BF16", "EF_RAW_BF16"]
@@ -29,30 +31,68 @@ PANEL, STREAM, INT8 = 0, 1, 2
 _NORM = {"none": 0, "adaln": 1, "ln": 2, "cast": 3, "ln_onepass": 4, "sum3": 5}
 EPI_STORE, EPI_GELU_INT8, EPI_CHUNKED, EPI_RAW = 0, 1, 2, 3
 EPI_WRAP8, EPI_CLIP8, EPI_SHIFT8 = 4, 5, 6              # the T2 probe's int8 middles
-# the T2 probe's epilogue / quantize flags (``kEfProbe`` in csrc/int8_block.cu)
+# the T2 probe's epilogue / quantize flags (``kEfProbe`` in csrc/int8_gemm_mma.cuh)
 EF_MID_BF16, EF_SIG_C, EF_FAST_SIG, EF_Q_BF16, EF_RAW_BF16 = 64, 128, 256, 512, 1024
-# the attention launch's MHA (``MhaMode`` in csrc/int8_block.cu)
+# the attention launch's MHA (``MhaMode`` in csrc/int8_mha.cuh): the engine's
+# library runs the first three, the probe library (``load_probe_kernel``) the rest
 MHA_MODES = {"bf16": 0, "bf16_fold": 1, "pair": 2, "pair_nofold": 3, "no_softmax": 4,
              "no_av": 5, "no_scores": 6}
 
 
-@functools.cache
-def load_kernel() -> ctypes.CDLL:
-    """Build (first use) and load ``csrc/int8_block.cu``."""
-    lib = load_library("int8_block", ["int8_block.cu"])
+def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """argtypes of ``t2s_int8_dense`` and ``t2s_int8_mha``, which both
+    libraries export with the same signatures (each its own instantiations)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.t2s_int8_dense.argtypes = ([I, I, I, I, P, I, P, P, F, F, I, I] + [P] * 12
-                                   + [P, I, I, I, P, F, I, I, I, I, I, F, P])
+                                   + [P, I, I, I, P, F, I, I, I, I, I, F, P, P])
     lib.t2s_int8_dense.restype = I
-    lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
-    lib.t2s_int8_row_amax.restype = I
     lib.t2s_int8_mha.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.t2s_int8_mha.restype = I
+    return lib
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/int8_block.cu``, the engine's launches."""
+    lib = _bind_dense(load_library("int8_block", ["int8_block.cu"]))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
+    lib.t2s_int8_row_amax.restype = I
     lib.t2s_int8_limits.argtypes = [I]
     lib.t2s_int8_limits.restype = I
-    lib.t2s_tiled_dot.argtypes = [I, P, P, P, I, I, I, P]
+    return lib
+
+
+@functools.cache
+def load_probe_kernel() -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/int8_probe.cu``: the T2 / T3
+    configurations of ``t2s_int8_dense`` and ``t2s_int8_mha``, and T1's
+    ``t2s_tiled_dot``."""
+    lib = _bind_dense(load_library("int8_probe", ["int8_probe.cu"]))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.t2s_tiled_dot.argtypes = [I, P, P, P, I, I, I, P, P]
     lib.t2s_tiled_dot.restype = I
     return lib
+
+
+_WORKSPACE = {}
+
+
+def workspace(device: torch.device) -> torch.Tensor:
+    """The int8 GEMM's stream-K workspace on ``device`` (``t2s_int8_limits(4)``
+    bytes: partial-sum slots and counters), zeroed once and kept: every launch
+    leaves its counters at zero. Launches on one stream at a time share it.
+    Allocated at a device's first launch, which must not be under CUDA graph
+    capture (the tools warm up eagerly first)."""
+    key = torch.device(device).index
+    if key not in _WORKSPACE:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the int8 GEMM's workspace is allocated at the first launch on a "
+                               "device, which must run outside CUDA graph capture")
+        with torch.cuda.device(device):
+            nbytes = load_kernel().t2s_int8_limits(4)
+        _WORKSPACE[key] = torch.zeros(nbytes // 4, dtype=torch.int32, device=device)
+    return _WORKSPACE[key]
 
 
 @functools.cache
@@ -118,7 +158,8 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
           gelu: bool = False, amax_out: Optional[torch.Tensor] = None,
           s_out: Optional[float] = None, nch: int = 1, w4: bool = False, probe: int = 0,
           amax_floor: float = 0.0) -> None:
-    """One ``t2s_int8_dense`` launch (see its comment in ``csrc/int8_block.cu``)
+    """One ``t2s_int8_dense`` launch of ``lib`` (``load_kernel`` or
+    ``load_probe_kernel``; see the function's comment in ``csrc/int8_block.cu``)
     on tensors the caller has checked. The dtypes of ``a``, ``residual`` and
     ``outs`` (bf16 or f32) pick the kernel's loads and stores. ``a`` is (M, K),
     or (3, M, K) f32 for ``norm="sum3"``; ``probe`` holds the T2 probe's
@@ -135,12 +176,13 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
         else:
             wargs += [None] * 4
     f32 = lambda t: int(t is not None and t.dtype == torch.float32)
+    ws_ptr = workspace(a.device).data_ptr()
     with torch.cuda.device(a.device):
         err = lib.t2s_int8_dense(amode, _NORM[norm], int(w4), epi, a.data_ptr(), f32(a),
                                  _ptr(mod), _ptr(amax_in), s_static, inv, is_static, len(ws),
                                  *wargs, _ptr(residual), f32(residual), int(gelu), f32(outs[0]),
                                  _ptr(amax_out), out_inv, nch, M, K, N, probe,
-                                 float(np.float32(amax_floor)), _stream(a))
+                                 float(np.float32(amax_floor)), ws_ptr, _stream(a))
     if err != 0:
         raise RuntimeError(f"int8 dense kernel launch failed: cudaError {err}")
 

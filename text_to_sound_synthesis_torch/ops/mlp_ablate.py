@@ -2,10 +2,11 @@
 
 Port of ``tools/bench_mlp_ablate.py::make_variant``: K3 (LN -> quantize ->
 fc1 -> GELU2 -> quantize -> fc2 -> + x) with one stage taken out or changed,
-picked by name. Each is a compile-time configuration of K3's two launches in
-``csrc/int8_block.cu`` (fc1 on the LN panel, fc2 in the int8 or stream
-mode); ``mlp_variant`` launches them for a CUDA tensor and runs the plain
-twin ``mlp_variant_reference`` for a CPU one, counting its launches in
+picked by name. Each is a compile-time configuration of K3's two launches
+(fc1 on the LN panel, fc2 in the int8 or stream mode): the probe's own in
+``csrc/int8_probe.cu``, the fc2 launches it shares with K3 and K6 in
+``csrc/int8_block.cu``; ``mlp_variant`` launches them for a CUDA tensor and
+runs the plain twin ``mlp_variant_reference`` for a CPU one, counting its launches in
 ``.launches``. W8 weights, dynamic scales, as the JAX tool runs them. Each
 twin copies its JAX kernel's numerics step by step:
 
@@ -148,8 +149,10 @@ _FC1 = {"dots_only": ("cast", ik.EPI_WRAP8, 0, False),
 _FLOOR = {"mid_bf16": float(torch.tensor(1e-6, dtype=_BF)), "mid_bf16b": 1e-6, "mid_bf16c": 1e-6}
 
 
-def _launch(lib, x, mod, w1, w2, variant: str):
-    """fc1, then fc2: two launches of ``t2s_int8_dense``."""
+def _launch(lib, plib, x, mod, w1, w2, variant: str):
+    """fc1, then fc2: two launches of ``t2s_int8_dense``, of the probe
+    library (``plib``) where the configuration is the probe's, else of the
+    engine's (``lib``)."""
     M = x.shape[0]
     Dh = w1.w_q.shape[0]
     dev = x.device
@@ -158,21 +161,22 @@ def _launch(lib, x, mod, w1, w2, variant: str):
     if epi != ik.EPI_STORE:   # an int8 middle
         u = torch.empty((M, Dh), dtype=torch.int8, device=dev)
         keep = None if variant == "dots_only" else torch.empty((M,), dtype=torch.float32, device=dev)
-        ik.dense(lib, x, (w1,), (u,), norm=norm, mod=None if norm == "cast" else mod, epi=epi,
+        ik.dense(plib, x, (w1,), (u,), norm=norm, mod=None if norm == "cast" else mod, epi=epi,
                  gelu=variant == "no_quant_mid", amax_out=keep)
         if variant == "dots_only":   # int32 sums -> bf16, no scale: the raw epilogue
-            ik.dense(lib, u, (w2,), (out,), amode=ik.INT8, epi=ik.EPI_RAW, s=1.0,
+            ik.dense(plib, u, (w2,), (out,), amode=ik.INT8, epi=ik.EPI_RAW, s=1.0,
                      probe=ik.EF_RAW_BF16)
         else:                        # dequant with the input's row scale + x
             ik.dense(lib, u, (w2,), (out,), amode=ik.INT8, amax_in=keep, residual=x)
         return out
     u = torch.empty((M, Dh), dtype=torch.float32 if mid32 else torch.bfloat16, device=dev)
     amax = torch.empty((M, 1), dtype=torch.float32, device=dev)
-    ik.dense(lib, x, (w1,), (u,), norm=norm, mod=None if norm == "none" else mod,
+    ik.dense(plib, x, (w1,), (u,), norm=norm, mod=None if norm == "none" else mod,
              gelu=variant != "no_gelu", amax_out=amax, probe=flags,
              amax_floor=_FLOOR.get(variant, 0.0))
-    ik.dense(lib, u, (w2,), (out,), amode=ik.STREAM, amax_in=amax, residual=x,
-             probe=ik.EF_Q_BF16 if variant == "mid_bf16" else 0)
+    q_bf16 = variant == "mid_bf16"   # the probe's stream quantize; the others K3's or K6's fc2
+    ik.dense(plib if q_bf16 else lib, u, (w2,), (out,), amode=ik.STREAM, amax_in=amax,
+             residual=x, probe=ik.EF_Q_BF16 if q_bf16 else 0)
     return out
 
 
@@ -185,7 +189,7 @@ def mlp_variant(x, mod, w1: QuantizedWeight, w2: QuantizedWeight, *, variant: st
         return mlp_variant_reference(x, mod, w1, w2, variant=variant)
     lib = ik.load_kernel()
     _check_mlp(x, mod, w1, w2, False, lib)
-    out = _launch(lib, x, mod, w1, w2, variant)
+    out = _launch(lib, ik.load_probe_kernel(), x, mod, w1, w2, variant)
     mlp_variant.launches += 1
     return out
 

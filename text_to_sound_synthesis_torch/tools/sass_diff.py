@@ -1,19 +1,25 @@
-"""Compare the machine code (SASS) of two versions of a CUDA source, function
+"""Compare the machine code (SASS) of two versions of CUDA sources, function
 by function, on a machine with the CUDA toolkit.
 
-    python -m text_to_sound_synthesis_torch.tools.sass_diff OLD.cu NEW.cu \
-        [--rename PATTERN REPLACEMENT ...]
+    python -m text_to_sound_synthesis_torch.tools.sass_diff OLD.cu --new NEW.cu [NEW2.cu ...] \
+        [--moved PATTERN ...] [--rename PATTERN REPLACEMENT ...]
 
-Both are compiled to sm_90a cubins with the package's device flags (each with
-its own directory on the include path), disassembled with ``cuobjdump
--sass``, and each kernel's instructions compared (addresses
-and the anonymous namespace's per-file tag left out). It prints how many of
-OLD's functions are identical in NEW, which differ and which are new: the
-check that a template flag added to a kernel left its other instantiations'
-code as it was. ``--rename`` maps OLD's (mangled) function names through a
-regular expression first, for a template parameter that changed type (a
-bool flag become an int mode) but not the code of its old values. Exits
-nonzero if any function of OLD differs or is missing.
+Each source is compiled to an sm_90a cubin with the package's device flags
+(with its own directory on the include path), disassembled with ``cuobjdump
+-sass``, and each kernel's instructions compared (addresses, the anonymous
+namespace's per-file tag, the file's ELF header flags and the padding left
+out). NEW may
+be several sources, the translation units that OLD's functions were split
+into: their functions are pooled. It prints how many of OLD's functions are identical in NEW, which
+differ, which are gone and which are new: the check that a template flag
+added to a kernel, or code moved between files, left the other
+instantiations' code as it was (for the first three that differ, it prints
+where they part). ``--moved`` names OLD's functions (regular
+expressions, matched in full) that are expected to be gone, moved onto
+another kernel. ``--rename`` maps OLD's (mangled) function names through a
+regular expression first, for a template parameter that changed type (a bool
+flag become an int mode) but not the code of its old values. Exits nonzero if
+any function of OLD differs, or is gone without matching ``--moved``.
 """
 
 from __future__ import annotations
@@ -38,36 +44,72 @@ def sass(source: str, out_dir: str) -> Dict[str, List[str]]:
     subprocess.run([nvcc, *_DEVICE_FLAGS, "-I", os.path.dirname(os.path.abspath(source)), "-o",
                     cubin, source], check=True)
     objdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    text = subprocess.run([objdump, "-sass", cubin], check=True, capture_output=True,
-                          text=True).stdout
+    return parse(subprocess.run([objdump, "-sass", cubin], check=True, capture_output=True,
+                                text=True).stdout)
+
+
+def parse(text: str) -> Dict[str, List[str]]:
+    """{kernel name: its SASS lines} of ``cuobjdump -sass`` output."""
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "ANON", m.group(1))
             funcs[name] = []
-        elif name and line.strip():
-            funcs[name].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+        elif name and line.strip() and not line.strip().startswith(".headerflags"):
+            # (.headerflags, repeated under each function, are the file's ELF flags)
+            # (the padding before the encoding comment follows the file's longest line)
+            funcs[name].append(" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split()))
     return funcs
+
+
+def compare(old: Dict[str, List[str]], new: Dict[str, List[str]], moved: Sequence[str] = ()):
+    """(identical, differ, gone as expected, gone unexpectedly, new) names."""
+    same = [k for k in old if new.get(k) == old[k]]
+    differ = [k for k in old if k in new and new[k] != old[k]]
+    gone = [k for k in old if k not in new]
+    expected = [k for k in gone if any(re.fullmatch(p, k) for p in moved)]
+    return same, differ, expected, [k for k in gone if k not in expected], \
+        [k for k in new if k not in old]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
-    ap.add_argument("new")
+    ap.add_argument("--new", nargs="+", required=True, metavar="NEW")
+    ap.add_argument("--moved", action="append", default=[], metavar="PATTERN",
+                    help="an OLD function expected to be gone (re.fullmatch on its name)")
     ap.add_argument("--rename", nargs=2, action="append", default=[],
                     metavar=("PATTERN", "REPLACEMENT"),
                     help="re.sub applied to OLD's function names before matching")
     args = ap.parse_args(argv)
+    sources = args.new
+    new: Dict[str, List[str]] = {}
+    clash = []
     with tempfile.TemporaryDirectory() as tmp:
-        old, new = sass(args.old, tmp), sass(args.new, tmp)
+        old = sass(args.old, tmp)
+        for source in sources:
+            for k, v in sass(source, tmp).items():
+                if k in new and new[k] != v:
+                    clash.append(k)
+                new[k] = v
     for pattern, repl in args.rename:
         old = {re.sub(pattern, repl, k): v for k, v in old.items()}
-    same = [k for k in old if new.get(k) == old[k]]
-    print(f"{args.old}: {len(old)} functions; {args.new}: {len(new)}; identical SASS {len(same)}")
-    print("differ or missing:", [k for k in old if k not in same])
-    print("new:", [k for k in new if k not in old])
-    return 0 if len(same) == len(old) else 1
+    same, differ, expected, lost, added = compare(old, new, args.moved)
+    differ += [k for k in clash if k in old and k not in differ]
+    same = [k for k in same if k not in clash]
+    print(f"{args.old}: {len(old)} functions; {' + '.join(sources)}: {len(new)}; "
+          f"identical SASS {len(same)}")
+    print("differ:", differ)
+    print(f"gone, moved as expected ({len(expected)}):", expected)
+    print("gone, not expected:", lost)
+    print(f"new ({len(added)}):", added)
+    for k in differ[:3]:   # where the first few part
+        first = next((i for i, (a, b) in enumerate(zip(old[k], new[k])) if a != b),
+                     min(len(old[k]), len(new[k])))
+        print(f"{k}: {len(old[k])} lines in OLD, {len(new[k])} in NEW; first difference at line "
+              f"{first}:\n  OLD {old[k][first:first + 3]}\n  NEW {new[k][first:first + 3]}")
+    return 0 if not differ and not lost else 1
 
 
 if __name__ == "__main__":
