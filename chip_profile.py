@@ -51,7 +51,7 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
     device_ms = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA) / 1e3
     print(f"[{name}] {what} {wall:.4f} s; device time {device_ms:.3f} ms; "
           f"idle share {1 - device_ms / (wall * 1e3):.3f}")
-    print(ka.table(sort_by="self_device_time_total", row_limit=16, max_name_column_width=90))
+    print(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=90))
 
 
 def main() -> int:

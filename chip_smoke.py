@@ -18,13 +18,19 @@ Phases (any failed check exits nonzero, and no result line is printed):
              flagship shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP
              4096): the blocks K3-K5, W8 and W4, dynamic and static scales
              (K3 with static scales, W8 and W4, bit for bit),
-             K4 and K5 with the bf16 MHA and with the pair-packed MHA the
+             K4 and K5 (five launches a call: quantize pass, dots on the
+             Hopper GEMM's int8 A mode, MHA, quantize pass, proj) with the
+             bf16 MHA and with the pair-packed MHA the
              engine serves at this head width (held also to the share of
              outputs more than PAIR_BLOCK_ULPS off, a gate the blocks with the
-             bf16 MHA must fail); K2 against
+             bf16 MHA must fail); their quantize pass bit for bit against its
+             plain version on the CPU (AdaLN on rows with exact statistics,
+             no norm on Gaussian rows; AdaLN on Gaussian rows within one int8
+             step on QUANT_SHARE of the values); K2 against
              its plain version and against K1 on the same logits; then, W8,
              dynamic and static, K6 at the per-dense path's six sites and
-             single, K7 at 265 and 77 keys with and without masked tails, K8
+             single, K7 (the Hopper MHA, mha_sm90.cuh) at 265 and 77 keys with
+             and without masked tails, K8
              full and masked, K9 at 4 and 16 chunks; then K10, the int8
              MHA, the bf16 MHA with its softmax divide folded, and the
              pair-packed MHA, at 265
@@ -72,8 +78,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
              100-step ``generate_int8`` requests to a wav, in turns with the
              default switches and under ``T2S_ATTN_MHA=base`` (the bf16 MHA),
              with the same output checks and exact launch counts (K4 = K5 =
-             K3 = 19 x 100, K2 = 100, every other kernel, K11 and T1-T3 too,
-             0 per request).
+             K3 = 19 x 100, K2 = 100, the quantize pass 4 x 19 x 100, every
+             other kernel, K11 and T1-T3 too, 0 per request).
 7. W8      — the W8A8 dynamic engine, ``quantize_for_serving()``: three steps
              of the per-dense path (``impl="pallas_dense"``) and three of
              ``T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked``, each kernel call against
@@ -166,6 +172,12 @@ PAIR_BLOCK_ULPS, PAIR_BLOCK_SHARE, PAIR_LOOP_SHARE = 1, 2e-2, 2.5e-3
 # bound, on the H100; PERF.md). So up to PAIR_OUTLIERS of K8's outputs may lie
 # beyond PAIR_TOL there.
 PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
+# The quantize pass on Gaussian rows with AdaLN: the f32 LayerNorm sums run
+# in another order than the twin's, so an ulp of the statistics can move a
+# value across a .5 step of the int8 grid: the H100 read 0-3 of 2170880;
+# at most QUANT_SHARE of them may move, by one.
+QUANT_SHARE = 1e-4
+
 # K2 checks: its f32 LayerNorm sums run in another order than the plain
 # version's, so an ulp can move a normalised value across a bf16 rounding
 # boundary before the head ("bf16 flips"); one flip moves a logit by about
@@ -522,6 +534,16 @@ def phase_blocks(dev):
                   f"{_block_err(*outs[attn][name], f'{name} masked: ')[0]:.3e}")
         pair_gate(f"W4 static, keys from {first} masked", name, outs)
 
+    # five launches a call: quantize pass, q (k, v) dots, MHA, quantize pass,
+    # proj + residual; the passes are counted
+    for name in valid:
+        passes = ib.quantize_rows.launches
+        calls(True, True)[name][0]()
+        torch.cuda.synchronize()
+        check(ib.quantize_rows.launches == passes + 2, f"{name}: "
+              f"{ib.quantize_rows.launches - passes} quantize passes a call, expected 2")
+        print(f"  {name:<17} launches a call: 5 (quantize pass, dots, MHA, quantize pass, "
+              "proj + residual), the two passes counted")
     times = {}
     for name, (kern, plain) in calls(True, True).items():
         times[name] = (errs[name], *time_pair(f"{name:<17} W4 static" + (
@@ -529,6 +551,62 @@ def phase_blocks(dev):
     for name in ("self_attn_block", "cross_attn_block"):
         time_pair(f"{name:<17} W4 static, bf16 MHA", *calls(True, True, attn="bf16")[name])
     return times
+
+
+def phase_quant_pass(dev):
+    """Phase 4 (cont.): the attention blocks' quantize pass against its plain
+    version at the flagship shape (2120 x 1024): AdaLN on bf16 and on f32 rows
+    (K8's cross half) and no norm on bf16 rows, dynamic and static scales.
+    On rows whose LayerNorm statistics are exact in any order (half +2^e,
+    half -2^e, e in 3..5) and on Gaussian rows without a norm, its int8 rows and row
+    maxima equal those of the plain version run on the CPU (whose divides are
+    correctly rounded, as the kernel's; on the card PyTorch divides by a
+    Python number through its reciprocal) bit for bit; AdaLN on Gaussian rows
+    may move an int8 value by one (an ulp of the statistics), in at most
+    QUANT_SHARE of them. Returns (max |d| of the int8 values, ms, plain ms),
+    the times of the served mode (AdaLN, bf16, static)."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    M, D = BATCH * L_TOK, D_MODEL
+    signs = torch.ones((M, D), device=dev)
+    signs[:, D // 2:] = -1.0
+    order = torch.argsort(torch.rand((M, D), generator=gen, device=dev), dim=1)
+    # e in 3..5: 4^e + 1e-6 rounds to 4^e, whose 1/sqrt is exact on the card and the CPU alike
+    exact = signs.gather(1, order) * 2.0 ** torch.randint(3, 6, (M, 1), generator=gen, device=dev)
+    gauss = torch.randn((M, D), generator=gen, device=dev) * 2
+    mod = torch.randn((2, D), generator=gen, device=dev) * 0.2
+    worst = 0
+    for norm, dtype in (("adaln", torch.bfloat16), ("adaln", torch.float32),
+                        ("none", torch.bfloat16)):
+        m = mod if norm == "adaln" else None
+        for rows, x in (("+-2^e", exact), ("Gaussian", gauss)):
+            for s in (None, 0.035):
+                xd = x.to(dtype)
+                q, amax = ib.quantize_rows(xd, m, static_s=s)
+                torch.cuda.synchronize()
+                wq, wamax = ib.quantize_rows_reference(xd.cpu(), None if m is None else m.cpu(),
+                                                       static_s=s)
+                d = (q.cpu().int() - wq.int()).abs()
+                diff, dmax = int((d > 0).sum()), int(d.max())
+                worst = max(worst, dmax)
+                label = (f"{norm} {str(dtype)[6:]} {rows} rows, "
+                         f"{'static' if s else 'dynamic'}")
+                if norm == "none" or rows != "Gaussian":
+                    check(diff == 0, f"quantize pass {label}: {diff} int8 values differ")
+                    check(s is not None or torch.equal(amax.cpu(), wamax),
+                          f"quantize pass {label}: row maxima differ")
+                else:
+                    check(dmax <= 1 and diff <= QUANT_SHARE * d.numel(),
+                          f"quantize pass {label}: {diff} int8 values differ, by up to {dmax}")
+                maxima = "" if s else ", row maxima equal"   # (checked above where exact)
+                print(f"  quantize pass {label}: int8 values off {diff}/{d.numel()} (by up to "
+                      f"{dmax}){maxima if norm == 'none' or rows != 'Gaussian' else ''}")
+    xb = gauss.bfloat16()
+    ms, plain_ms = time_pair("quantize pass, AdaLN, bf16, static",
+                             lambda: ib.quantize_rows(xb, mod, static_s=0.035),
+                             lambda: ib.quantize_rows_reference(xb, mod, static_s=0.035))
+    return float(worst), ms, plain_ms
 
 
 def phase_head(fs, dd, dev):
@@ -1309,7 +1387,8 @@ def _counters():
             "K6m": quant.fused_quant_dense_multi, "K7": attn.fused_mha, "K8": ib.attn_pair_block,
             "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed,
             "K10": ib.mha_inline_int8, "K11": gn.gn_swish_conv, "T1": dot.tiled_dot,
-            "T2": mlp_ablate.mlp_variant, "T3": attn_ablate.attn_variant}
+            "T2": mlp_ablate.mlp_variant, "T3": attn_ablate.attn_variant,
+            "Kq": ib.quantize_rows}
 
 
 def reset_counts():
@@ -1322,7 +1401,11 @@ def read_counts():
 
 
 def expected_counts(**per_request):
-    """Launches of one request: the given counts, every other kernel 0."""
+    """Launches of one request: the given counts, the attention blocks'
+    quantize passes (two a K4 or K5 call, four a K8 call), every other
+    kernel 0."""
+    per_request.setdefault("Kq", 2 * (per_request.get("K4", 0) + per_request.get("K5", 0))
+                           + 4 * per_request.get("K8", 0))
     return {k: per_request.get(k, 0) for k in _counters()}
 
 
@@ -1549,6 +1632,8 @@ def kernel_bounds():
             dense(act(M, D) + 8 * D + w8(F, D) + act(M, F), F, D, norm + 8 * M * F),
             dense(act(M, F) + w8(D, F) + 2 * act(M, D), D, F, 4 * M * F + 4 * M * D)),
         "fused_mha": _mean_bound(mha(L, "bf16", lambda k: 0), mha(S, "bf16", lambda k: 0)),
+        # the quantize pass, AdaLN, static: x in, int8 out, the LayerNorm and quantize
+        "quantize_rows": _bound(act(M, D) + 8 * D + M * D, f32=norm),
         "attn_pair_block": _bound(2 * act(M, D) + 16 * D + 2 * act(Ms, D) + 6 * w8(D, D),
                                   int8=12 * M * D * D, bf16=mma(L) + mma(S),
                                   f32=2 * norm + soft(L) + soft(S) + 8 * M * D),
@@ -1610,6 +1695,7 @@ def main() -> int:
 
     print("[4 K2-K11, T1-T3 vs plain]")
     block_res = phase_blocks(dev)
+    quant_res = phase_quant_pass(dev)
     head_res = phase_head(fs, dd, dev)
     sched_res, k6_launches, library = phase_schedules(dev)
     att_res = phase_int8_attention(dev)
@@ -1734,7 +1820,9 @@ def main() -> int:
              sched_res["fused_quant_dense"]),
             ("fused_quant_dense_multi", "int8_block.cu", tpu + "quant.py:260", w8_counts["K6m"],
              sched_res["fused_quant_dense_multi"]),
-            ("fused_mha", "int8_block.cu", tpu + "attention.py:56", w8_counts["K7"],
+            ("quantize_rows", "int8_block.cu", tpu + "int8_block.py:375", int8_counts["Kq"],
+             quant_res),
+            ("fused_mha", "mha_sm90.cuh", tpu + "attention.py:56", w8_counts["K7"],
              sched_res["fused_mha"]),
             ("attn_pair_block", "int8_block.cu", tpu + "int8_block.py:530", w8_counts["K8"],
              sched_res["attn_pair_block"]),

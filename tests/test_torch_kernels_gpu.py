@@ -93,11 +93,13 @@ def test_int8_block_kernels_match_plain(cuda, shape, w4, static):
         (ib.mlp_block, ib.mlp_block_reference, (d["x"], d["ln"], *d["mlp"]), {}),
     ]
     for kernel, plain, args, kw in cases:
-        launches = kernel.launches
+        launches, passes = kernel.launches, ib.quantize_rows.launches
         got = kernel(*args, static_s=ss, w4=w4, **kw)
         want = plain(*args, static_s=ss, w4=w4, **kw)
         torch.cuda.synchronize()
         assert kernel.launches == launches + 1
+        # the attention blocks' two quantize passes (their AdaLN, their proj input)
+        assert ib.quantize_rows.launches == passes + (0 if kernel is ib.mlp_block else 2)
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
         if static and kernel is ib.mlp_block:
@@ -201,10 +203,11 @@ def test_pair_and_chunked_kernels_match_plain(cuda, shape, static):
     pair_kw = dict(batch=B, n_head=H, q_valid=L - 3, kv_valid=S - 4,
                    static_s=(0.035, 0.02, 0.035, 0.02) if static else None)
     args = (d["x"], mods, d["ck"], d["cv"], *d["attn"], *d["cross"])
-    launches = ib.attn_pair_block.launches
+    launches, passes = ib.attn_pair_block.launches, ib.quantize_rows.launches
     got = ib.attn_pair_block(*args, **pair_kw)
     _check_kernel(ib.attn_pair_block, got, ib.attn_pair_block_reference(*args, **pair_kw),
                   launches)
+    assert ib.quantize_rows.launches == passes + 4
     ss = (0.035, 0.012) if static else None
     for kernel, n_chunks in ((ib.mlp_block_chunked, 4), (ib.mlp_block_streamed, min(16, Dh // 128))):
         launches = kernel.launches
@@ -749,3 +752,125 @@ def test_sm90_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         D.tiled_dot(x, D.k_contiguous(torch.zeros((128, 192), dtype=torch.int8, device=cuda)),
                     torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper MHA (csrc/mha_sm90.cuh: K7, the blocks' "bf16" and "bf16_fold"
+# MHAs, T3's probe modes) and the attention blocks' quantize pass
+# ---------------------------------------------------------------------------
+
+# every key bucket's edge (32, 144, 272) and the flagship's 77 and 265 keys
+MHA90_KEYS = [32, 77, 144, 265, 272]
+# The bf16 MHA against its twin: f32 sums in another order move an output by
+# an ulp at a rounding step, by more only where a rounded p moved too: the
+# H100 read at most 2.4e-4 of the outputs more than one bf16 ulp off
+# (PERF.md), at every shape below.
+MHA90_SHARE = 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("mode", ["bf16", "bf16_fold"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_sm90_mha_matches_plain(cuda, hd, mode, batch):
+    """The Hopper MHA against ``mha_reference`` (``fold_div`` for
+    "bf16_fold") at 265 queries (four 64-query tiles and a ragged fifth), at
+    each of MHA90_KEYS with and without a masked tail of 5 keys whose v is
+    four times larger: within BLOCK_TOL, at most MHA90_SHARE of the outputs
+    more than one bf16 ulp off; ``fused_mha`` counts one launch a call."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    H = 16 if hd == 64 else 4
+    D, Lq = hd * H, 265
+    g = torch.Generator(cuda).manual_seed(hd + batch)
+    q = torch.randn((batch * Lq, D), generator=g, device=cuda).bfloat16()
+    lib = ik.load_kernel()
+    for Lkv in MHA90_KEYS:
+        k = torch.randn((batch * Lkv, D), generator=g, device=cuda).bfloat16()
+        v = torch.randn((batch * Lkv, D), generator=g, device=cuda).bfloat16()
+        for valid in (Lkv, Lkv - 5):
+            vv = _masked_tail_x4(v, batch, valid)
+            kw = dict(batch=batch, n_head=H, kv_valid=valid)
+            want = attn.mha_reference(q, k, vv, fold_div=mode == "bf16_fold", **kw)
+            if mode == "bf16":
+                launches = attn.fused_mha.launches
+                got = attn.fused_mha(q, k, vv, **kw)
+                _check_kernel(attn.fused_mha, got, want, launches)
+            else:
+                got = ik.mha(lib, q, k, vv, batch, H, valid, mode=mode)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL,
+                                           atol=BLOCK_TOL)
+            assert _ulp_flips(got, want, 1) <= MHA90_SHARE * want.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe", ["no_softmax", "no_av", "no_scores"])
+def test_sm90_mha_probe_modes_match_plain(cuda, probe):
+    """T3's MHA modes of the Hopper MHA (the probe library) against
+    ``mha_probe_reference`` at T3's shape, 8 x 272 rows, keys from 265
+    masked: within BLOCK_TOL and MHA90_SHARE."""
+    from text_to_sound_synthesis_torch.ops import attn_ablate as ab
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    B, L, H, D = 8, 272, 16, 1024
+    g = torch.Generator(cuda).manual_seed(21)
+    q, k, v = (torch.randn((B * L, D), generator=g, device=cuda).bfloat16() for _ in range(3))
+    got = ik.mha(ik.load_probe_kernel(), q, k, v, B, H, 265, mode=probe)
+    torch.cuda.synchronize()
+    want = ab.mha_probe_reference(q, k, v, batch=B, n_head=H, kv_valid=265, probe=probe)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
+    assert _ulp_flips(got, want, 1) <= MHA90_SHARE * want.numel()
+
+
+def _pm_rows(dev, M, K, g):
+    """(M, K) rows half +2^e, half -2^e (e in 3..5 per row), in a random
+    order: their LayerNorm statistics are exact in f32 in any order, and
+    4^e + 1e-6 rounds to 4^e, whose 1/sqrt is exact: the card's rsqrtf and
+    the CPU's torch.rsqrt agree there (elsewhere they may differ by an ulp)."""
+    signs = torch.ones((M, K), device=dev)
+    signs[:, K // 2:] = -1.0
+    order = torch.argsort(torch.rand((M, K), generator=g, device=dev), dim=1)
+    return signs.gather(1, order) * 2.0 ** torch.randint(3, 6, (M, 1), generator=g, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 65, 2120])
+@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("case", ["adaln bf16", "adaln f32", "none bf16"])
+@pytest.mark.parametrize("static", [False, True])
+def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
+    """The quantize pass against its plain version run on the CPU, where the
+    twins' divides are correctly rounded (on the card PyTorch divides by a
+    Python number through its reciprocal): int8 rows and row maxima equal bit
+    for bit. AdaLN on rows whose statistics are exact in any order
+    (``_pm_rows``), no norm on Gaussian rows; one launch a call. AdaLN on
+    Gaussian rows too: there an ulp of the statistics may move an int8 value
+    by one, in at most 1e-4 of them."""
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+
+    norm, dtype = case.split()
+    dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(cuda).manual_seed(M + K)
+    mod = torch.randn((2, K), generator=g, device=cuda) * 0.2 if norm == "adaln" else None
+    s = 0.035 if static else None
+    xs = [_pm_rows(cuda, M, K, g)] if norm == "adaln" else []
+    xs.append(torch.randn((M, K), generator=g, device=cuda) * 2)
+    for i, x in enumerate(xs):
+        x = x.to(dtype)
+        launches = ib.quantize_rows.launches
+        q, amax = ib.quantize_rows(x, mod, static_s=s)
+        torch.cuda.synchronize()
+        assert ib.quantize_rows.launches == launches + 1
+        wq, wamax = ib.quantize_rows_reference(x.cpu(), None if mod is None else mod.cpu(),
+                                               static_s=s)
+        assert q.dtype == torch.int8 and q.shape == (M, K)
+        assert (amax is None) == static
+        exact = norm == "none" or i == 0
+        if exact:
+            assert torch.equal(q.cpu(), wq), int((q.cpu() != wq).sum())
+            assert static or torch.equal(amax.cpu(), wamax)
+        else:
+            d = (q.cpu().int() - wq.int()).abs()
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-4 * d.numel()

@@ -24,18 +24,19 @@
 // things need a whole row before anything can be quantized: a dynamic row
 // quantize needs the row's max |h| (1024 wide for the block inputs, 4096 wide
 // for the MLP's middle), and the self-attention reads all 265 keys of a head.
-// So each TPU kernel becomes two or three launches here:
-//   K4: [AdaLN + quantize + q/k/v dots] -> [MHA, one block per (batch, head)]
-//       -> [quantize + proj dot + residual]
-//   K5: [AdaLN + quantize + q dot] -> [MHA against the condition K/V]
-//       -> [quantize + proj dot + residual]
+// So each TPU kernel becomes several launches here:
+//   K4: [AdaLN + quantize pass] -> [q/k/v dots, one launch] -> [MHA] ->
+//       [quantize pass] -> [proj dot + residual]: five
+//   K5: [AdaLN + quantize pass] -> [q dot] -> [MHA against the condition K/V]
+//       -> [quantize pass] -> [proj dot + residual]: five
 //   K3: [LN + quantize + fc1 dot + GELU2 -> int8 with the static s_mid]
 //       -> [fc2 dot + residual]; with a dynamic middle the first launch
 //       writes f32 and the row max |u| instead, and the second quantizes on
 //       the fly.
-//   K8: K4's three launches, then K5's, with x kept in f32 between the two
-//       halves: the self proj writes f32 x + residual, the cross AdaLN panel
-//       reads f32 rows, the cross proj adds the f32 residual and rounds once.
+//   K8: K4's five launches, then K5's, with x kept in f32 between the two
+//       halves: the self proj writes f32 x + residual, the cross quantize
+//       pass reads f32 rows, the cross proj adds the f32 residual and rounds
+//       once.
 //   K9: K3 with the 4096 hidden columns in n chunks, each with its own
 //       dynamic row scale: fc1 gathers the row max |u| per (row, chunk); fc2
 //       flushes its int32 sums into an f32 accumulator at each chunk's end,
@@ -46,10 +47,11 @@
 //   K7: the MHA launch alone.
 // All dots are one templated GEMM with two mainloops. K3's launches (fc1 on
 // the LN panel, static and dynamic middle, and the static fc2 in the int8 A
-// mode; K9's fc1 shares its instantiation) run the Hopper mainloop,
+// mode; K9's fc1 shares its instantiation) and K4's, K5's and K8's dots (all
+// in the int8 A mode, behind the quantize pass) run the Hopper mainloop,
 // `sm90::gemm_kernel` (int8_gemm_sm90.cuh: wgmma fed by a TMA ring, 128 x
 // 128 tiles, a persistent panel grid, stream-K in the int8 mode). The others
-// run `int8_gemm_kernel` (int8_gemm_mma.cuh), until they move too:
+// (K6, K9's fc2, the stream mode) run `int8_gemm_kernel` (int8_gemm_mma.cuh):
 //   - a block owns a 64 x 128 output tile, 8 warps of 32 x 32, each a grid of
 //     mma.sync.m16n8k32 s8 x s8 -> s32 products (exact integer sums);
 //   - "panel" mode builds its A operand itself: each block normalises,
@@ -72,16 +74,19 @@
 // order), then either [GELU2] [+ bf16 or f32 residual] -> bf16 or f32 (with
 // the row max |y| per chunk when asked), or GELU2 quantized to int8, or
 // (chunked, mma.sync only) the f32 accumulator + bias -> bf16.
-// The attention (int8_mha.cuh) keeps one head's K and V (bf16) in shared
-// memory and runs Q K^T and P V on the tensor cores (mma.sync m16n8k16 bf16,
-// f32 sums), 16 queries per warp with all of their scores in registers: keys
-// >= kv_valid at -inf, f32 softmax over all keys, p normalised then rounded to
-// bf16, P V summed in f32, rounded to bf16 (see mha_kernel); or, with the
-// softmax's divide folded into the output (T2S_SOFTMAX_FOLD_DIV), exp(s -
-// max) rounded to bf16 and the f32 P V sums divided by the row sum before the
-// rounding. The served default at a head width of 64 is the TPU's pair-packed
-// MHA (int8_block.py::_mha_pair_premasked / _mha_pair): one row max shared by
-// heads 2g and 2g + 1, the divide after P V (mha_pair_kernel).
+// The quantize pass (quant_rows_kernel below) writes the int8 rows and,
+// under dynamic scales, each row's max |h|, with the Hopper panel builder's
+// arithmetic, so the dots see the bytes and row scales the panel held.
+// The bf16 attention (mha_sm90.cuh) runs one warpgroup per 64 queries of a
+// (head, batch), Q K^T and P V on wgmma (bf16, f32 sums), Q, K and V by TMA,
+// all of a row's scores in registers: keys >= kv_valid at -inf, f32 softmax
+// over all keys, p normalised then rounded to bf16, P V summed in f32,
+// rounded to bf16; or, with the softmax's divide folded into the output
+// (T2S_SOFTMAX_FOLD_DIV), exp(s - max) rounded to bf16 and the f32 P V sums
+// divided by the row sum before the rounding. The served default at a head
+// width of 64 is the TPU's pair-packed MHA (int8_block.py::_mha_pair_premasked
+// / _mha_pair): one row max shared by heads 2g and 2g + 1, the divide after
+// P V (mha_pair_kernel, int8_mha.cuh).
 // K10, the int8 attention, is in mha_int8.cu; the T1-T3 probes' launches are
 // in int8_probe.cu.
 // The rounding points are the twins': q/k/v, p, the attention output and
@@ -95,6 +100,7 @@
 #include "int8_gemm_mma.cuh"
 #include "int8_gemm_sm90.cuh"
 #include "int8_mha.cuh"
+#include "mha_sm90.cuh"
 
 namespace {
 
@@ -115,6 +121,114 @@ __global__ void __launch_bounds__(256) row_amax_kernel(const __nv_bfloat16* __re
   }
   m = warp_max(m);
   if (lane == 0) amax[row] = m;
+}
+
+// The quantize pass of K4, K5 and K8: x (M, K) bf16 or f32 [-> AdaLN with
+// mod (2, K)] -> q (M, K) int8, and under a dynamic scale each row's max |h|
+// into amax (M,), from which the dot's int8 A mode takes the row scale as the
+// panel did. The arithmetic is build_panel_swz's (int8_gemm_sm90.cuh), row by
+// row: lane l holds k = 128 i + 4 l + e, its sums in that order and then the
+// warp's butterfly, div_rn for the mean, the variance and the dynamic
+// quantize, the static one a multiply. So the bytes and the scales are the
+// ones the panel held. One warp per kQuantRows rows, their loads in flight
+// together; NORM kNormAdaLN or kNormNone.
+constexpr int kQuantRows = 2;
+
+template <int NORM, bool A32>
+__global__ void __launch_bounds__(256)
+quant_rows_kernel(const void* __restrict__ x, const float* __restrict__ mod, int M, int K,
+                  float inv_static, int is_static, int8_t* __restrict__ q,
+                  float* __restrict__ amax_out) {
+  constexpr int R = kQuantRows, kV = kMaxPanelK / 32;
+  const int lane = threadIdx.x & 31, r0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * R;
+  const int nkc = K / 128;
+  const bool st = is_static != 0;
+  float v[R][kV];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int r = r0 + j;
+    const size_t row = static_cast<size_t>(r < M ? r : 0) * K;
+#pragma unroll
+    for (int i = 0; i < kMaxPanelK / 128; ++i) {
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < nkc && r < M) f = load4(x, row + 128 * i + 4 * lane, A32);
+      v[j][4 * i] = f.x;
+      v[j][4 * i + 1] = f.y;
+      v[j][4 * i + 2] = f.z;
+      v[j][4 * i + 3] = f.w;
+    }
+  }
+  float mean[R], rstd[R], amax[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    mean[j] = 0.0f;
+    rstd[j] = 1.0f;
+    amax[j] = 0.0f;
+  }
+  if (NORM == kNormAdaLN) {
+    float sum[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) sum[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      if (i / 4 < nkc)
+#pragma unroll
+        for (int j = 0; j < R; ++j) sum[j] = __fadd_rn(sum[j], v[j][i]);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      mean[j] = div_rn(warp_sum(sum[j]), static_cast<float>(K));
+      sum[j] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      if (i / 4 < nkc)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float d = __fsub_rn(v[j][i], mean[j]);
+          sum[j] = __fadd_rn(sum[j], __fmul_rn(d, d));
+        }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      rstd[j] = rsqrtf(__fadd_rn(div_rn(warp_sum(sum[j]), static_cast<float>(K)), kLnEps));
+  }
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    if (i / 4 < nkc) {
+      const int k = 128 * (i / 4) + 4 * lane + (i % 4);
+      const float m0v = NORM == kNormAdaLN ? mod[k] : 0.0f;
+      const float m1v = NORM == kNormAdaLN ? mod[K + k] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        v[j][i] = prologue<NORM>(v[j][i], mean[j], rstd[j], m0v, m1v);
+        amax[j] = fmaxf(amax[j], fabsf(v[j][i]));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int r = r0 + j;
+    if (r >= M) continue;
+    int8_t* dst = q + static_cast<size_t>(r) * K + 4 * lane;
+    if (st) {
+#pragma unroll
+      for (int i = 0; i < kMaxPanelK / 128; ++i)
+        if (i < nkc)
+          *reinterpret_cast<uint32_t*>(dst + 128 * i) =
+              pack4(quantize<true>(v[j][4 * i], 0.0f, inv_static, true),
+                    quantize<true>(v[j][4 * i + 1], 0.0f, inv_static, true),
+                    quantize<true>(v[j][4 * i + 2], 0.0f, inv_static, true),
+                    quantize<true>(v[j][4 * i + 3], 0.0f, inv_static, true));
+    } else {
+      const float am = warp_max(amax[j]), s = row_scale<true>(am), y = rcp_refined(s);
+      if (lane == 0) amax_out[r] = am;
+      auto qv = [&](float h) { return round_clip_q(div_rn_by(h, s, y)); };   // quantize's h / s
+#pragma unroll
+      for (int i = 0; i < kMaxPanelK / 128; ++i)
+        if (i < nkc)
+          *reinterpret_cast<uint32_t*>(dst + 128 * i) =
+              pack4(qv(v[j][4 * i]), qv(v[j][4 * i + 1]), qv(v[j][4 * i + 2]), qv(v[j][4 * i + 3]));
+    }
+  }
 }
 
 }  // namespace
@@ -174,16 +288,16 @@ extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* 
   T2S_SM90(kPanel, kNormLN, true, kEpiGeluInt8, 0)
   T2S_SM90(kPanel, kNormLN, false, kEpiStore, kEfGelu | kEfOutF32 | kEfMax)   // K3, K9 fc1
   T2S_SM90(kPanel, kNormLN, true, kEpiStore, kEfGelu | kEfOutF32 | kEfMax)
-  T2S_SM90(kInt8, kNormNone, false, kEpiStore, kEfRes)                 // K3 fc2, static
+  T2S_SM90(kInt8, kNormNone, false, kEpiStore, kEfRes)    // K3 fc2, static; proj, crossproj
   T2S_SM90(kInt8, kNormNone, true, kEpiStore, kEfRes)
+  // K4, K5 and K8 on it too, behind the quantize pass (t2s_int8_quant_rows)
+  T2S_SM90(kInt8, kNormNone, false, kEpiStore, 0)                      // q/k/v, crossq
+  T2S_SM90(kInt8, kNormNone, true, kEpiStore, 0)
+  T2S_SM90(kInt8, kNormNone, false, kEpiStore, kEfRes | kEfOutF32)     // K8: proj -> f32 x
+  T2S_SM90(kInt8, kNormNone, false, kEpiStore, kEfRes | kEfResF32)     // K8: crossproj + f32 x
   // the others on the mma.sync mainloop (int8_gemm_mma.cuh), their flags compiled in
-  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, 0)                    // q/k/v, crossq
-  T2S_CASE(kPanel, kNormAdaLN, true, kEpiStore, 0)
-  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, kEfAF32)              // K8: crossq from f32 x
-  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes)                // proj, crossproj
-  T2S_CASE(kPanel, kNormNone, true, kEpiStore, kEfRes)
-  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes | kEfOutF32)    // K8: proj -> f32 x
-  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes | kEfResF32)    // K8: crossproj + f32 x
+  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, 0)                    // K6 q/k/v
+  T2S_CASE(kPanel, kNormNone, false, kEpiStore, kEfRes)                // K6 proj
   T2S_CASE(kPanel, kNormLN, false, kEpiStore, kEfGelu)                 // K6 fc1
   T2S_CASE(kStream, kNormNone, false, kEpiStore, kEfRes | kEfAF32)     // K3 fc2, dynamic
   T2S_CASE(kStream, kNormNone, true, kEpiStore, kEfRes | kEfAF32)
@@ -209,11 +323,37 @@ extern "C" int t2s_int8_row_amax(const void* a, int M, int K, void* amax, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The quantize pass of K4, K5 and K8 (quant_rows_kernel): x (M, K) bf16 or
+// f32 (x_f32), norm 0 none or 1 AdaLN with mod (2, K) f32 -> q (M, K) int8;
+// under a dynamic scale (is_static 0) each row's max |h| into amax (M,) f32,
+// else h * inv_static. K a multiple of 128, at most t2s_int8_limits(0).
+// Returns the CUDA error code.
+extern "C" int t2s_int8_quant_rows(int norm, const void* x, int x_f32, const void* mod, int M,
+                                   int K, float inv_static, int is_static, void* q, void* amax,
+                                   void* stream) {
+  if (M <= 0 || K <= 0 || K % 128 != 0 || K > kMaxPanelK ||
+      (norm == kNormAdaLN && mod == nullptr) || (!is_static && amax == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (M + 8 * kQuantRows - 1) / (8 * kQuantRows);
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, static_cast<const float*>(mod), M, K, inv_static, is_static, static_cast<int8_t*>(q),
+        static_cast<float*>(amax));
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (norm == kNormAdaLN)
+    return x_f32 ? launch(quant_rows_kernel<kNormAdaLN, true>)
+                 : launch(quant_rows_kernel<kNormAdaLN, false>);
+  if (norm == kNormNone && !x_f32) return launch(quant_rows_kernel<kNormNone, false>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Multi-head attention: q (batch*Lq, H*hd), k/v (batch*Lkv, H*hd) bf16 ->
 // out (batch*Lq, H*hd) bf16; keys >= kv_valid masked (0 < kv_valid <= Lkv).
 // hd 32 or 64. mode (MhaMode): 0 the softmax's divide before P V, 1 folded
-// into the output; hd 64 only: 2 the pair-packed MHA (n_head even). The T3
-// probe's modes 3-6 are int8_probe.cu's function of the same name.
+// into the output (both the Hopper MHA, mha_sm90.cuh); hd 64 only: 2 the
+// pair-packed MHA (n_head even). The T3 probe's modes 3-6 are int8_probe.cu's
+// function of the same name.
 extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* out, int batch,
                             int Lq, int Lkv, int n_head, int hd, int kv_valid, int mode,
                             void* stream) {
@@ -222,12 +362,13 @@ extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* o
     return static_cast<int>(cudaErrorInvalidValue);
 #define T2S_MHA(HD, MODE) \
   if (hd == HD && mode == MODE) \
-    return launch_mha_keys<HD, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+    return mha90::launch_keys<HD, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
   T2S_MHA(64, kMhaDiv)
   T2S_MHA(64, kMhaFold)
   T2S_MHA(32, kMhaDiv)
   T2S_MHA(32, kMhaFold)
-  T2S_MHA(64, kMhaPair)
 #undef T2S_MHA
+  if (hd == 64 && mode == kMhaPair)
+    return launch_mha_pair_keys<kMhaPair>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

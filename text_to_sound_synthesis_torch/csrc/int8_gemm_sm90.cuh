@@ -2,8 +2,9 @@
 //
 // It runs the launches that int8_block.cu's and int8_probe.cu's dispatch
 // tables send to `sm90::launch`: K3's fc1 on the LN panel and its static fc2
-// in the int8 A mode, T2's fc1 configurations and dots_only's fc2, and T1's
-// int8 dots. Each launch computes what the mma.sync mainloop
+// in the int8 A mode, K4's, K5's and K8's dots in the int8 A mode (behind
+// int8_block.cu's quantize pass), T2's fc1 configurations and dots_only's
+// fc2, and T1's int8 dots. Each launch computes what the mma.sync mainloop
 // (int8_gemm_mma.cuh) computes for the same template values: the same exact
 // int32 sums, the same panel arithmetic (build_panel's, row by row), the same
 // epilogue arithmetic in the same order, so a launch that was bit-equal to its
@@ -399,7 +400,9 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, const int (&acc)[64]
   constexpr bool kInt8Out = EPI == kEpiGeluInt8 || EPI == kEpiClip8 || EPI == kEpiWrap8 ||
                             EPI == kEpiShift8;
   constexpr int kOut = kInt8Out ? 1 : EPI == kEpiRaw ? (kRawBf ? 2 : 4) : (out32 ? 4 : 2);
-  static_assert(!has_res || (res32 ? 4 : 2) == kOut, "the residual as wide as the output");
+  // a residual as wide as the output passes through the slab; K8's (bf16 x
+  // with an f32 output, f32 x with a bf16 one) is read where it lies
+  constexpr bool kResSlab = has_res && (res32 ? 4 : 2) == kOut;
   constexpr int kCols = 128 / kOut, kPasses = kBN / kCols;
   const int M = g.M, N = g.N, gq = lane >> 2, tq = lane & 3, wrow0 = row0 - gq;
   // (slab row, byte of the row): its 16-byte chunk swizzled by the row
@@ -436,7 +439,7 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, const int (&acc)[64]
   float rmax[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int c = 0; c < kPasses; ++c) {
-    if (has_res) {
+    if (kResSlab) {
       rows(g.residual, nullptr, c);
       __syncwarp();
     }
@@ -505,7 +508,10 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, const int (&acc)[64]
           }
         }
         if (has_res) {
-          const float2 rv = load2(p, 0, res32);
+          const int r = m0 + row0 + 8 * hf;
+          const float2 rv = kResSlab ? load2(p, 0, res32)
+                                     : (r < M ? load2(g.residual, static_cast<size_t>(r) * N + n, res32)
+                                              : make_float2(0.0f, 0.0f));
           y0 = __fadd_rn(y0, rv.x);
           y1 = __fadd_rn(y1, rv.y);
         }

@@ -1,7 +1,8 @@
-// The bf16 multi-head attention of the engine (K4, K5, K7 and K8's MHA) and
-// its T3 probe modes: `mha_kernel` and the pair-packed `mha_pair_kernel`, and
-// their launcher. Included by int8_block.cu (the engine's modes) and
-// int8_probe.cu (T3's); see int8_block.cu's header comment.
+// The pair-packed bf16 MHA of the engine (`mha_pair_kernel`, the served
+// default of K4 and K5 at a head width of 64, and T3's pair_nofold) and its
+// launcher, and the modes of the engine's MHAs. The other modes run the
+// Hopper MHA of mha_sm90.cuh. Included by int8_block.cu (the engine's modes)
+// and int8_probe.cu (T3's); see int8_block.cu's header comment.
 
 #pragma once
 
@@ -16,191 +17,22 @@ namespace {
 
 using namespace t2s_int8;
 
-// ---------------------------------------------------------------------------
-// multi-head attention over the flat (B*L, D) layout, one head per block
-// ---------------------------------------------------------------------------
-
-constexpr int kMhaWarps = 8;               // each warp takes 16 queries at a time
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One block per (batch b, head h): the head's K (keys x HD) and V transposed
-// (HD x keys) are loaded once into shared memory, zero-padded to NKT*8 keys,
-// and its warps take the queries 16 at a time. Scores S = Q K^T and P V run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 sums); the warp's whole 16 x NKT*8 score
-// tile stays in registers, so the softmax is exact (max and sum over all keys
-// first, then p = exp(s - max) / sum rounded to bf16), and the rounded p is
-// the A operand of P V straight from the score registers.
-// The MHA's modes: kMhaDiv that; kMhaFold (T2S_SOFTMAX_FOLD_DIV) p =
-// exp(s - max) rounded to bf16, and the f32 output divided by the sum;
-// kMhaPair, kMhaPairNoFold the pair-packed MHA (mha_pair_kernel); and T3's
-// (tools/bench_attn_ablate.py::make_variant): kMhaNoSoftmax p = bf16(s *
-// 0.001) over every key, none masked; kMhaNoAv the head's output is p of its
-// first HD keys, no P V; kMhaNoScores every score of a row is the row's
-// q[0] (its first column), no Q K^T, unscaled, then the masked softmax.
+// The MHA's modes: kMhaDiv the exact softmax over all keys (keys >= kv_valid
+// at -inf), p = exp(s - max) / sum rounded to bf16, P V summed in f32;
+// kMhaFold (T2S_SOFTMAX_FOLD_DIV) p = exp(s - max) rounded to bf16, and the
+// f32 output divided by the sum; kMhaPair, kMhaPairNoFold the pair-packed MHA
+// (mha_pair_kernel); and T3's (tools/bench_attn_ablate.py::make_variant):
+// kMhaNoSoftmax p = bf16(s * 0.001) over every key, none masked; kMhaNoAv the
+// head's output is p of its first HD keys, no P V; kMhaNoScores every score
+// of a row is the row's q[0] (its first column), no Q K^T, unscaled, then the
+// masked softmax. All but the pair modes run mha_sm90.cuh's kernel.
 enum MhaMode { kMhaDiv = 0, kMhaFold = 1, kMhaPair = 2, kMhaPairNoFold = 3, kMhaNoSoftmax = 4,
                kMhaNoAv = 5, kMhaNoScores = 6 };
-
-template <int HD, int NKT, int MODE>
-__global__ void __launch_bounds__(kMhaWarps * 32)
-mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Lq,
-           int Lkv, int D, int kv_valid, float sqrt_hd) {
-  constexpr bool FOLD = MODE == kMhaFold;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kKeys = NKT * 8;
-  constexpr int kKRow = HD + 8;          // bf16; 16-byte rows, conflict-free fragments
-  constexpr int kVRow = kKeys + 8;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [kKeys][kKRow]
-  __nv_bfloat16* Vt = Ks + kKeys * kKRow;                        // [HD][kVRow]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-
-  for (int i = tid; i < kKeys * (HD / 8); i += kMhaWarps * 32) {
-    const int j = i / (HD / 8), w = i % (HD / 8);   // key j, dims 8w .. 8w + 7
-    uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-    if (j < Lkv) {
-      const size_t src = (static_cast<size_t>(b) * Lkv + j) * D + h * HD + 8 * w;
-      kw = *reinterpret_cast<const uint4*>(k + src);
-      vw = *reinterpret_cast<const uint4*>(v + src);
-    }
-    *reinterpret_cast<uint4*>(Ks + j * kKRow + 8 * w) = kw;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Vt[(8 * w + e) * kVRow + j] = ve[e];
-  }
-  __syncthreads();
-
-  for (int q0 = warp * 16; q0 < Lq; q0 += kMhaWarps * 16) {
-    // Q fragments for the warp's 16 rows (rows past Lq read row Lq - 1)
-    const int r0 = min(q0 + gq, Lq - 1), r1 = min(q0 + gq + 8, Lq - 1);
-    const __nv_bfloat16* q_r0 = q + (static_cast<size_t>(b) * Lq + r0) * D + h * HD;
-    const __nv_bfloat16* q_r1 = q + (static_cast<size_t>(b) * Lq + r1) * D + h * HD;
-    uint32_t qa[HD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_r0 + kk * 16 + 2 * tq);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_r1 + kk * 16 + 2 * tq);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_r0 + kk * 16 + 8 + 2 * tq);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_r1 + kk * 16 + 8 + 2 * tq);
-    }
-
-    // S = Q K^T over all (padded) keys
-    float s[NKT][4];
-    if constexpr (MODE == kMhaNoScores) {
-      const float c0 = __bfloat162float(q[(static_cast<size_t>(b) * Lq + r0) * D]);
-      const float c1 = __bfloat162float(q[(static_cast<size_t>(b) * Lq + r1) * D]);
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        s[j][0] = s[j][1] = c0;
-        s[j][2] = s[j][3] = c1;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-        const __nv_bfloat16* kr = Ks + (j * 8 + gq) * kKRow + 2 * tq;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                   *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-      }
-    }
-
-    // exact softmax per row: rows gq (regs 0, 1) and gq + 8 (regs 2, 3)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * 8 + 2 * tq + (e & 1);
-        if constexpr (MODE == kMhaNoSoftmax)
-          s[j][e] = __fmul_rn(__fdiv_rn(s[j][e], sqrt_hd), 0.001f);
-        else if constexpr (MODE == kMhaNoScores)
-          s[j][e] = key < kv_valid ? s[j][e] : -INFINITY;
-        else
-          s[j][e] = key < kv_valid ? __fdiv_rn(s[j][e], sqrt_hd) : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float sum[2] = {0.0f, 0.0f};
-    if constexpr (MODE != kMhaNoSoftmax) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      }
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - mx[e >> 1]);
-          sum[e >> 1] += s[j][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
-        sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
-      }
-    }
-
-    if constexpr (MODE == kMhaNoAv) {
-      // the head's output is p of its first HD keys (the wrapper takes Lkv >= HD)
-      constexpr int kAv = HD / 8 < NKT ? HD / 8 : NKT;
-#pragma unroll
-      for (int j = 0; j < kAv; ++j) {
-        const int d = h * HD + j * 8 + 2 * tq;
-        if (q0 + gq < Lq)
-          *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<size_t>(b) * Lq + q0 + gq) * D + d) =
-              __floats2bfloat162_rn(__fdiv_rn(s[j][0], sum[0]), __fdiv_rn(s[j][1], sum[0]));
-        if (q0 + gq + 8 < Lq)
-          *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<size_t>(b) * Lq + q0 + gq + 8) * D + d) =
-              __floats2bfloat162_rn(__fdiv_rn(s[j][2], sum[1]), __fdiv_rn(s[j][3], sum[1]));
-      }
-    } else {
-      // O = P V, P = bf16(exp / sum) (FOLD: bf16(exp); kMhaNoSoftmax: bf16(s))
-      // from the score registers
-      float o[HD / 8][4];
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-      auto p_of = [&](float e, float sm) {
-        return FOLD || MODE == kMhaNoSoftmax ? e : __fdiv_rn(e, sm);
-      };
-#pragma unroll
-      for (int kk = 0; kk < NKT / 2; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(p_of(s[2 * kk][0], sum[0]), p_of(s[2 * kk][1], sum[0]));
-        pa[1] = pack_bf16(p_of(s[2 * kk][2], sum[1]), p_of(s[2 * kk][3], sum[1]));
-        pa[2] = pack_bf16(p_of(s[2 * kk + 1][0], sum[0]), p_of(s[2 * kk + 1][1], sum[0]));
-        pa[3] = pack_bf16(p_of(s[2 * kk + 1][2], sum[1]), p_of(s[2 * kk + 1][3], sum[1]));
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          const __nv_bfloat16* vr = Vt + (n * 8 + gq) * kVRow + kk * 16 + 2 * tq;
-          mma_bf16(o[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                   *reinterpret_cast<const uint32_t*>(vr + 8));
-        }
-      }
-
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        if (FOLD) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[n][e] = __fdiv_rn(o[n][e], sum[e >> 1]);
-        }
-        const int d = h * HD + n * 8 + 2 * tq;
-        if (q0 + gq < Lq)
-          *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<size_t>(b) * Lq + q0 + gq) * D + d) =
-              __floats2bfloat162_rn(o[n][0], o[n][1]);
-        if (q0 + gq + 8 < Lq)
-          *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<size_t>(b) * Lq + q0 + gq + 8) * D + d) =
-              __floats2bfloat162_rn(o[n][2], o[n][3]);
-      }
-    }
-  }
-}
 
 // The pair-packed MHA of the TPU engine (int8_block.py::_mha_pair_premasked,
 // _mha_pair; its served default at a head width of 64): heads A = 2g and B =
@@ -366,18 +198,14 @@ mha_pair_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-template <int HD, int NKT, int MODE>
-int launch_mha(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
-               int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
-  constexpr bool kPair = MODE == kMhaPair || MODE == kMhaPairNoFold;
-  const size_t smem = (kPair ? 2 : 1) * (static_cast<size_t>(NKT) * 8 * (HD + 8) + HD * (NKT * 8 + 8)) *
+// The pair-packed MHA: MODE kMhaPair or kMhaPairNoFold, NKT key tiles of 8.
+template <int NKT, int MODE>
+int launch_mha_pair(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
+                    int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
+  constexpr int HD = 64;
+  const size_t smem = 2 * (static_cast<size_t>(NKT) * 8 * (HD + 8) + HD * (NKT * 8 + 8)) *
                       sizeof(__nv_bfloat16);
-  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*,
-                 int, int, int, int, float);
-  if constexpr (kPair)
-    kernel = mha_pair_kernel<NKT, MODE == kMhaPair>;
-  else
-    kernel = mha_kernel<HD, NKT, MODE>;
+  auto kernel = mha_pair_kernel<NKT, MODE == kMhaPair>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -385,27 +213,26 @@ int launch_mha(const void* q, const void* k, const void* v, void* out, int batch
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  // the pair kernel: as many query slices as leave each warp one tile of 16 queries
-  const int warps = kPair ? kPairWarps : kMhaWarps;
-  const int slices = kPair ? ((Lq + 15) / 16 + warps - 1) / warps : 1;
-  const dim3 grid(slices, kPair ? n_head / 2 : n_head, batch);
-  kernel<<<grid, warps * 32, smem, stream>>>(
+  // as many query slices as leave each warp one tile of 16 queries
+  const int slices = ((Lq + 15) / 16 + kPairWarps - 1) / kPairWarps;
+  const dim3 grid(slices, n_head / 2, batch);
+  kernel<<<grid, kPairWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Lq, Lkv,
-      n_head * HD, kv_valid, sqrtf(static_cast<float>(HD)));
+      n_head * HD, kv_valid, 8.0f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int MODE>
-int launch_mha_keys(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
-                    int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
+template <int MODE>
+int launch_mha_pair_keys(const void* q, const void* k, const void* v, void* out, int batch, int Lq,
+                         int Lkv, int n_head, int kv_valid, cudaStream_t stream) {
   if (Lkv <= 32)
-    return launch_mha<HD, 4, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+    return launch_mha_pair<4, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
   if (Lkv <= 80)
-    return launch_mha<HD, 10, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+    return launch_mha_pair<10, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
   if (Lkv <= 144)
-    return launch_mha<HD, 18, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
-  return launch_mha<HD, 34, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+    return launch_mha_pair<18, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
+  return launch_mha_pair<34, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, stream);
 }
 
 // What t2s_int8_mha (int8_block.cu, int8_probe.cu) takes, whatever its mode.

@@ -3,12 +3,12 @@
 // and T3 (tools/bench_attn_ablate.py, K4 likewise), for Hopper, sm_90a.
 //
 // Each is a compile-time configuration of the engine's templates (the
-// headers int8_gemm_sm90.cuh, int8_gemm_mma.cuh and int8_mha.cuh; see
-// int8_block.cu's header comment), built here, apart from the engine, so that
-// a request never waits for their build. The wrappers (ops/dot.py,
-// ops/mlp_ablate.py, ops/attn_ablate.py) launch these for the probes'
-// configurations and int8_block.cu's for the engine's own launches, which the
-// probes share.
+// headers int8_gemm_sm90.cuh, int8_gemm_mma.cuh, int8_mha.cuh and
+// mha_sm90.cuh; see int8_block.cu's header comment), built here, apart from
+// the engine, so that a request never waits for their build. The wrappers
+// (ops/dot.py, ops/mlp_ablate.py, ops/attn_ablate.py) launch these for the
+// probes' configurations and int8_block.cu's for the engine's own launches,
+// which the probes share.
 //   T1: its int8 cases run the Hopper mainloop in its int8 A mode with the raw
 //       epilogue (the engine's fc2 mainloop), its bf16 case bf16_dot_kernel,
 //       the mma.sync tiling on m16n8k16 bf16. At the probe's fc1 shape (2176
@@ -29,6 +29,7 @@
 #include "int8_gemm_mma.cuh"
 #include "int8_gemm_sm90.cuh"
 #include "int8_mha.cuh"
+#include "mha_sm90.cuh"
 
 namespace {
 
@@ -213,13 +214,14 @@ extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* o
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!mha_args_ok(batch, Lq, Lkv, n_head, hd, kv_valid, mode))
     return static_cast<int>(cudaErrorInvalidValue);
-#define T2S_MHA(HD, MODE) \
-  if (hd == HD && mode == MODE) \
-    return launch_mha_keys<HD, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
-  T2S_MHA(64, kMhaPairNoFold)
-  T2S_MHA(64, kMhaNoSoftmax)
-  T2S_MHA(64, kMhaNoAv)
-  T2S_MHA(64, kMhaNoScores)
+  if (hd == 64 && mode == kMhaPairNoFold)
+    return launch_mha_pair_keys<kMhaPairNoFold>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+#define T2S_MHA(MODE) \
+  if (hd == 64 && mode == MODE) \
+    return mha90::launch_keys<64, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+  T2S_MHA(kMhaNoSoftmax)
+  T2S_MHA(kMhaNoAv)
+  T2S_MHA(kMhaNoScores)
 #undef T2S_MHA
   return static_cast<int>(cudaErrorInvalidValue);
 }

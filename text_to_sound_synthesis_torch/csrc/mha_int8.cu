@@ -24,18 +24,17 @@
 //   1. the quantize pass: one warp per q or k row (row max, then the int8
 //      row and its scale), and one block per (batch, 64 columns) of V (its
 //      eight warps split the keys, the column maxima meet in shared memory);
-//   2. the MHA, one block per (batch, head), as the bf16 mha_kernel of
-//      int8_block.cu: the head's int8 K and V (transposed) in shared memory,
-//      keys padded with zeros to a multiple of 32; each warp takes 16 queries
-//      at a time and keeps their whole score tile in registers, so the
-//      softmax and P's row scale are exact. Q K^T and P V run on
-//      mma.sync.m16n8k32 s8 x s8 -> s32. The accumulator of Q K^T holds, per
-//      thread, keys 2t and 2t + 1 of each 8-key tile, while the A fragment of
-//      P V takes four consecutive k slots per thread; instead of moving P
-//      between threads, the k slots of each 32-key group are a permutation
-//      of its keys (slot 4t + 2e + f <-> key 8e + 2t + f, and the same in the
-//      upper 16), and V is stored in shared memory in that slot order, so P
-//      packs straight from the score registers.
+//   2. the MHA, one block per (batch, head): the head's int8 K and V
+//      (transposed) in shared memory, keys padded with zeros to a multiple of
+//      32; each warp takes 16 queries at a time and keeps their whole score
+//      tile in registers, so the softmax and P's row scale are exact. Q K^T
+//      and P V run on mma.sync.m16n8k32 s8 x s8 -> s32. The accumulator of Q
+//      K^T holds, per thread, keys 2t and 2t + 1 of each 8-key tile, while the
+//      A fragment of P V takes four consecutive k slots per thread; instead of
+//      moving P between threads, the k slots of each 32-key group are a
+//      permutation of its keys (slot 4t + 2e + f <-> key 8e + 2t + f, and the
+//      same in the upper 16), and V is stored in shared memory in that slot
+//      order, so P packs straight from the score registers.
 //
 // What bounds it on an H100. At the flagship (8 x 265 queries, 16 heads of
 // 64, 265 keys) Q K^T and P V are 2.3 GOP of int8 work together, about 1.2

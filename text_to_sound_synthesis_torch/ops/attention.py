@@ -3,9 +3,9 @@
 Port of ``text_to_sound_synthesis_tpu/ops/attention.py``: ``mha_reference``,
 the plain attention that the int8 twins use, and K7 ``fused_mha``, the
 attention of the engine's per-dense path. ``fused_mha`` launches the
-attention kernel of ``csrc/int8_block.cu`` on its own for a CUDA tensor (the
-blocks K4, K5 and K8 launch the same kernel inside their own schedules and do
-not count here) and runs ``mha_reference`` for a CPU one; it counts its calls
+Hopper attention kernel (``csrc/mha_sm90.cuh``, built into
+``csrc/int8_block.cu``) on its own for a CUDA tensor (the blocks K4, K5 and
+K8 launch the same kernel inside their own schedules and do not count here) and runs ``mha_reference`` for a CPU one; it counts its calls
 in ``.launches``. The TPU's ``interpret`` option is not carried over.
 
 Beside it, ``mha_pair_reference``, the plain twin of the attention kernel's
@@ -105,7 +105,8 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, 
               kv_valid: int) -> torch.Tensor:
     """K7: q (B*Lq, D), k/v (B*Lkv, D) bf16 -> (B*Lq, D) bf16, keys at or
     beyond ``kv_valid`` masked; what ``mha_reference`` computes. On the card:
-    one block per (batch, head), head width 32 or 64, at most 272 keys."""
+    ``csrc/mha_sm90.cuh``, one warpgroup per 64 queries of a (batch, head),
+    head width 32 or 64, at most 272 keys."""
     if not ik.on_cuda(q, "fused_mha"):
         return mha_reference(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
     lib = ik.load_kernel()

@@ -10,8 +10,10 @@ compile-time configuration of K4's launches: the probe's own in
 ``.launches``. W8 weights, as the JAX tool runs them:
 
   qkvp_dots_only  y = bf16(q + k + v) from the f32 dequants (no MHA), then
-                  the proj: K4's q/k/v launch writing f32, and its proj
-                  launch summing the three planes (two launches)
+                  the proj: a q/k/v launch writing f32, and a proj launch
+                  summing the three planes (two launches, on the mma.sync
+                  panel mainloop that K4 ran before its dots moved to the
+                  Hopper GEMM)
   no_softmax      p = bf16(s * 0.001), no key mask, every key
   no_av           each head's output is its softmax p of the first hd keys
   no_scores       every score of a row is the row's q[0], then the masked softmax
@@ -126,7 +128,7 @@ def attn_variant(x, mod, wq: QuantizedWeight, wk: QuantizedWeight, wv: Quantized
     """T3: ``variant`` of K4 (module docstring) -> (B*L, D) bf16. On a CUDA
     tensor K4's launches with the variant's configuration (W8 weights, a
     head width of 64, at most 272 keys; ``no_av`` at least 64), two for
-    ``qkvp_dots_only`` and three else; the plain twin on a CPU one."""
+    ``qkvp_dots_only`` and K4's five else; the plain twin on a CPU one."""
     _check_variant(variant)
     kw = dict(batch=batch, n_head=n_head, q_valid=q_valid, static_s=static_s)
     if not ik.on_cuda(x, "attn_variant"):
@@ -147,8 +149,7 @@ def attn_variant(x, mod, wq: QuantizedWeight, wk: QuantizedWeight, wv: Quantized
         _check_probe_mha(variant, n_head, D, L)
         mha_lib = probe if variant in PROBES else lib   # "pair" is the engine's own MHA
         mha = lambda q, k, v: ik.mha(mha_lib, q, k, v, batch, n_head, q_valid, mode=variant)
-        out = ib._attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), False,
-                            mha, qkv=(wq, wk, wv))
+        out = ib._attn_half(x, mod, (wq, wk, wv), wproj, s_in, s_out, x.dtype, False, mha)
     attn_variant.launches += 1
     return out
 

@@ -43,10 +43,18 @@ the kernels compute (the JAX package's ``*_reference`` twins; W4 goes through
 launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` (K10:
 ``csrc/mha_int8.cu``) for CUDA tensors and run the plain version only for
 CPU tensors; each counts its kernel runs in ``.launches`` (K10 counts every
-int8 MHA, inside a block or called alone). The TPU schedule options (``rows_per_program``,
-``block_m``, ``pipeline_halves``, row padding) are not carried over: the
-Hopper kernels choose their own tiling and take any sequence length up to
-their limit (the TPU's padded one too, its pad keys masked by ``q_valid``).
+int8 MHA, inside a block or called alone; ``quantize_rows``, the attention
+blocks' quantize pass, each of its launches, two per attention half).
+
+On the card an attention half (K4, K5, each half of K8) is five launches
+(``_attn_half``): the quantize pass (AdaLN, the TPU kernel's ``_prologue``
+and ``_quant``) -> the q (and k, v) dots in the Hopper GEMM's int8 A mode ->
+the MHA -> the quantize pass -> the proj dot + residual. The same schedule
+runs on CPU tensors from the plain pieces, and equals the twins bit for bit.
+The TPU schedule options (``rows_per_program``, ``block_m``,
+``pipeline_halves``, row padding) are not carried over: the Hopper kernels
+choose their own tiling and take any sequence length up to their limit (the
+TPU's padded one too, its pad keys masked by ``q_valid``).
 ``mha_mode="pair"`` is ``attn="pair"`` here.
 """
 
@@ -55,6 +63,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import int8_kernels as ik
@@ -64,7 +73,8 @@ from .quant import (QuantizedWeight, _deq, _gelu2, _prologue, _quant, _quantize_
                     unpack_weight_w4)
 
 __all__ = ["self_attn_block", "cross_attn_block", "attn_pair_block", "mlp_block",
-           "mlp_block_chunked", "mlp_block_streamed", "mha_inline_int8",
+           "mlp_block_chunked", "mlp_block_streamed", "mha_inline_int8", "quantize_rows",
+           "quantize_rows_reference",
            "self_attn_block_reference", "cross_attn_block_reference",
            "attn_pair_block_reference", "mlp_block_reference", "mlp_chunked_reference",
            "mha_inline_int8_reference", "load_kernel", "ATTN"]
@@ -286,20 +296,65 @@ def _attend(lib, batch: int, n_head: int, kv_valid: int, attn: str):
     return lambda q, k, v: ik.mha(lib, q, k, v, batch, n_head, kv_valid, mode=attn)
 
 
-def _attn_half(lib, x, mod, wq, wproj, s_in, s_out, residual_out, w4, mha, *, kv=None, qkv=None):
-    """[AdaLN + quantize + q (and k, v) dots] -> ``mha`` (``_attend``) ->
-    [quantize + proj + residual] into ``residual_out`` (bf16 or f32): three
-    launches, four with K10's quantize pass."""
-    if qkv is not None:
-        q, k, v = (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) for _ in range(3))
-        ik.dense(lib, x, qkv, (q, k, v), norm="adaln", mod=mod, s=s_in, w4=w4)
-    else:
-        q = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-        ik.dense(lib, x, (wq,), (q,), norm="adaln", mod=mod, s=s_in, w4=w4)
-        k, v = kv
-    y = mha(q, k, v)
-    ik.dense(lib, y, (wproj,), (residual_out,), s=s_out, residual=x, w4=w4)
-    return residual_out
+def quantize_rows_reference(x, mod=None, *, static_s: Optional[float] = None):
+    """Plain twin of the quantize pass: x (M, K) bf16 or f32 [-> AdaLN with
+    ``mod`` (2, K)] -> (q (M, K) int8, the f32 (M,) row max |h|, or None under
+    the static scale ``static_s``): the JAX kernels' ``_prologue(x, mod,
+    "adaln")`` (or none) and ``_quant``."""
+    xf = x.float()
+    h = xf if mod is None else _prologue(xf, *_mods(mod), "adaln")
+    q, _ = _quant(h, static_s)
+    return q, (h.abs().amax(dim=-1) if static_s is None else None)
+
+
+def quantize_rows(x, mod=None, *, static_s: Optional[float] = None):
+    """The attention blocks' quantize pass (``quantize_rows_reference``): one
+    launch on a CUDA tensor, K a multiple of 128 up to the panel limit; its
+    int8 rows and row maxima are what the GEMM's AdaLN panel held."""
+    if not ik.on_cuda(x, "quantize_rows"):
+        return quantize_rows_reference(x, mod, static_s=static_s)
+    lib = load_kernel()
+    M, K = x.shape
+    ik.check("x", x, (M, K), (torch.bfloat16, torch.float32), x.device)
+    if K % 128 or K > lib.t2s_int8_limits(0):
+        raise ValueError(f"width {K} must be a multiple of 128 and at most "
+                         f"{lib.t2s_int8_limits(0)}")
+    if mod is not None:
+        ik.check("mod", mod, (2, K), torch.float32, x.device)
+    out = ik.quant_rows(lib, x, mod, static_s)
+    quantize_rows.launches += 1
+    return out
+
+
+def _dense_int8(qa, amax, ws, s_static, w4: bool, residual=None, out_dtype=torch.bfloat16):
+    """The dots from the quantize pass's output, one per weight: acc * (s_row *
+    scale) + bias [+ residual] -> ``out_dtype``, s_row the static scale or
+    max(amax, 1e-8) / 127 (``_quantize_rows``'s). One launch of the Hopper
+    GEMM's int8 A mode on the card (the weights share A); plain on the CPU."""
+    if not ik.on_cuda(qa, "the int8 dense"):
+        s = (float(np.float32(s_static)) if amax is None
+             else amax.clamp_min(1e-8)[:, None] / 127.0)
+        ys = (_deq(int_dot(qa, w.w_q), s, w) for w in _plain_weights(ws, w4))
+        return [(y if residual is None else y + residual.float()).to(out_dtype) for y in ys]
+    # one allocation for all the weights' outputs: each costs host time
+    outs = torch.empty((len(ws), qa.shape[0], ws[0].w_q.shape[0]), dtype=out_dtype,
+                       device=qa.device).unbind(0)
+    ik.dense(load_kernel(), qa, ws, outs, amode=ik.INT8, s=s_static, amax_in=amax,
+             residual=residual, w4=w4)
+    return outs
+
+
+def _attn_half(x, mod, ws_in, wproj, s_in, s_out, out_dtype, w4: bool, mha, kv=None):
+    """One attention half, five steps: [quantize pass, AdaLN] -> [q/k/v dots
+    (``ws_in`` three weights), or q's with ``kv`` the condition's K/V] ->
+    ``mha`` -> [quantize pass] -> [proj dot + residual x] -> ``out_dtype``.
+    On CUDA tensors five launches (``mha`` one, or K10's two); on CPU tensors
+    the plain pieces, equal to the twins bit for bit."""
+    qx, ax = quantize_rows(x, mod, static_s=s_in)
+    outs = _dense_int8(qx, ax, ws_in, s_in, w4)
+    q, k, v = outs if kv is None else (outs[0], *kv)
+    qy, ay = quantize_rows(mha(q, k, v), static_s=s_out)
+    return _dense_int8(qy, ay, (wproj,), s_out, w4, residual=x, out_dtype=out_dtype)[0]
 
 
 def mha_inline_int8(q, k, v, *, batch: int, n_head: int, kv_valid: int):
@@ -321,7 +376,7 @@ def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_val
                     static_s: StaticS = None, w4: bool = False, attn: str = "bf16"):
     """K4: x (B*L, D) bf16 -> x + proj(MHA(adaln(x))) (B*L, D) bf16; keys at or
     beyond ``q_valid`` are masked; ``attn`` picks the MHA (module docstring).
-    Three launches on a CUDA tensor, four with ``attn="int8"``."""
+    Five launches on a CUDA tensor (``_attn_half``), six with ``attn="int8"``."""
     _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "self_attn_block"):
         return self_attn_block_reference(x, mod, wq, wk, wv, wproj, batch=batch, n_head=n_head,
@@ -331,8 +386,8 @@ def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_val
     D = x.shape[1]
     _check_weights(("wq", "wk", "wv", "wproj"), (wq, wk, wv, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, None, wproj, s_in, s_out, torch.empty_like(x), w4,
-                     _attend(lib, batch, n_head, q_valid, attn), qkv=(wq, wk, wv))
+    out = _attn_half(x, mod, (wq, wk, wv), wproj, s_in, s_out, x.dtype, w4,
+                     _attend(lib, batch, n_head, q_valid, attn))
     self_attn_block.launches += 1
     return out
 
@@ -340,7 +395,7 @@ def self_attn_block(x, mod, wq, wk, wv, wproj, *, batch: int, n_head: int, q_val
 def cross_attn_block(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int, kv_valid: int,
                      static_s: StaticS = None, w4: bool = False, attn: str = "bf16"):
     """K5: x (B*L, D) bf16; ck/cv (B*S, D) bf16 condition K/V, keys at or beyond
-    ``kv_valid`` masked -> (B*L, D) bf16. Three launches on a CUDA tensor, four
+    ``kv_valid`` masked -> (B*L, D) bf16. Five launches on a CUDA tensor, six
     with ``attn="int8"``."""
     _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "cross_attn_block"):
@@ -353,7 +408,7 @@ def cross_attn_block(x, mod, ck, cv, wq, wproj, *, batch: int, n_head: int, kv_v
     D = x.shape[1]
     _check_weights(("wq", "wproj"), (wq, wproj), D, D, w4, x.device)
     s_in, s_out = _split(static_s)
-    out = _attn_half(lib, x, mod, wq, wproj, s_in, s_out, torch.empty_like(x), w4,
+    out = _attn_half(x, mod, (wq,), wproj, s_in, s_out, x.dtype, w4,
                      _attend(lib, batch, n_head, kv_valid, attn), kv=(ck, cv))
     cross_attn_block.launches += 1
     return out
@@ -364,9 +419,9 @@ def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, 
                     attn: str = "bf16"):
     """K8: K4 then K5 on x (B*L, D) bf16 with mods (4, D) f32, x kept in f32
     between the two halves -> (B*L, D) bf16; both halves run the ``attn``
-    MHA. W8 weights. Six launches on a CUDA tensor (eight with
-    ``attn="int8"``): the self proj writes x + proj in f32, the cross AdaLN
-    panel reads it, and the cross proj adds it and rounds once."""
+    MHA. W8 weights. Ten launches on a CUDA tensor (twelve with
+    ``attn="int8"``): the self proj writes x + proj in f32, the cross
+    quantize pass reads it, and the cross proj adds it and rounds once."""
     _check_attn_mode(attn, n_head, x.shape[1])
     if not ik.on_cuda(x, "attn_pair_block"):
         return attn_pair_block_reference(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq,
@@ -381,12 +436,10 @@ def attn_pair_block(x, mods, ck, cv, wq, wk, wv, wproj, wcrossq, wcrossproj, *, 
     _check_weights(("wq", "wk", "wv", "wproj", "wcrossq", "wcrossproj"),
                    (wq, wk, wv, wproj, wcrossq, wcrossproj), D, D, False, x.device)
     s_in, s_out, s2_in, s2_out = _split(static_s, 4)
-    x1 = _attn_half(lib, x, mods[0:2], None, wproj, s_in, s_out,
-                    torch.empty(x.shape, dtype=torch.float32, device=x.device), False,
-                    _attend(lib, batch, n_head, q_valid, attn), qkv=(wq, wk, wv))
-    out = _attn_half(lib, x1, mods[2:4], wcrossq, wcrossproj, s2_in, s2_out,
-                     torch.empty_like(x), False, _attend(lib, batch, n_head, kv_valid, attn),
-                     kv=(ck, cv))
+    x1 = _attn_half(x, mods[0:2], (wq, wk, wv), wproj, s_in, s_out, torch.float32, False,
+                    _attend(lib, batch, n_head, q_valid, attn))
+    out = _attn_half(x1, mods[2:4], (wcrossq,), wcrossproj, s2_in, s2_out, x.dtype, False,
+                     _attend(lib, batch, n_head, kv_valid, attn), kv=(ck, cv))
     attn_pair_block.launches += 1
     return out
 
@@ -479,3 +532,4 @@ mlp_block.launches = 0
 mlp_block_chunked.launches = 0
 mlp_block_streamed.launches = 0
 mha_inline_int8.launches = 0
+quantize_rows.launches = 0

@@ -1,8 +1,8 @@
 """ctypes bindings of ``csrc/int8_block.cu`` (the engine), ``csrc/int8_probe.cu``
 (the T1-T3 probes) and ``csrc/mha_int8.cu``, and the launch helpers that the
 int8 kernel wrappers share: ``quant.fused_quant_dense[_multi]`` (K6),
-``attention.fused_mha`` (K7) and the blocks of ``int8_block`` (K3-K5, K8, K9)
-and their int8 attention (K10); the ablation probes ``mlp_ablate`` (T2) and
+``attention.fused_mha`` (K7) and the blocks of ``int8_block`` (K3-K5, K8, K9),
+their quantize pass and their int8 attention (K10); the ablation probes ``mlp_ablate`` (T2) and
 ``attn_ablate`` (T3) and ``dot.tiled_dot`` (T1) launch the probe library for
 their own configurations and the engine's for the launches they share with
 it; ``fused_gn_conv`` (K11) uses the checks. Nothing here counts launches:
@@ -11,6 +11,7 @@ each wrapper counts its own calls.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple, Union
@@ -21,8 +22,8 @@ import torch
 from ..utils.cuda_build import load_library
 
 __all__ = ["load_kernel", "load_probe_kernel", "load_mha_int8", "workspace", "on_cuda", "check",
-           "check_weight", "check_mha", "dense", "row_amax", "mha", "mha_int8", "MHA_MODES",
-           "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
+           "check_weight", "check_mha", "dense", "row_amax", "quant_rows", "mha", "mha_int8",
+           "MHA_MODES", "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
            "EPI_WRAP8", "EPI_CLIP8", "EPI_SHIFT8", "EF_MID_BF16", "EF_SIG_C", "EF_FAST_SIG",
            "EF_Q_BF16", "EF_RAW_BF16"]
 
@@ -58,6 +59,8 @@ def load_kernel() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
     lib.t2s_int8_row_amax.restype = I
+    lib.t2s_int8_quant_rows.argtypes = [I, P, I, P, I, I, ctypes.c_float, I, P, P, P]
+    lib.t2s_int8_quant_rows.restype = I
     lib.t2s_int8_limits.argtypes = [I]
     lib.t2s_int8_limits.restype = I
     return lib
@@ -148,7 +151,19 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's card: what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object at every launch (the engine makes some 23000
+    launches a request, and its host time is what the request waits on)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _on_card(t: torch.Tensor):
+    """Makes t's card the current device for a launch, unless it already is
+    (entering ``torch.cuda.device`` at every launch costs host time too)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
@@ -177,7 +192,7 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
             wargs += [None] * 4
     f32 = lambda t: int(t is not None and t.dtype == torch.float32)
     ws_ptr = workspace(a.device).data_ptr()
-    with torch.cuda.device(a.device):
+    with _on_card(a):
         err = lib.t2s_int8_dense(amode, _NORM[norm], int(w4), epi, a.data_ptr(), f32(a),
                                  _ptr(mod), _ptr(amax_in), s_static, inv, is_static, len(ws),
                                  *wargs, _ptr(residual), f32(residual), int(gelu), f32(outs[0]),
@@ -191,11 +206,29 @@ def row_amax(lib, a: torch.Tensor) -> torch.Tensor:
     """(M, K) bf16 -> (M,) f32 row max |a| (one warp per row)."""
     M, K = a.shape
     amax = torch.empty((M,), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
+    with _on_card(a):
         err = lib.t2s_int8_row_amax(a.data_ptr(), M, K, amax.data_ptr(), _stream(a))
     if err != 0:
         raise RuntimeError(f"row max kernel launch failed: cudaError {err}")
     return amax
+
+
+def quant_rows(lib, x: torch.Tensor, mod: Optional[torch.Tensor],
+               s: Optional[float]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The quantize pass on checked tensors: x (M, K) bf16 or f32 [-> AdaLN
+    with ``mod`` (2, K) f32] -> (q (M, K) int8, amax (M,) f32 row max |h|, or
+    None under the static scale ``s``)."""
+    M, K = x.shape
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    amax = None if s is not None else torch.empty((M,), dtype=torch.float32, device=x.device)
+    _, inv, is_static = _static_args(s)
+    with _on_card(x):
+        err = lib.t2s_int8_quant_rows(0 if mod is None else 1, x.data_ptr(),
+                                      int(x.dtype == torch.float32), _ptr(mod), M, K, inv,
+                                      is_static, q.data_ptr(), _ptr(amax), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"quantize pass launch failed: cudaError {err}")
+    return q, amax
 
 
 def check_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
@@ -225,7 +258,7 @@ def mha(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_he
     all but the first two take a head width of 64 only."""
     M, D = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _on_card(q):
         err = lib.t2s_int8_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch,
                                M // batch, k.shape[0] // batch, n_head, D // n_head, kv_valid,
                                MHA_MODES[mode], _stream(q))
@@ -248,7 +281,7 @@ def mha_int8(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int,
     sk = torch.empty((Mkv,), dtype=torch.float32, device=dev)
     sv = torch.empty((batch, D), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
+    with _on_card(q):
         err = lib.t2s_mha_int8(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), sq.data_ptr(),
                                sk.data_ptr(), sv.data_ptr(), batch, M // batch, Mkv // batch,

@@ -1,5 +1,5 @@
 #!/bin/bash
-# A/B of the int8 GEMMs against the parent commit, in one call on a card:
+# A/B of the int8 kernels against the parent commit, in one call on a card:
 # for a change that replaces the parent's code, so that the two cannot sit
 # side by side in one tree.
 #
@@ -7,8 +7,10 @@
 #   [AB_OUT=dir] bash text_to_sound_synthesis_torch/tools/ab_parent.sh [SASS_DIFF_ARGS...]   # on the card
 #
 # Builds both trees' kernels (each tree has its own build/), runs the A/B tools
-# parent / change / change / parent (bench_kernel_dot 200; bench_mlp_ablate
-# dots_only w4_static full), then chip_profile.py in the parent and in the
+# parent / change / change / parent ($AB_TOOLS, by default bench_attn_ablate
+# full pair_both: K4 with the bf16 and with the pair MHA; e.g. AB_TOOLS="-m
+# text_to_sound_synthesis_torch.tools.bench_kernel_dot 200" for the GEMMs'
+# tools), then chip_profile.py in the parent and in the
 # change (the full tables go to $AB_OUT/profile_{parent,change}.txt, build/ab
 # by default), and, given arguments, tools.sass_diff with the parent's
 # int8_block.cu as OLD and those arguments after it (e.g. --new
@@ -47,10 +49,12 @@ PY
   )
 }
 
+AB_TOOLS=${AB_TOOLS:--m text_to_sound_synthesis_torch.tools.bench_attn_ablate full pair_both}
+
 tools() {
   echo "=== A/B tools in ${1}"
-  (cd "$1" && timeout 600 python -m text_to_sound_synthesis_torch.tools.bench_kernel_dot 200 &&
-     timeout 600 python -m text_to_sound_synthesis_torch.tools.bench_mlp_ablate dots_only w4_static full)
+  # shellcheck disable=SC2086   # AB_TOOLS is the tool's command line, split on purpose
+  (cd "$1" && timeout 600 python $AB_TOOLS)
 }
 
 echo "=== build: parent"; build "$PARENT"
@@ -60,7 +64,7 @@ for side in parent change; do
   dir=$([ "$side" = parent ] && echo "$PARENT" || echo .)
   echo "=== chip_profile.py: ${side}"
   (cd "$dir" && timeout 900 python3 chip_profile.py) > "$OUT/profile_${side}.txt" 2>&1
-  grep -A24 "^\[W4A8 static\]" "$OUT/profile_${side}.txt"
+  grep -A32 "^\[W4A8 static\]" "$OUT/profile_${side}.txt"
 done
 if [ $# -gt 0 ]; then
   echo "=== sass_diff"

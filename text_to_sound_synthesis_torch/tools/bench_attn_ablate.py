@@ -18,8 +18,8 @@ name runs on this card:
 | full, lib_base, lib_static, group16, group4, dots_first, pair_qmask, rows{n}[_static][_qmask][_v<MB>], qkv_fused[_static], any other name | K4 (per-row softmax; query-side masks and head groups are the same function up to the order of f32 sums) | schedule-only on this card: K4 |
 
 ``_static`` means static scales (0.05, 0.05). ``qkv_fused``'s one (D, 3D)
-dot is what K4's first launch already is on this card: one panel GEMM
-launch for the three weights. The JAX tool's ``no_scores`` raises for more
+dot is what K4's q/k/v launch already is on this card: one GEMM launch for
+the three weights, after the quantize pass. The JAX tool's ``no_scores`` raises for more
 than one head per softmax group (a broadcast that only fits one); this runs
 what it computes at one. Prints the card's name and power limit; without a
 card it exits nonzero.
