@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Profile one warm request of each path of the PyTorch port on a CUDA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [paths...]
 
 Builds the flagship model as ``chip_smoke.py`` does (seeded random weights,
 bf16, batch 8, 100 steps, ``top0.85r``), then for the bf16 path
-(``generate``), the W4A8 static-scale engine (``quantize_for_serving(4)``
--> ``calibrate_serving_engine`` -> ``generate_int8``; with its default
-pair-packed MHA and under ``T2S_ATTN_MHA=base``) and the W8A8 dynamic
-engine (``quantize_for_serving()``) on its block path and on its per-dense
-path (``generate_int8(impl="pallas_dense")``), the W4A8 engine with the int8
-MHA (``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``) and the W4A8 engine's long-form
-request (``generate_long``, 2120 frames, 24 sampler rows): one warm-up request,
+(``generate``; path name ``bf16``), the W4A8 static-scale engine
+(``quantize_for_serving(4)`` -> ``calibrate_serving_engine`` ->
+``generate_int8``; ``w4``: with its default pair-packed MHA and under
+``T2S_ATTN_MHA=base``) and the W8A8 dynamic engine
+(``quantize_for_serving()``; ``w8``) on its block path, on its per-dense path
+(``generate_int8(impl="pallas_dense")``) and under ``T2S_ATTN_PAIR=1
+T2S_MLP_IMPL=chunked`` (K8, K9), the W4A8 engine with the int8 MHA
+(``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``; ``int8mha``) and the W4A8 engine's
+long-form request (``generate_long``, 2120 frames, 24 sampler rows;
+``long``), then K11 (``k11``): all of them, or the paths named. One warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
 runs, the same way: five ``gn_swish_conv`` calls at each of the flagship
@@ -54,7 +57,14 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
     print(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=90))
 
 
-def main() -> int:
+PATHS = ("bf16", "w4", "w8", "int8mha", "long", "k11")
+
+
+def main(argv=None) -> int:
+    paths = set(sys.argv[1:] if argv is None else argv) or set(PATHS)
+    if not paths <= set(PATHS):
+        print(f"error: paths are {', '.join(PATHS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("error: no CUDA card visible to torch", file=sys.stderr)
         return 1
@@ -69,22 +79,34 @@ def main() -> int:
     model = build_model(cfg, device=dev, seed=cs.SEED)
     cond = cs.caption_ids(np.random.default_rng(cs.SEED)).to(dev)
     gen = lambda: torch.Generator(dev).manual_seed(cs.SEED)
-    profile("bf16", lambda: model.generate(gen(), cond, sample_type="top0.85r"))
-    qp = model.quantize_for_serving(weight_bits=4)
-    model.calibrate_serving_engine(qp, gen(), cond)
-    profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
-    with cs.switches(T2S_ATTN_MHA="base"):
-        profile("W4A8 static, bf16 MHA (T2S_ATTN_MHA=base)",
-                lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
-    qp8 = model.quantize_for_serving()
-    for impl in ("pallas", "pallas_dense"):
-        profile(f"W8A8 dynamic {impl}",
-                lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r", impl=impl))
-    with cs.switches(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base"):
-        profile("W4A8 static, int8 MHA",
-                lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
-    profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
-            lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))
+    if "bf16" in paths:
+        profile("bf16", lambda: model.generate(gen(), cond, sample_type="top0.85r"))
+    if paths & {"w4", "int8mha", "long"}:
+        qp = model.quantize_for_serving(weight_bits=4)
+        model.calibrate_serving_engine(qp, gen(), cond)
+    if "w4" in paths:
+        profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+        with cs.switches(T2S_ATTN_MHA="base"):
+            profile("W4A8 static, bf16 MHA (T2S_ATTN_MHA=base)",
+                    lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+    if "w8" in paths:
+        qp8 = model.quantize_for_serving()
+        for impl in ("pallas", "pallas_dense"):
+            profile(f"W8A8 dynamic {impl}",
+                    lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r",
+                                                impl=impl))
+        with cs.switches(T2S_ATTN_PAIR="1", T2S_MLP_IMPL="chunked"):
+            profile("W8A8 dynamic pallas, T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked",
+                    lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r"))
+    if "int8mha" in paths:
+        with cs.switches(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base"):
+            profile("W4A8 static, int8 MHA",
+                    lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+    if "long" in paths:
+        profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
+                lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))
+    if "k11" not in paths:
+        return 0
 
     from text_to_sound_synthesis_torch.ops.fused_gn_conv import gn_swish_conv
     from text_to_sound_synthesis_torch.tools import bench_gn_conv as gnt

@@ -26,12 +26,18 @@ Phases (any failed check exits nonzero, and no result line is printed):
              bf16 MHA must fail); their quantize pass bit for bit against its
              plain version on the CPU (AdaLN on rows with exact statistics,
              no norm on Gaussian rows; AdaLN on Gaussian rows within one int8
-             step on QUANT_SHARE of the values); K2 against
+             step on QUANT_SHARE of the values); the wide quantize pass in
+             front of K6's fc2 and the MLP middle of K3 and K9 (bf16 and f32
+             rows of 4096, the row's own max, given maxima at 1, 4 and 16
+             chunks, static) bit for bit against its plain version on the
+             CPU; K2 against
              its plain version and against K1 on the same logits; then, W8,
              dynamic and static, K6 at the per-dense path's six sites and
-             single, K7 (the Hopper MHA, mha_sm90.cuh) at 265 and 77 keys with
+             single (each a quantize pass and one int8-A-mode dot: the pass
+             counted), K7 (the Hopper MHA, mha_sm90.cuh) at 265 and 77 keys with
              and without masked tails, K8
-             full and masked, K9 at 4 and 16 chunks; then K10, the int8
+             full and masked, K9 at 4 and 16 chunks (fc1, the wide pass, the
+             chunked fc2); then K10, the int8
              MHA, the bf16 MHA with its softmax divide folded, and the
              pair-packed MHA, at 265
              and 77 keys with and without masked tails (their v four times
@@ -79,20 +85,23 @@ Phases (any failed check exits nonzero, and no result line is printed):
              default switches and under ``T2S_ATTN_MHA=base`` (the bf16 MHA),
              with the same output checks and exact launch counts (K4 = K5 =
              K3 = 19 x 100, K2 = 100, the quantize pass 4 x 19 x 100, every
-             other kernel, K11 and T1-T3 too, 0 per request).
+             other kernel, the wide pass, K11 and T1-T3 too, 0 per request).
 7. W8      — the W8A8 dynamic engine, ``quantize_for_serving()``: three steps
              of the per-dense path (``impl="pallas_dense"``) and three of
              ``T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked``, each kernel call against
              its twin as in phase 6; then seven batch-8, 100-step requests to a
              wav, in turns: the block path twice, the per-dense path twice
-             (K6 multi = 6 x 19 x 100, K7 = 2 x 19 x 100), pair + chunked
+             (K6 multi = 6 x 19 x 100, K7 = 2 x 19 x 100, the quantize pass 5
+             x 19 x 100), pair + chunked
              twice (K8 = K9 chunked = 19 x 100) and pair + streamed once
-             (K8 = K9 streamed = 19 x 100), K2 = 100 each, every other count 0.
+             (K8 = K9 streamed = 19 x 100), K2 = 100 each, the wide pass 19 x
+             100 each (K3's, K6's fc2, K9's middle), every other count 0.
 8. int8 attention — the W4A8 engine of phase 6 under ``T2S_ATTN_INT8=1
              T2S_ATTN_MHA=base``: three steps checked as in phase 6, then two
              requests (K10 = 2 x 19 x 100, K4 = K5 = K3 = 19 x 100, K2 = 100);
              one W8 request of phase 7's engine under ``T2S_ATTN_PAIR=1
-             T2S_ATTN_INT8=1`` (K8 = K3 = 19 x 100, K10 = 2 x 19 x 100).
+             T2S_ATTN_INT8=1`` (K8 = K3 = 19 x 100, K10 = 2 x 19 x 100, the
+             wide pass 19 x 100).
 9. long    — one W4A8 ``generate_long`` request, batch 8, 2120 frames: 24
              sampler rows in one sampler call (K2 = 100, K4 = K5 = K3 = 19 x
              100), a finite (8, 80, 2120, 1) mel whose cross-fade agrees with
@@ -609,6 +618,41 @@ def phase_quant_pass(dev):
     return float(worst), ms, plain_ms
 
 
+def phase_wide_pass(dev):
+    """Phase 4 (cont.): the wide quantize pass against its plain version at
+    the flagship's MLP middle (2120 x 4096): bf16 rows with their own max
+    (K6's fc2 input), f32 rows with given per-(row, chunk) maxima at 1, 4 and
+    16 chunks (K3's and K9's middle; the maxima those of the rows' chunks),
+    and a static scale; its int8 rows and maxima equal those of the plain
+    version run on the CPU bit for bit (no statistics: only the row scale's
+    divide, correctly rounded on both). Returns (max |d| of the int8 values,
+    ms, plain ms), the times at K9's served call (f32, 4 chunks)."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    M, F = BATCH * L_TOK, D_MLP
+    u = torch.randn((M, F), generator=gen, device=dev) * 3
+    cases = {"bf16, own max": (u.bfloat16(), None, None)}
+    for n in (1, 4, 16):
+        cases[f"f32, {n} chunks"] = (u, u.abs().reshape(M, n, -1).amax(-1), None)
+    cases["f32, static"] = (u, None, 0.03)
+    for label, (x, amax, s) in cases.items():
+        q, got = quant.quantize_wide(x, static_s=s, amax=amax)
+        torch.cuda.synchronize()
+        wq, want = quant.quantize_wide_reference(x.cpu(), static_s=s,
+                                                 amax=None if amax is None else amax.cpu())
+        diff = int((q.cpu() != wq).sum())
+        check(diff == 0, f"wide pass {label}: {diff} int8 values differ")
+        check((got is None) == (want is None) and (want is None or torch.equal(got.cpu(), want)),
+              f"wide pass {label}: row maxima differ")
+        print(f"  wide quantize pass {label}: int8 values equal ({q.numel()}), maxima equal")
+    x, amax, _ = cases["f32, 4 chunks"]
+    ms, plain_ms = time_pair("wide quantize pass, f32, 4 chunks",
+                             lambda: quant.quantize_wide(x, amax=amax),
+                             lambda: quant.quantize_wide_reference(x, amax=amax))
+    return 0.0, ms, plain_ms
+
+
 def phase_head(fs, dd, dev):
     """Phase 4 (cont.): K2 against its plain version, and against K1 on the
     same logits. Returns (max_abs_err, ms, plain_ms)."""
@@ -759,6 +803,22 @@ def phase_schedules(dev):
         kw = dict(batch=BATCH, n_head=N_HEAD, kv_valid=valid)
         run("fused_mha", label, lambda: attn.fused_mha(*qkv, **kw),
             lambda: attn.mha_reference(*qkv, **kw))
+    # a K6 call: one quantize pass (the wide one at fc2's K = 4096) and one dot;
+    # a dynamic K9 call: fc1, the wide pass over its middle, the chunked fc2
+    for st in (False, True):
+        for site, (args, kw) in dense_sites(st).items():
+            rows, wide = quant.quantize_rows.launches, quant.quantize_wide.launches
+            multi(*args, **kw)
+            got = (quant.quantize_rows.launches - rows, quant.quantize_wide.launches - wide)
+            check(got == ((0, 1) if site == "fc2" else (1, 0)),
+                  f"fused_quant_dense_multi {site}: (row, wide) quantize passes {got}")
+        for kern, n in ((ib.mlp_block_chunked, 4), (ib.mlp_block_streamed, 16)):
+            wide = quant.quantize_wide.launches
+            chunked(kern, n, st)[0]()
+            check(quant.quantize_wide.launches - wide == (0 if st else 1),
+                  f"{kern.__name__}: {quant.quantize_wide.launches - wide} wide passes a call")
+    print("  launches a call: K6 a quantize pass (the wide one at K = 4096) and a dot; K9 fc1, "
+          "the wide pass (dynamic scales), the chunked fc2: the passes counted")
 
     times = {}
     sites = dense_sites(False)
@@ -1388,7 +1448,7 @@ def _counters():
             "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed,
             "K10": ib.mha_inline_int8, "K11": gn.gn_swish_conv, "T1": dot.tiled_dot,
             "T2": mlp_ablate.mlp_variant, "T3": attn_ablate.attn_variant,
-            "Kq": ib.quantize_rows}
+            "Kq": quant.quantize_rows, "Kw": quant.quantize_wide}
 
 
 def reset_counts():
@@ -1401,9 +1461,9 @@ def read_counts():
 
 
 def expected_counts(**per_request):
-    """Launches of one request: the given counts, the attention blocks'
-    quantize passes (two a K4 or K5 call, four a K8 call), every other
-    kernel 0."""
+    """Launches of one request: the given counts, the row quantize passes
+    (unless given: two a K4 or K5 call, four a K8 call), every other kernel
+    0 (the wide pass too, unless given)."""
     per_request.setdefault("Kq", 2 * (per_request.get("K4", 0) + per_request.get("K5", 0))
                            + 4 * per_request.get("K8", 0))
     return {k: per_request.get(k, 0) for k in _counters()}
@@ -1421,12 +1481,16 @@ def phase_w8(model, fs, dd, vocoder, cond_tokens, dev):
     with switches(**pair_chunked):
         check_int8_loop(model, qp8, fs, dd, cond_tokens, dev, "pair_chunked")
     # path: (switches, impl, launches per request)
-    paths = {"blocks": ({}, None, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)),
+    # under dynamic scales one wide pass a K3 or K9 call (its middle), and
+    # one a layer of the per-dense path (fc2's input, 4096 wide); each of
+    # the other five K6 calls a row pass
+    paths = {"blocks": ({}, None, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kw=LN)),
              "per-dense": ({}, "pallas_dense",
-                           expected_counts(K2=N_STEPS, K6m=6 * LN, K7=2 * LN)),
-             "pair+chunked": (pair_chunked, None, expected_counts(K2=N_STEPS, K8=LN, K9c=LN)),
+                           expected_counts(K2=N_STEPS, K6m=6 * LN, K7=2 * LN, Kq=5 * LN, Kw=LN)),
+             "pair+chunked": (pair_chunked, None,
+                              expected_counts(K2=N_STEPS, K8=LN, K9c=LN, Kw=LN)),
              "pair+streamed": (dict(T2S_ATTN_PAIR="1", T2S_MLP_IMPL="streamed"), None,
-                               expected_counts(K2=N_STEPS, K8=LN, K9s=LN))}
+                               expected_counts(K2=N_STEPS, K8=LN, K9s=LN, Kw=LN))}
     # in turns, so that a drift of the card's clock reaches every path alike
     order = ("blocks", "per-dense", "pair+chunked", "pair+streamed", "pair+chunked", "per-dense",
              "blocks")
@@ -1460,7 +1524,7 @@ def phase_attention_serving(model, qp, qp8, fs, dd, vocoder, cond_tokens, dev):
     paths = {"W4A8 static": (qp, base, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN,
                                                        K10=2 * LN)),
              "W8 dynamic pair": (qp8, dict(T2S_ATTN_PAIR="1", T2S_ATTN_INT8="1"),
-                                 expected_counts(K2=N_STEPS, K3=LN, K8=LN, K10=2 * LN))}
+                                 expected_counts(K2=N_STEPS, K3=LN, K8=LN, K10=2 * LN, Kw=LN))}
     times, total = {p: [] for p in paths}, {k: 0 for k in _counters()}
     for i, path in enumerate(("W4A8 static", "W8 dynamic pair", "W4A8 static")):
         engine, env, want = paths[path]
@@ -1634,6 +1698,9 @@ def kernel_bounds():
         "fused_mha": _mean_bound(mha(L, "bf16", lambda k: 0), mha(S, "bf16", lambda k: 0)),
         # the quantize pass, AdaLN, static: x in, int8 out, the LayerNorm and quantize
         "quantize_rows": _bound(act(M, D) + 8 * D + M * D, f32=norm),
+        # the wide pass at K9's middle: f32 rows and 4 maxima a row in, int8
+        # out; a divide, a round and a max per value (3 f32 operations)
+        "quantize_wide": _bound(4 * M * F + 16 * M + M * F, f32=3 * M * F),
         "attn_pair_block": _bound(2 * act(M, D) + 16 * D + 2 * act(Ms, D) + 6 * w8(D, D),
                                   int8=12 * M * D * D, bf16=mma(L) + mma(S),
                                   f32=2 * norm + soft(L) + soft(S) + 8 * M * D),
@@ -1696,6 +1763,7 @@ def main() -> int:
     print("[4 K2-K11, T1-T3 vs plain]")
     block_res = phase_blocks(dev)
     quant_res = phase_quant_pass(dev)
+    wide_res = phase_wide_pass(dev)
     head_res = phase_head(fs, dd, dev)
     sched_res, k6_launches, library = phase_schedules(dev)
     att_res = phase_int8_attention(dev)
@@ -1820,8 +1888,10 @@ def main() -> int:
              sched_res["fused_quant_dense"]),
             ("fused_quant_dense_multi", "int8_block.cu", tpu + "quant.py:260", w8_counts["K6m"],
              sched_res["fused_quant_dense_multi"]),
-            ("quantize_rows", "int8_block.cu", tpu + "int8_block.py:375", int8_counts["Kq"],
+            ("quantize_rows", "int8_quant.cuh", tpu + "int8_block.py:375", int8_counts["Kq"],
              quant_res),
+            ("quantize_wide", "int8_quant.cuh", tpu + "int8_block.py:687", w8_counts["Kw"],
+             wide_res),
             ("fused_mha", "mha_sm90.cuh", tpu + "attention.py:56", w8_counts["K7"],
              sched_res["fused_mha"]),
             ("attn_pair_block", "int8_block.cu", tpu + "int8_block.py:530", w8_counts["K8"],

@@ -94,12 +94,15 @@ def test_int8_block_kernels_match_plain(cuda, shape, w4, static):
     ]
     for kernel, plain, args, kw in cases:
         launches, passes = kernel.launches, ib.quantize_rows.launches
+        wide = ib.quantize_wide.launches
         got = kernel(*args, static_s=ss, w4=w4, **kw)
         want = plain(*args, static_s=ss, w4=w4, **kw)
         torch.cuda.synchronize()
         assert kernel.launches == launches + 1
         # the attention blocks' two quantize passes (their AdaLN, their proj input)
         assert ib.quantize_rows.launches == passes + (0 if kernel is ib.mlp_block else 2)
+        # K3's dynamic middle: the wide pass between fc1 and fc2
+        assert ib.quantize_wide.launches == wide + (kernel is ib.mlp_block and not static)
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
         if static and kernel is ib.mlp_block:
@@ -158,9 +161,14 @@ def test_per_dense_kernels_match_plain(cuda, shape, static):
              ((x, d["mlp"][:1]), dict(norm="ln", mod=d["ln"], act="gelu2", s_static=s(0.035))),
              ((h, d["mlp"][1:]), dict(residual=x, s_static=s(0.01)))]
     for args, kw in sites:
-        launches = multi.launches
+        launches, rows, wide = multi.launches, quant.quantize_rows.launches, quant.quantize_wide.launches
         got = multi(*args, **kw)
         _check_kernel(multi, got, quant.quant_dense_multi_reference(*args, **kw), launches)
+        # one quantize pass a call: the wide one past the row pass's 1024
+        # (fc2 at the flagship's K = 4096), the row pass else
+        K = args[0].shape[1]
+        assert (quant.quantize_rows.launches - rows, quant.quantize_wide.launches - wide) == (
+            (0, 1) if K > quant.ROW_PASS_K else (1, 0))
     for k, v, valid in ((x, h[:, :D].contiguous(), L - 3), (d["ck"], d["cv"], S - 4)):
         kw = dict(batch=B, n_head=H, kv_valid=valid)
         launches = attn.fused_mha.launches
@@ -210,8 +218,10 @@ def test_pair_and_chunked_kernels_match_plain(cuda, shape, static):
     assert ib.quantize_rows.launches == passes + 4
     ss = (0.035, 0.012) if static else None
     for kernel, n_chunks in ((ib.mlp_block_chunked, 4), (ib.mlp_block_streamed, min(16, Dh // 128))):
-        launches = kernel.launches
+        launches, wide = kernel.launches, ib.quantize_wide.launches
         got = kernel(d["x"], d["ln"], *d["mlp"], n_chunks=n_chunks, static_s=ss)
+        torch.cuda.synchronize()
+        assert ib.quantize_wide.launches == wide + (not static)
         want = ib.mlp_chunked_reference(d["x"], d["ln"], *d["mlp"], n_chunks=n_chunks,
                                         static_s=ss)
         _check_kernel(kernel, got, want, launches)
@@ -603,7 +613,7 @@ def test_tiled_dot_kernel_matches_plain(cuda, case):
 # ---------------------------------------------------------------------------
 # The Hopper mainloop (csrc/int8_gemm_sm90.cuh) at ragged and edge shapes:
 # K3's two launches (fc1 on the LN panel, the static fc2 in the int8 A mode),
-# T1's int8 dots and T2's fc1 epilogues. Integer sums are exact, so every
+# T1's int8 dots and T2's fc1 epilogues (K6's and K9's launches further down). Integer sums are exact, so every
 # launch that is bit-equal to its twin at the flagship is so here too.
 # ---------------------------------------------------------------------------
 
@@ -618,7 +628,7 @@ def _mlp_inputs(dev, M, D, Dh, w4, seed=11):
     whatever order the sums run in, so the kernel's LayerNorm and the twin's
     agree bit for bit and no int8 flip can hide or fake a difference of the
     GEMM (on Gaussian rows an ulp of the statistics moves a value across a .5
-    step now and then, in the mma.sync mainloop as in this one). The LN
+    step now and then, whatever the mainloop). The LN
     affine, the weights and biases are Gaussian."""
     from text_to_sound_synthesis_torch.ops.quant import quantize_weight, quantize_weight_w4
 
@@ -752,6 +762,34 @@ def test_sm90_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         D.tiled_dot(x, D.k_contiguous(torch.zeros((128, 192), dtype=torch.int8, device=cuda)),
                     torch.int32)
+    # the quantize passes: the row pass's width (a multiple of 128, at most
+    # 1024) and its f32 rows (AdaLN only); the wide pass's width and chunks (a
+    # multiple of 4); K6 with a norm past the row pass, or any K not a
+    # multiple of 64; K9's chunks narrower than 128
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import quant
+
+    mod = lambda K: torch.zeros((2, K), device=cuda)
+    for K in (192, 2048):
+        with pytest.raises(ValueError):
+            quant.quantize_rows(torch.zeros((8, K), dtype=torch.bfloat16, device=cuda), mod(K))
+    with pytest.raises(TypeError):
+        quant.quantize_rows(torch.zeros((8, 256), device=cuda), mod(256), norm="ln")
+    with pytest.raises(ValueError):
+        quant.quantize_wide(torch.zeros((8, 130), device=cuda))
+    with pytest.raises(ValueError):
+        quant.quantize_wide(torch.zeros((8, 24), device=cuda),   # chunks of 6
+                            amax=torch.ones((8, 4), device=cuda))
+    d = _block_inputs(cuda, SHAPES["small"], False)
+    w = quant.quantize_weight(torch.zeros((128, 2048), device=cuda))
+    with pytest.raises(ValueError):
+        quant.fused_quant_dense(torch.zeros((8, 2048), dtype=torch.bfloat16, device=cuda), w,
+                                norm="ln", mod=mod(2048))
+    w = quant.quantize_weight(torch.zeros((128, 96), device=cuda))
+    with pytest.raises(ValueError):
+        quant.fused_quant_dense(torch.zeros((8, 96), dtype=torch.bfloat16, device=cuda), w)
+    with pytest.raises(ValueError):
+        ib.mlp_block_chunked(d["x"], d["ln"], *d["mlp"], n_chunks=8)
 
 
 # ---------------------------------------------------------------------------
@@ -838,7 +876,7 @@ def _pm_rows(dev, M, K, g):
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 65, 2120])
 @pytest.mark.parametrize("K", [128, 1024])
-@pytest.mark.parametrize("case", ["adaln bf16", "adaln f32", "none bf16"])
+@pytest.mark.parametrize("case", ["adaln bf16", "adaln f32", "none bf16", "ln bf16"])
 @pytest.mark.parametrize("static", [False, True])
 def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
     """The quantize pass against its plain version run on the CPU, where the
@@ -853,18 +891,18 @@ def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
     norm, dtype = case.split()
     dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
     g = torch.Generator(cuda).manual_seed(M + K)
-    mod = torch.randn((2, K), generator=g, device=cuda) * 0.2 if norm == "adaln" else None
+    mod = torch.randn((2, K), generator=g, device=cuda) * 0.2 if norm != "none" else None
     s = 0.035 if static else None
-    xs = [_pm_rows(cuda, M, K, g)] if norm == "adaln" else []
+    kw = dict(static_s=s, norm="ln" if norm == "ln" else "adaln")
+    xs = [_pm_rows(cuda, M, K, g)] if norm != "none" else []
     xs.append(torch.randn((M, K), generator=g, device=cuda) * 2)
     for i, x in enumerate(xs):
         x = x.to(dtype)
         launches = ib.quantize_rows.launches
-        q, amax = ib.quantize_rows(x, mod, static_s=s)
+        q, amax = ib.quantize_rows(x, mod, **kw)
         torch.cuda.synchronize()
         assert ib.quantize_rows.launches == launches + 1
-        wq, wamax = ib.quantize_rows_reference(x.cpu(), None if mod is None else mod.cpu(),
-                                               static_s=s)
+        wq, wamax = ib.quantize_rows_reference(x.cpu(), None if mod is None else mod.cpu(), **kw)
         assert q.dtype == torch.int8 and q.shape == (M, K)
         assert (amax is None) == static
         exact = norm == "none" or i == 0
@@ -874,3 +912,116 @@ def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
         else:
             d = (q.cpu().int() - wq.int()).abs()
             assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-4 * d.numel()
+
+
+# ---------------------------------------------------------------------------
+# K6 and K9 on the Hopper mainloop: the wide quantize pass, every int8 A mode
+# epilogue K6 takes, and K9's chunked epilogue, each against its plain
+# version bit for bit. The row scales the plain versions use are taken on the
+# CPU, whose divides are correctly rounded as the kernels' are (on the card
+# PyTorch divides by a Python number through its reciprocal).
+# ---------------------------------------------------------------------------
+
+def _amax_rows(dev, M, nch, g):
+    """(M, nch) row maxima: powers of two and Gaussian magnitudes, some below
+    the 1e-8 floor."""
+    a = torch.rand((M, nch), generator=g, device=dev) * 4
+    a[::7] = 2.0 ** torch.randint(-3, 4, (a[::7].shape[0], nch), generator=g, device=dev).float()
+    a[::11] = 1e-9
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 65, 2120])
+@pytest.mark.parametrize("K", [1024, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["own max", "nch 1", "nch 4", "nch 16", "static"])
+def test_sm90_quantize_wide_matches_plain_bitwise(cuda, M, K, dtype, mode):
+    """The wide pass against its plain version run on the CPU: the row's own
+    max (K6's fc2), given per-(row, chunk) maxima at 1, 4 and 16 chunks (the
+    MLP middle of K3 and K9), a static scale; int8 rows and maxima equal bit
+    for bit; one launch a call."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    g = torch.Generator(cuda).manual_seed(M + K)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(dtype)
+    nch = int(mode.split()[1]) if mode.startswith("nch") else None
+    amax = None if nch is None else _amax_rows(cuda, M, nch, g)
+    if nch is not None:   # the maxima of the chunks themselves where they are not tiny
+        own = x.float().abs().reshape(M, nch, -1).amax(-1)
+        amax = torch.where(torch.arange(M, device=cuda)[:, None] % 3 == 0, own, amax)
+    s = 0.035 if mode == "static" else None
+    launches = quant.quantize_wide.launches
+    q, got_amax = quant.quantize_wide(x, static_s=s, amax=amax)
+    torch.cuda.synchronize()
+    assert quant.quantize_wide.launches == launches + 1
+    wq, wamax = quant.quantize_wide_reference(x.cpu(), static_s=s,
+                                              amax=None if amax is None else amax.cpu())
+    assert q.dtype == torch.int8 and q.shape == (M, K)
+    assert torch.equal(q.cpu(), wq), int((q.cpu() != wq).sum())
+    assert (got_amax is None) == (wamax is None)
+    if wamax is not None:
+        assert torch.equal(got_amax.cpu(), wamax)
+
+
+# every (act, residual, out) combination K6 takes
+K6_EPILOGUES = [(act, res, out) for act in ("none", "gelu2") for res in (None, "bf16", "f32")
+                for out in ("bf16", "f32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SM90_ROWS)
+@pytest.mark.parametrize("epi", K6_EPILOGUES, ids=lambda e: "-".join(map(str, e)))
+@pytest.mark.parametrize("static", [False, True])
+def test_sm90_int8_dense_epilogues_match_plain_bitwise(cuda, M, epi, static):
+    """K6's dot launch (the int8 A mode, ``quant._dense_int8``) in each of its
+    epilogue instantiations, at ragged rows, two weights sharing A (K 1024, N
+    512), against ``_dense_int8_reference`` on the card with the row scales
+    taken on the CPU: equal bit for bit; counters back at zero."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    act, res, out = epi
+    g = torch.Generator(cuda).manual_seed(M)
+    K, N = 1024, 512
+    qa = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    amax = None if static else _amax_rows(cuda, M, 1, g)[:, 0].contiguous()
+    ws = [quant.quantize_weight(torch.randn((N, K), generator=g, device=cuda) * 0.03,
+                                torch.randn(N, generator=g, device=cuda) * 0.05) for _ in range(2)]
+    residual = None if res is None else torch.randn((M, N), generator=g, device=cuda).to(
+        torch.bfloat16 if res == "bf16" else torch.float32)
+    kw = dict(residual=residual, out_dtype=torch.bfloat16 if out == "bf16" else torch.float32,
+              gelu=act == "gelu2")
+    got = quant._dense_int8(qa, amax, ws, 0.035 if static else None, False, **kw)
+    s = quant._row_scale(None if static else amax.cpu(), 0.035)
+    want = quant._dense_int8_reference(qa, s if static else s.to(cuda), ws, False, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), int((a != b).sum())
+    assert _counters_zero(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", SM90_ROWS)
+@pytest.mark.parametrize("nch", [1, 4, 16])
+@pytest.mark.parametrize("static", [False, True])
+def test_sm90_chunked_epilogue_matches_plain_bitwise(cuda, M, nch, static):
+    """K9's fc2 (the chunked epilogue, data-parallel) at 1, 4 and 16 chunks
+    of K 4096 (N 1024: at 2120 rows 136 tiles), against
+    ``_dense_int8_reference`` on the card with the per-(row, chunk) scales
+    taken on the CPU: the f32 flushes in the twin's order, equal bit for bit."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    g = torch.Generator(cuda).manual_seed(M + nch)
+    K, N = 4096, 1024
+    qa = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+    amax = None if static else _amax_rows(cuda, M, nch, g)
+    w = quant.quantize_weight(torch.randn((N, K), generator=g, device=cuda) * 0.015,
+                              torch.randn(N, generator=g, device=cuda) * 0.05)
+    x = torch.randn((M, N), generator=g, device=cuda).bfloat16()
+    (got,) = quant._dense_int8(qa, amax, (w,), 0.012 if static else None, False, residual=x,
+                               n_chunks=nch)
+    s = quant._row_scale(None if static else amax.cpu(), 0.012)
+    (want,) = quant._dense_int8_reference(qa, s if static else s.to(cuda), (w,), False,
+                                          residual=x, n_chunks=nch)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want), int((got != want).sum())

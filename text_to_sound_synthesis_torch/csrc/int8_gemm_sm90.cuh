@@ -1,20 +1,20 @@
 // The Hopper mainloop of the engine's int8 GEMM: wgmma fed by a TMA ring.
 //
-// It runs the launches that int8_block.cu's and int8_probe.cu's dispatch
-// tables send to `sm90::launch`: K3's fc1 on the LN panel and its static fc2
-// in the int8 A mode, K4's, K5's and K8's dots in the int8 A mode (behind
-// int8_block.cu's quantize pass), T2's fc1 configurations and dots_only's
-// fc2, and T1's int8 dots. Each launch computes what the mma.sync mainloop
-// (int8_gemm_mma.cuh) computes for the same template values: the same exact
-// int32 sums, the same panel arithmetic (build_panel's, row by row), the same
-// epilogue arithmetic in the same order, so a launch that was bit-equal to its
-// plain twin stays so.
+// It runs every launch that int8_block.cu's and int8_probe.cu's dispatch
+// tables send to `sm90::launch`: K3's fc1 on the LN panel and its fc2 in the
+// int8 A mode; K4's, K5's, K6's and K8's dots and K9's chunked fc2 in the int8
+// A mode, each behind a quantize pass (int8_quant.cuh); T2's fc1
+// configurations and its fc2s, T3's dots, and T1's int8 dots. The panel keeps
+// the plain twins' arithmetic: exact int32 sums, the LayerNorm and quantize
+// row by row with the _rn intrinsics, the epilogue's operations in the twins'
+// order, so every launch is bit-equal to its plain twin wherever the f32
+// statistics are.
 //
 // What bounds it on the H100. K3's two dots at the flagship (2120 rows, 1024
 // -> 4096 -> 1024) are 17.8 GOP each: 9 us at the int8 peak (1979 TOP/s),
 // while the weights (2-4 MB) and activations stay in the 50 MB L2. So the
-// products bound it, and the mma.sync mainloop reached 6-13 % of that peak:
-// 64 x 128 tiles of mma.sync.m16n8k32 from 32-bit shared-memory loads, a
+// products bound it, and the retired mma.sync mainloop reached 6-13 % of that
+// peak: 64 x 128 tiles of mma.sync.m16n8k32 from 32-bit shared-memory loads, a
 // two-stage cp.async ring of 64-byte K slices, loads issued by the compute
 // warps. Here:
 //   - a 128 x 128 output tile per block, two consumer warpgroups of 64 rows,
@@ -39,6 +39,11 @@
 //     adds its steps to the tile's counter; the one that completes the count
 //     adds the others' slots (integer sums: any order gives the same bits) and
 //     runs the epilogue. Slots need no zeroing; the finisher resets the counter.
+//   - the chunked epilogue (K9's fc2): each K chunk's int32 sums are flushed
+//     into an f32 accumulator at the chunk's last step, y += acc_c * (s_c *
+//     scale), from the residual, in chunk order; f32 sums do not add in any
+//     order, so these launches run data-parallel (whole tiles, a persistent
+//     grid of min(SMs, tiles) blocks), no tile split.
 // Measured on the H100 (PERF.md): a build without the products ran as
 // long, so the tensor cores wait on the rest, and three things set the pace. The epilogue: the fragment's own 2- to 8-byte stores, 8 rows
 // each, cost ~2000 transactions a tile, so the outputs (and a residual) pass
@@ -71,9 +76,128 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "int8_gemm_mma.cuh"
+#include "int8_common.cuh"
 
 namespace {
+
+using namespace t2s_int8;
+
+constexpr int kMaxPanelK = 1024;   // panel rows live in registers while built
+constexpr int kNMultiple = 128;    // output widths: whole 128-wide tiles
+constexpr int kKMultiple = 64;     // stored bytes of a weight row: whole TMA boxes of W4
+
+enum AMode { kPanel = 0, kInt8 = 2 };
+// kEpiStore: [GELU2] [+ residual] -> bf16 or f32 (and the row max |y| per N
+// chunk when amax_out is set); kEpiGeluInt8: GELU2 quantized to int8;
+// kEpiChunked: the K dimension in nch chunks, each chunk's int32 sums flushed
+// with its own row scale into an f32 accumulator that starts at the residual,
+// then + bias -> bf16 or f32; kEpiRaw (T1, the bare dot probe): the int32
+// sums stored as they are, or converted to f32.
+// The T2 probe's fc1 epilogues with an int8 output: kEpiWrap8 (dots_only), the
+// int32 sums wrapped to int8 (their low byte); kEpiClip8 (no_quant_mid), the
+// dequant [GELU2] clipped to +-127 and truncated; kEpiShift8 (no_deq_mid),
+// clip(sum >> 7, +-127). The last two also store the panel's row max |h| in
+// amax_out: fc2 takes the input's row scale for the middle's.
+enum Epi { kEpiStore = 0, kEpiGeluInt8 = 1, kEpiChunked = 2, kEpiRaw = 3, kEpiWrap8 = 4,
+           kEpiClip8 = 5, kEpiShift8 = 6 };
+// The T2 probe's panel inputs besides Norm's: kNormCast, x truncated to int8
+// as it is, no scale (dots_only); kNormLN1, LayerNorm with the variance as
+// E[x^2] - E[x]^2 (ln_onepass).
+constexpr int kNormCast = 3, kNormLN1 = 4;
+// What an epilogue applies and which dtypes its operands have, as bits of a
+// template parameter: every launch compiles with its flags folded, as fast as
+// a GEMM written for one of them (a run-time flag in the epilogue cost K3-K5
+// 9-30 % on the H100).
+enum EpiFlags {
+  kEfGelu = 1,     // GELU2 after the dequant (kEpiStore)
+  kEfRes = 2,      // + residual
+  kEfResF32 = 4,   // the residual is f32 (else bf16)
+  kEfOutF32 = 8,   // the output is f32 (else bf16)
+  kEfMax = 16,     // the row max |y| per N chunk into amax_out (kEpiStore)
+  // the T2 probe's:
+  kEfMidBf16 = 64,    // kEpiStore: dequant and GELU2 in bf16 steps, the row max floored at amax_floor
+  kEfSigC = 128,      // with kEfMidBf16: the sigmoid as 1 / (1 + exp(-1.702 u)), bf16 steps
+  kEfFastSig = 256,   // kEpiStore: the sigmoid as 0.5 + 0.5 z / (1 + |z|), z = 1.702 u
+  kEfQBf16 = 512,     // int8 mode: the dynamic row scale rounded to bf16 (mid_bf16's fc2)
+  kEfRawBf16 = 1024,  // kEpiRaw: the int32 sums rounded to bf16
+};
+constexpr int kEfProbe = kEfMidBf16 | kEfSigC | kEfFastSig | kEfQBf16 | kEfRawBf16;
+
+struct GemmArgs {
+  const void* a;             // (M, K): panel bf16, int8 mode int8
+  int ef;                    // EpiFlags of this launch
+  const float* mod;          // (2, K) f32 prologue rows
+  const float* amax_in;      // int8 mode, dynamic: (M, nch) row max |a| per K chunk
+  float s_static, inv_static;
+  int is_static;
+  const int8_t* w[3];        // (N, K) int8 or (N, K/2) packed W4
+  const float* scale[3];     // (N,)
+  const float* bias[3];      // (N,)
+  void* out[3];              // (M, N) bf16 or f32 (kEfOutF32); int8 for kEpiGeluInt8
+  const void* residual;      // (M, N) bf16 or f32, or null
+  float* amax_out;           // kEfMax: (M, nch) row max |y| per N chunk (zeroed);
+                             // kEpiClip8, kEpiShift8: (M,) the panel's row max |h|
+  float out_inv;             // kEpiGeluInt8: f32(1 / s) of the output's static scale
+  int M, K, N;
+  int nch;                   // chunks of K (kEpiChunked) or of N (amax_out)
+  int nt;                    // unused (kept so that the kernels' parameter layout holds)
+  float amax_floor;          // kEfMidBf16: the floor of the row max |y|
+};
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// GemmArgs from the arguments of t2s_int8_dense (int8_block.cu, int8_probe.cu:
+// the same C signature, each with its own table of instantiations); false
+// where they lie outside what the mainloop takes: amode 0 (panel, bf16 A, K a
+// multiple of 128 up to kMaxPanelK) or 2 (int8 A).
+bool dense_args(GemmArgs& g, int amode, int w4, int epi, const void* a, const void* mod, const void* amax_in, float s_static, float inv_static,
+                int is_static, int n_w, const void* const (&ws)[3], const void* const (&scs)[3],
+                const void* const (&bs)[3], void* const (&os)[3], const void* residual, int res_f32,
+                int gelu, int out_f32, void* amax_out, float out_inv, int nch, int M, int K, int N,
+                int probe, float amax_floor) {
+  g.a = a;
+  g.ef = (gelu ? kEfGelu : 0) | (residual != nullptr ? kEfRes : 0) | (res_f32 ? kEfResF32 : 0) |
+         (out_f32 ? kEfOutF32 : 0) | (amax_out != nullptr ? kEfMax : 0) | probe;
+  g.mod = static_cast<const float*>(mod);
+  g.amax_in = static_cast<const float*>(amax_in);
+  g.s_static = s_static;
+  g.inv_static = inv_static;
+  g.is_static = is_static;
+  for (int i = 0; i < 3; ++i) {
+    g.w[i] = static_cast<const int8_t*>(ws[i]);
+    g.scale[i] = static_cast<const float*>(scs[i]);
+    g.bias[i] = static_cast<const float*>(bs[i]);
+    g.out[i] = os[i];
+  }
+  g.residual = residual;
+  g.amax_out = static_cast<float*>(amax_out);
+  g.out_inv = out_inv;
+  g.nch = nch;
+  g.nt = 1;
+  g.amax_floor = amax_floor;
+  g.M = M;
+  g.K = K;
+  g.N = N;
+  const int Kb = w4 ? K / 2 : K;
+  return !(M <= 0 || n_w < 1 || n_w > 3 || N % kNMultiple != 0 || Kb % kKMultiple != 0 ||
+           nch < 1 || (amode != kPanel && amode != kInt8) ||
+           (amode == kPanel && (K % 128 != 0 || K > kMaxPanelK || epi == kEpiChunked)) ||
+           (amode == kInt8 && (K % nch != 0 || (w4 && nch != 1))) ||
+           (amax_out != nullptr && (N % nch != 0 || (N / nch) % kNMultiple != 0)) ||
+           (epi == kEpiChunked && (residual == nullptr || w4)) || (probe & ~kEfProbe) != 0 ||
+           ((epi == kEpiClip8 || epi == kEpiShift8) && amax_out == nullptr) ||
+           (amax_in == nullptr && !is_static && amode == kInt8 && epi != kEpiRaw));
+}
+
 namespace sm90 {
 
 constexpr int kBM = 128, kBN = 128;     // output tile
@@ -211,20 +335,21 @@ __device__ __forceinline__ void fence_acc(int (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// build_panel's rows (int8_gemm_mma.cuh), 128 of them, as int8 in the
-// 128-byte-swizzled K blocks the A descriptors read: row lr's 16-byte chunk c
-// of K block i at i * kPanelBlock + lr * 128 + 16 (c ^ (lr % 8)). Each of the
-// 8 consumer warps builds 16 rows, kRowsAtOnce at a time: their loads in
-// flight together and their sum chains interleaved (one row at a time left
-// the warp waiting on one chain of dependent adds), the LN affine read once
-// for all of them. The arithmetic of each row is build_panel's, operation for
-// operation and in its order (its divisions div_rn's: the same quotients
+// The panel's rows, 128 of them, as int8 in the 128-byte-swizzled K blocks
+// the A descriptors read: row lr's 16-byte chunk c of K block i at i *
+// kPanelBlock + lr * 128 + 16 (c ^ (lr % 8)). Each of the 8 consumer warps
+// builds 16 rows, four at a time: their loads in flight together and their
+// sum chains interleaved (one row at a time left the warp waiting on one
+// chain of dependent adds), the LN affine read once for all of them. Per row:
+// lane l holds k = 128 i + 4 l + e, its sums in that order and then the warp's
+// butterfly, div_rn for the mean, the variance and the dynamic quantize, the
+// static one a multiply (divisions by div_rn: correctly rounded quotients
 // without a call, see int8_common.cuh).
 template <int NORM, bool KEEP>
 __device__ __forceinline__ void build_panel_swz(const GemmArgs& g, bool a32, unsigned char* panel,
                                                 float* srow, int m0, int cw, int lane,
                                                 bool keep_here) {
-  constexpr bool kPlain = NORM == kNormNone || NORM == kNormCast || NORM == kNormSum3;
+  constexpr bool kPlain = NORM == kNormNone || NORM == kNormCast;
   constexpr int kRows = kBM / kConsumerWarps, R = 4, kV = kMaxPanelK / 32;
   const int K = g.K, nkc = K / 128;
   const bool st = g.is_static != 0;
@@ -243,18 +368,7 @@ __device__ __forceinline__ void build_panel_swz(const GemmArgs& g, bool a32, uns
 #pragma unroll
       for (int i = 0; i < kMaxPanelK / 128; ++i) {
         float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (i < nkc && r < g.M) {
-          f = load4(g.a, row + 128 * i + 4 * lane, a32);
-          if (NORM == kNormSum3) {   // ((q + k) + v) in f32, rounded to bf16
-            const size_t plane = static_cast<size_t>(g.M) * K;
-            const float4 f1 = load4(g.a, plane + row + 128 * i + 4 * lane, a32);
-            const float4 f2 = load4(g.a, 2 * plane + row + 128 * i + 4 * lane, a32);
-            f = make_float4(bf16r(__fadd_rn(__fadd_rn(f.x, f1.x), f2.x)),
-                            bf16r(__fadd_rn(__fadd_rn(f.y, f1.y), f2.y)),
-                            bf16r(__fadd_rn(__fadd_rn(f.z, f1.z), f2.z)),
-                            bf16r(__fadd_rn(__fadd_rn(f.w, f1.w), f2.w)));
-          }
-        }
+        if (i < nkc && r < g.M) f = load4(g.a, row + 128 * i + 4 * lane, a32);
         v[j][4 * i] = f.x;
         v[j][4 * i + 1] = f.y;
         v[j][4 * i + 2] = f.z;
@@ -377,8 +491,8 @@ __device__ __forceinline__ void build_panel_swz(const GemmArgs& g, bool a32, uns
   }
 }
 
-// The epilogue of int8_gemm_kernel on the wgmma fragment: the same
-// arithmetic per element, in the same order. row0 = this thread's first row
+// The epilogue on the wgmma fragment: dequant acc * (s_row * scale_col) +
+// bias, [GELU2], [+ residual], per element in that order. row0 = this thread's first row
 // in the tile (its second is row0 + 8); srow the panel's row scales (panel
 // mode) or null (int8 mode: static, or from amax_in with one chunk). Its
 // divisions are div_rn's (no call in a kernel that issues wgmma).
@@ -431,6 +545,7 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, const int (&acc)[64]
       srw[hf] = AMODE == kPanel
                     ? srow[lr]
                     : (g.is_static ? g.s_static : (r < M ? row_scale<true>(g.amax_in[r]) : 1.0f));
+      if ((EF & kEfQBf16) != 0 && !g.is_static) srw[hf] = bf16r(srw[hf]);
     }
   }
   const float* __restrict__ scale = g.scale[z];
@@ -539,13 +654,100 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, const int (&acc)[64]
   }
 }
 
+// K9's chunked fc2 (kEpiChunked) on the wgmma fragment, in its twin's order
+// (ops/int8_block.py::mlp_chunked_reference): y starts at the residual
+// (chunk_start); at each K chunk's last step y += float(acc_c) * (s_c *
+// scale), s_c the static scale or max(amax_in[r, c], 1e-8) / 127
+// (chunk_flush); then y + bias leaves through the warp's slab as epilogue's
+// outputs do (epilogue_chunked). All inline: no call in a wgmma kernel.
+template <int EF>
+__device__ __forceinline__ void chunk_start(const GemmArgs& g, float (&y)[64], int m0, int n0,
+                                            int row0, int tq) {
+  constexpr bool res32 = (EF & kEfResF32) != 0;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = m0 + row0 + 8 * hf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 rv = r < g.M ? load2(g.residual, static_cast<size_t>(r) * g.N + n0 + 8 * j + 2 * tq,
+                                        res32)
+                                : make_float2(0.0f, 0.0f);
+      y[4 * j + 2 * hf] = rv.x;
+      y[4 * j + 2 * hf + 1] = rv.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void chunk_flush(const GemmArgs& g, const int (&acc)[64], float (&y)[64],
+                                            int m0, int n0, int z, int c, int row0, int tq) {
+  float s[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = m0 + row0 + 8 * hf;
+    s[hf] = g.is_static ? g.s_static
+                        : (r < g.M ? row_scale<true>(g.amax_in[static_cast<size_t>(r) * g.nch + c])
+                                   : 1.0f);
+  }
+  const float* __restrict__ scale = g.scale[z];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + 2 * tq;
+    const float sc[2] = {scale[n], scale[n + 1]};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = y[4 * j + 2 * hf + e];
+        v = __fadd_rn(v, __fmul_rn(static_cast<float>(acc[4 * j + 2 * hf + e]),
+                                   __fmul_rn(s[hf], sc[e])));
+      }
+  }
+}
+
+template <int EF>
+__device__ __forceinline__ void epilogue_chunked(const GemmArgs& g, const float (&y)[64], int m0,
+                                                 int n0, int z, unsigned char* slab, int row0,
+                                                 int lane) {
+  constexpr bool out32 = (EF & kEfOutF32) != 0;
+  constexpr int kOut = out32 ? 4 : 2, kCols = 128 / kOut, kPasses = kBN / kCols;
+  const int gq = lane >> 2, tq = lane & 3, wrow0 = row0 - gq;
+  const float* __restrict__ bias = g.bias[z];
+#pragma unroll
+  for (int c = 0; c < kPasses; ++c) {
+#pragma unroll
+    for (int jj = 0; jj < kCols / 8; ++jj) {
+      const int j = c * (kCols / 8) + jj, n = n0 + 8 * j + 2 * tq, byte = (8 * jj + 2 * tq) * kOut;
+      const float b0 = bias[n], b1 = bias[n + 1];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = gq + 8 * hf;
+        store2(slab + r * 128 + ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15)), 0,
+               __fadd_rn(y[4 * j + 2 * hf], b0), __fadd_rn(y[4 * j + 2 * hf + 1], b1), out32);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {   // the slab's 16 rows to pass c's 128 bytes of each
+      const int r = 4 * it + (lane >> 3), seg = lane & 7, grow = m0 + wrow0 + r;
+      if (grow >= g.M) continue;
+      const size_t goff = (static_cast<size_t>(grow) * g.N + n0 + c * kCols) * kOut + 16 * seg;
+      *reinterpret_cast<uint4*>(static_cast<unsigned char*>(g.out[z]) + goff) =
+          *reinterpret_cast<const uint4*>(slab + r * 128 + ((seg ^ (r & 7)) << 4));
+    }
+    __syncwarp();
+  }
+}
+
 // This block's work, in order, as f(tile, first k step, end k step). Panel
 // mode: a contiguous run of its row block's tiles, whole. Int8 mode
-// (stream-K): its equal share of the (tile, k step) units.
-template <int AMODE, class F>
+// (stream-K): its equal share of the (tile, k step) units; WHOLE (the chunked
+// epilogue): tiles blockIdx.x, + gridDim.x, ..., whole.
+template <int AMODE, bool WHOLE, class F>
 __device__ __forceinline__ void for_each_segment(const Params& p, F&& f) {
   const int per_row = p.n_w * p.ntn;
-  if (AMODE == kPanel) {
+  if (WHOLE) {
+    for (int t = blockIdx.x; t < p.row_blocks * per_row; t += gridDim.x) f(t, 0, p.steps);
+  } else if (AMODE == kPanel) {
     const int rb = blockIdx.x / p.bpr, part = blockIdx.x % p.bpr;
     const int t1 = (part + 1) * per_row / p.bpr;
     for (int t = part * per_row / p.bpr; t < t1; ++t) f(rb * per_row + t, 0, p.steps);
@@ -610,6 +812,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   using R = Ring<AMODE, W4>;
   constexpr int S = R::kStages, SU = R::kUStages;
   constexpr int SUd = SU ? SU : 1;   // W8 has no unpacked ring: a divisor that compiles
+  constexpr bool kWhole = EPI == kEpiChunked;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
   const uint32_t raw = smem_u32(smem_raw);
@@ -656,7 +859,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
     if (pw == 0) {
       if (lane != 0) return;
       int it = 0;
-      for_each_segment<AMODE>(p, [&](int t, int k0, int k1) {
+      for_each_segment<AMODE, kWhole>(p, [&](int t, int k0, int k1) {
         int m0, n0, z;
         tile_of(t, m0, n0, z);
         for (int k = k0; k < k1; ++k, ++it) {
@@ -677,7 +880,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
     } else if (W4) {
       const int ut = threadIdx.x - (kConsumerWarps + 1) * 32;
       int it = 0;
-      for_each_segment<AMODE>(p, [&](int, int k0, int k1) {
+      for_each_segment<AMODE, kWhole>(p, [&](int, int k0, int k1) {
         for (int k = k0; k < k1; ++k, ++it) {
           const int s = it % S, u = it % SUd;
           mbar_wait(full(s), (it / S) & 1);
@@ -709,18 +912,21 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   const int row0 = wg * 64 + (cw & 3) * 16 + (lane >> 2);
   const int K = g.K;
   int it = 0, built = -1;
-  for_each_segment<AMODE>(p, [&](int t, int k0, int k1) {
+  for_each_segment<AMODE, kWhole>(p, [&](int t, int k0, int k1) {
     int m0, n0, z;
     tile_of(t, m0, n0, z);
     if (AMODE == kPanel && m0 != built) {
       consumer_sync();   // the last tile's products are done with the old panel
       build_panel_swz<NORM, EPI == kEpiClip8 || EPI == kEpiShift8>(
-          g, (EF & kEfAF32) != 0, sm, srow, m0, cw, lane, blockIdx.x % p.bpr == 0);
+          g, false, sm, srow, m0, cw, lane, blockIdx.x % p.bpr == 0);
       fence_async_smem();
       consumer_sync();
       built = m0;
     }
     int acc[64];
+    float y[64];   // kWhole: the chunked epilogue's f32 accumulator
+    const int cs = kWhole ? p.steps / g.nch : 1;   // k steps a chunk
+    if (kWhole) chunk_start<EF>(g, y, m0, n0, row0, lane & 3);
     for (int k = k0; k < k1; ++k, ++it) {
       const int s = it % S, u = it % SUd;
       mbar_wait(full(s), (it / S) & 1);
@@ -728,7 +934,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const int first = k == k0 && kk == 0 ? 0 : 1;
+        // a chunk's first step restarts the integer sums
+        const int first = (kWhole ? k % cs == 0 : k == k0) && kk == 0 ? 0 : 1;
         if (!W4) {
           const uint32_t a = AMODE == kPanel ? base + k * kPanelBlock + wg * 64 * 128
                                              : stage_a(s) + wg * 64 * 128;
@@ -756,6 +963,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         mbar_arrive(empty(s));
         if (W4) mbar_arrive(uempty(u));
       }
+      if (kWhole && (k + 1) % cs == 0) {   // a chunk's last step: flush it
+        fence_acc(acc);
+        chunk_flush(g, acc, y, m0, n0, z, k / cs, row0, lane & 3);
+      }
+    }
+    if (kWhole) {
+      epilogue_chunked<EF>(g, y, m0, n0, z, slabs + cw * kSlab, row0, lane);
+      return;
     }
     fence_acc(acc);
     if (AMODE == kInt8 && (k0 != 0 || k1 != p.steps) && !finish_split(p, acc, t, k0, k1, flag, ctid))
@@ -811,8 +1026,12 @@ size_t workspace_ints() { return static_cast<size_t>(num_sms()) * (2 * kSlot + 1
 template <int AMODE, int NORM, bool W4, int EPI, int EF>
 int launch(const GemmArgs& g, int n_w, int* ws, cudaStream_t stream) {
   using R = Ring<AMODE, W4>;
-  static_assert(AMODE == kPanel || AMODE == kInt8, "the stream mode stays on mma.sync");
-  if (AMODE == kInt8 && (g.nch != 1 || ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(AMODE == kPanel || AMODE == kInt8, "a panel or an int8 A");
+  static_assert(EPI != kEpiChunked || (AMODE == kInt8 && !W4), "the chunked epilogue: int8 A, W8");
+  constexpr bool kWhole = EPI == kEpiChunked;
+  // the chunked epilogue's chunks are whole k steps; any other int8 launch has one chunk
+  if (AMODE == kInt8 && (ws == nullptr || (kWhole ? g.K % (128 * g.nch) != 0 : g.nch != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   memset(&p, 0, sizeof(p));
   p.g = g;
@@ -829,6 +1048,9 @@ int launch(const GemmArgs& g, int n_w, int* ws, cudaStream_t stream) {
   if (AMODE == kPanel) {
     p.bpr = sms / p.row_blocks < 1 ? 1 : (sms / p.row_blocks < per_row ? sms / p.row_blocks : per_row);
     grid = static_cast<long long>(p.row_blocks) * p.bpr;
+  } else if (kWhole) {   // data-parallel: whole tiles, no split, so no workspace
+    const long long tiles = static_cast<long long>(p.row_blocks) * per_row;
+    grid = tiles < sms ? tiles : sms;
   } else {
     p.ws = ws;
     p.cnt = ws + static_cast<size_t>(sms) * 2 * kSlot;

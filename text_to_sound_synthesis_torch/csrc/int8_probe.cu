@@ -3,35 +3,43 @@
 // and T3 (tools/bench_attn_ablate.py, K4 likewise), for Hopper, sm_90a.
 //
 // Each is a compile-time configuration of the engine's templates (the
-// headers int8_gemm_sm90.cuh, int8_gemm_mma.cuh, int8_mha.cuh and
-// mha_sm90.cuh; see int8_block.cu's header comment), built here, apart from
-// the engine, so that a request never waits for their build. The wrappers
-// (ops/dot.py, ops/mlp_ablate.py, ops/attn_ablate.py) launch these for the
-// probes' configurations and int8_block.cu's for the engine's own launches,
-// which the probes share.
+// headers int8_gemm_sm90.cuh, int8_quant.cuh, int8_mha.cuh and mha_sm90.cuh;
+// see int8_block.cu's header comment), built here, apart from the engine, so
+// that a request never waits for their build. The wrappers (ops/dot.py,
+// ops/mlp_ablate.py, ops/attn_ablate.py) launch these for the probes'
+// configurations and int8_block.cu's for the engine's own launches, which the
+// probes share.
 //   T1: its int8 cases run the Hopper mainloop in its int8 A mode with the raw
 //       epilogue (the engine's fc2 mainloop), its bf16 case bf16_dot_kernel,
-//       the mma.sync tiling on m16n8k16 bf16. At the probe's fc1 shape (2176
+//       a mma.sync tiling on m16n8k16 bf16. At the probe's fc1 shape (2176
 //       x 1024 x 4096) bytes bound it: 42 MB (mostly the int32 output) take
 //       12.6 us at 3.35 TB/s, the 18.2 GOP of products 9.2 us at the int8 peak.
 //   T2: fc1 on the Hopper mainloop's panel (panel inputs kNormCast, kNormLN1;
 //       epilogues kEpiWrap8, kEpiClip8, kEpiShift8; the kEfProbe flags),
-//       dots_only's fc2 on its int8 A mode; mid_bf16's fc2 in the stream mode
-//       of the mma.sync mainloop (kEfQBf16).
-//   T3: the mma.sync mainloop's qkvp_dots_only configurations (kNormSum3) and
-//       the MHA modes pair_nofold, no_softmax, no_av, no_scores.
+//       dots_only's fc2 on its int8 A mode; mid_bf16's fc2 a wide pass
+//       rounding to bf16 (QBF) and the int8 A mode with the bf16 row scale
+//       (kEfQBf16). Its other fc2s are K3's own launches.
+//   T3: qkvp_dots_only's sum of the three f32 planes as a wide pass input
+//       (kInSum3); its dots are K4's launches (the engine's AdaLN pass, then
+//       its q/k/v dots writing f32, and its proj); the MHA modes pair_nofold,
+//       no_softmax, no_av, no_scores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "int8_gemm_mma.cuh"
 #include "int8_gemm_sm90.cuh"
 #include "int8_mha.cuh"
+#include "int8_quant.cuh"
 #include "mha_sm90.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int BM = 64, BN = 128;   // output tile
+constexpr int KS = 64;             // bytes of a row per pipeline stage
+constexpr int kBStride = KS + 16;  // padded shared-memory row
 
 // T1's bf16 case, out (M, N) f32 = a (M, K) bf16 . w (N, K) bf16: the int8
 // mode's tiling with mma.sync m16n8k16 bf16 -> f32. A block owns a 64 x 128
@@ -123,9 +131,9 @@ __global__ void __launch_bounds__(kThreads) bf16_dot_kernel(const __nv_bfloat16*
 
 }  // namespace
 
-// The T2 / T3 configurations of t2s_int8_dense (int8_block.cu): the same
+// The T2 configurations of t2s_int8_dense (int8_block.cu): the same
 // arguments, this table. Returns the CUDA error code.
-extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* a, int a_f32,
+extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* a,
                               const void* mod, const void* amax_in, float s_static,
                               float inv_static, int is_static, int n_w,
                               const void* w0, const void* sc0, const void* b0, void* o0,
@@ -135,22 +143,18 @@ extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* 
                               void* amax_out, float out_inv, int nch, int M, int K, int N,
                               int probe, float amax_floor, void* ws, void* stream) {
   GemmArgs g;
-  if (!dense_args(g, amode, norm, w4, epi, a, a_f32, mod, amax_in, s_static, inv_static,
+  if (!dense_args(g, amode, w4, epi, a, mod, amax_in, s_static, inv_static,
                   is_static, n_w, {w0, w1, w2}, {sc0, sc1, sc2}, {b0, b1, b2}, {o0, o1, o2},
                   residual, res_f32, gelu, out_f32, amax_out, out_inv, nch, M, K, N, probe,
                   amax_floor))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool match_w4 = w4 != 0;
-#define T2S_MATCH(AM, NO, W4_, EP, EF) \
-  amode == AM && norm == NO && match_w4 == W4_ && epi == EP && g.ef == (EF)
-#define T2S_SM90(AM, NO, W4_, EP, EF) \
-  if (T2S_MATCH(AM, NO, W4_, EP, EF)) return sm90::launch<AM, NO, W4_, EP, (EF)>(g, n_w, static_cast<int*>(ws), s);
-#define T2S_CASE(AM, NO, W4_, EP, EF) \
-  if (T2S_MATCH(AM, NO, W4_, EP, EF)) return launch_gemm<AM, NO, W4_, EP, (EF)>(g, n_w, s);
-  // T2 (K3's two launches with one stage out or changed; where fc2 is not
-  // listed it is K3's or K6's own, int8_block.cu's) and T3 (K4's q/k/v and
-  // proj launches)
+#define T2S_SM90(AM, NO, W4_, EP, EF)                                                  \
+  if (amode == AM && norm == NO && match_w4 == W4_ && epi == EP && g.ef == (EF))       \
+    return sm90::launch<AM, NO, W4_, EP, (EF)>(g, n_w, static_cast<int*>(ws), s);
+  // T2 (K3's launches with one stage out or changed; where fc2 is not listed
+  // it is K3's own, int8_block.cu's)
   T2S_SM90(kPanel, kNormCast, false, kEpiWrap8, 0)                                // dots_only
   T2S_SM90(kInt8, kNormNone, false, kEpiRaw, kEfRawBf16)
   T2S_SM90(kPanel, kNormNone, false, kEpiStore, kEfGelu | kEfOutF32 | kEfMax)    // no_prologue
@@ -159,14 +163,29 @@ extern "C" int t2s_int8_dense(int amode, int norm, int w4, int epi, const void* 
   T2S_SM90(kPanel, kNormLN, false, kEpiClip8, kEfGelu | kEfMax)                  // no_quant_mid
   T2S_SM90(kPanel, kNormLN, false, kEpiShift8, kEfMax)                           // no_deq_mid
   T2S_SM90(kPanel, kNormLN, false, kEpiStore, kEfGelu | kEfMax | kEfMidBf16)     // mid_bf16, b
-  T2S_CASE(kStream, kNormNone, false, kEpiStore, kEfRes | kEfQBf16)              // mid_bf16
+  T2S_SM90(kInt8, kNormNone, false, kEpiStore, kEfRes | kEfQBf16)                // mid_bf16
   T2S_SM90(kPanel, kNormLN, false, kEpiStore, kEfGelu | kEfMax | kEfMidBf16 | kEfSigC)  // c
   T2S_SM90(kPanel, kNormLN, false, kEpiStore, kEfGelu | kEfOutF32 | kEfMax | kEfFastSig)
-  T2S_CASE(kPanel, kNormAdaLN, false, kEpiStore, kEfOutF32)                      // qkvp_dots_only
-  T2S_CASE(kPanel, kNormSum3, false, kEpiStore, kEfRes | kEfAF32)
-#undef T2S_CASE
 #undef T2S_SM90
-#undef T2S_MATCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The probes' wide passes, with t2s_int8_quant_wide's arguments (int8_block.cu):
+// in 2 (T3 qkvp_dots_only) sums the three f32 planes of a (3, M, K) x, in 0
+// with qbf 1 (T2 mid_bf16) rounds the row scale and h / s to bf16. Returns
+// the CUDA error code.
+extern "C" int t2s_int8_quant_wide(const void* x, int in, int M, int K, int nch,
+                                   const void* amax_in, float inv_static, int is_static, int qbf,
+                                   void* q, void* amax_out, void* stream) {
+  if (!quant_wide_ok(M, K, nch, amax_in, is_static, amax_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in == kInSum3 && !qbf)
+    return launch_quant_wide<kInSum3, false>(x, M, K, nch, amax_in, inv_static, is_static, q,
+                                             amax_out, s);
+  if (in == kInBf16 && qbf)
+    return launch_quant_wide<kInBf16, true>(x, M, K, nch, amax_in, inv_static, is_static, q,
+                                            amax_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -180,7 +199,7 @@ extern "C" int t2s_tiled_dot(int kind, const void* a, const void* w, void* out, 
                              int N, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || K <= 0 || N <= 0 || N % BN != 0 || kind < 0 || kind > 2 ||
-      (kind < 2 ? K % KS : (2 * K) % KS) != 0)
+      (kind < 2 ? K % kKMultiple : (2 * K) % KS) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kind == 2) {
     const dim3 grid(N / BN, (M + BM - 1) / BM);

@@ -10,10 +10,9 @@ compile-time configuration of K4's launches: the probe's own in
 ``.launches``. W8 weights, as the JAX tool runs them:
 
   qkvp_dots_only  y = bf16(q + k + v) from the f32 dequants (no MHA), then
-                  the proj: a q/k/v launch writing f32, and a proj launch
-                  summing the three planes (two launches, on the mma.sync
-                  panel mainloop that K4 ran before its dots moved to the
-                  Hopper GEMM)
+                  the proj: K4's dots as they run, four launches (the AdaLN
+                  quantize pass, the q/k/v dots writing f32, a wide quantize
+                  pass summing the three planes, the proj + residual)
   no_softmax      p = bf16(s * 0.001), no key mask, every key
   no_av           each head's output is its softmax p of the first hd keys
   no_scores       every score of a row is the row's q[0], then the masked softmax
@@ -37,7 +36,7 @@ import torch
 from . import int8_block as ib
 from . import int8_kernels as ik
 from .attention import _heads, _merge, check_pair, mha_pair_reference
-from .quant import QuantizedWeight, _deq, _prologue, _quant, int_dot
+from .quant import QuantizedWeight, _deq, _dense_int8, _prologue, _quant, int_dot, quantize_rows
 
 __all__ = ["FUNCTIONS", "PROBES", "attn_variant", "attn_variant_reference", "mha_probe_reference"]
 
@@ -127,7 +126,7 @@ def attn_variant(x, mod, wq: QuantizedWeight, wk: QuantizedWeight, wv: Quantized
                  static_s=None) -> torch.Tensor:
     """T3: ``variant`` of K4 (module docstring) -> (B*L, D) bf16. On a CUDA
     tensor K4's launches with the variant's configuration (W8 weights, a
-    head width of 64, at most 272 keys; ``no_av`` at least 64), two for
+    head width of 64, at most 272 keys; ``no_av`` at least 64), four for
     ``qkvp_dots_only`` and K4's five else; the plain twin on a CPU one."""
     _check_variant(variant)
     kw = dict(batch=batch, n_head=n_head, q_valid=q_valid, static_s=static_s)
@@ -141,10 +140,11 @@ def attn_variant(x, mod, wq: QuantizedWeight, wk: QuantizedWeight, wv: Quantized
     s_in, s_out = ib._split(static_s)
     probe = ik.load_probe_kernel()
     if variant == "qkvp_dots_only":
+        qx, ax = quantize_rows(x, mod, static_s=s_in)
         qkv = torch.empty((3,) + tuple(x.shape), dtype=torch.float32, device=x.device)
-        ik.dense(probe, x, (wq, wk, wv), tuple(qkv), norm="adaln", mod=mod, s=s_in)
-        out = torch.empty_like(x)
-        ik.dense(probe, qkv, (wproj,), (out,), norm="sum3", s=s_out, residual=x)
+        ik.dense(lib, qx, (wq, wk, wv), tuple(qkv), amode=ik.INT8, s=s_in, amax_in=ax)
+        qy, ay = ik.quant_wide(probe, qkv, s_out)   # bf16((q + k) + v), quantized
+        out = _dense_int8(qy, ay, (wproj,), s_out, False, residual=x)[0]
     else:
         _check_probe_mha(variant, n_head, D, L)
         mha_lib = probe if variant in PROBES else lib   # "pair" is the engine's own MHA

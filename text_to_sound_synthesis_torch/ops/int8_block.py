@@ -43,14 +43,18 @@ the kernels compute (the JAX package's ``*_reference`` twins; W4 goes through
 launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` (K10:
 ``csrc/mha_int8.cu``) for CUDA tensors and run the plain version only for
 CPU tensors; each counts its kernel runs in ``.launches`` (K10 counts every
-int8 MHA, inside a block or called alone; ``quantize_rows``, the attention
-blocks' quantize pass, each of its launches, two per attention half).
+int8 MHA, inside a block or called alone; the quantize passes
+``quantize_rows`` and ``quantize_wide`` (``quant.py``) each of their
+launches: two per attention half, one per dynamic K3 or K9 call).
 
 On the card an attention half (K4, K5, each half of K8) is five launches
 (``_attn_half``): the quantize pass (AdaLN, the TPU kernel's ``_prologue``
 and ``_quant``) -> the q (and k, v) dots in the Hopper GEMM's int8 A mode ->
-the MHA -> the quantize pass -> the proj dot + residual. The same schedule
-runs on CPU tensors from the plain pieces, and equals the twins bit for bit.
+the MHA -> the quantize pass -> the proj dot + residual. The MLP blocks
+are fc1 on the LN panel -> [under a dynamic scale: the wide quantize pass,
+each chunk of the middle with its own row scale] -> fc2 in the int8 A mode
+(K9: the chunked epilogue) (``_mlp``). The same schedules
+run on CPU tensors from the plain pieces, and equal the twins bit for bit.
 The TPU schedule options (``rows_per_program``, ``block_m``,
 ``pipeline_halves``, row padding) are not carried over: the Hopper kernels
 choose their own tiling and take any sequence length up to their limit (the
@@ -63,18 +67,19 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from . import int8_kernels as ik
 from .attention import check_pair, mha_pair_reference, mha_reference
 from .int8_kernels import load_kernel
-from .quant import (QuantizedWeight, _deq, _gelu2, _prologue, _quant, _quantize_rows, int_dot,
+from .quant import (QuantizedWeight, _deq, _dense_int8, _gelu2, _mods, _prologue, _quant,
+                    _quantize_rows, _quantize_static, int_dot, quantize_rows,
+                    quantize_rows_reference, quantize_wide, quantize_wide_reference,
                     unpack_weight_w4)
 
 __all__ = ["self_attn_block", "cross_attn_block", "attn_pair_block", "mlp_block",
            "mlp_block_chunked", "mlp_block_streamed", "mha_inline_int8", "quantize_rows",
-           "quantize_rows_reference",
+           "quantize_rows_reference", "quantize_wide", "quantize_wide_reference",
            "self_attn_block_reference", "cross_attn_block_reference",
            "attn_pair_block_reference", "mlp_block_reference", "mlp_chunked_reference",
            "mha_inline_int8_reference", "load_kernel", "ATTN"]
@@ -130,11 +135,6 @@ def _plain_weights(ws: Sequence[QuantizedWeight], w4: bool):
 
 def _split(static_s: StaticS, n: int = 2):
     return tuple(static_s) if static_s is not None else (None,) * n
-
-
-def _mods(mod):
-    mod = mod.float()
-    return mod[0:1], mod[1:2]
 
 
 def _ref_dense(x, w: QuantizedWeight, norm="none", mod=None, s_static=None):
@@ -296,54 +296,6 @@ def _attend(lib, batch: int, n_head: int, kv_valid: int, attn: str):
     return lambda q, k, v: ik.mha(lib, q, k, v, batch, n_head, kv_valid, mode=attn)
 
 
-def quantize_rows_reference(x, mod=None, *, static_s: Optional[float] = None):
-    """Plain twin of the quantize pass: x (M, K) bf16 or f32 [-> AdaLN with
-    ``mod`` (2, K)] -> (q (M, K) int8, the f32 (M,) row max |h|, or None under
-    the static scale ``static_s``): the JAX kernels' ``_prologue(x, mod,
-    "adaln")`` (or none) and ``_quant``."""
-    xf = x.float()
-    h = xf if mod is None else _prologue(xf, *_mods(mod), "adaln")
-    q, _ = _quant(h, static_s)
-    return q, (h.abs().amax(dim=-1) if static_s is None else None)
-
-
-def quantize_rows(x, mod=None, *, static_s: Optional[float] = None):
-    """The attention blocks' quantize pass (``quantize_rows_reference``): one
-    launch on a CUDA tensor, K a multiple of 128 up to the panel limit; its
-    int8 rows and row maxima are what the GEMM's AdaLN panel held."""
-    if not ik.on_cuda(x, "quantize_rows"):
-        return quantize_rows_reference(x, mod, static_s=static_s)
-    lib = load_kernel()
-    M, K = x.shape
-    ik.check("x", x, (M, K), (torch.bfloat16, torch.float32), x.device)
-    if K % 128 or K > lib.t2s_int8_limits(0):
-        raise ValueError(f"width {K} must be a multiple of 128 and at most "
-                         f"{lib.t2s_int8_limits(0)}")
-    if mod is not None:
-        ik.check("mod", mod, (2, K), torch.float32, x.device)
-    out = ik.quant_rows(lib, x, mod, static_s)
-    quantize_rows.launches += 1
-    return out
-
-
-def _dense_int8(qa, amax, ws, s_static, w4: bool, residual=None, out_dtype=torch.bfloat16):
-    """The dots from the quantize pass's output, one per weight: acc * (s_row *
-    scale) + bias [+ residual] -> ``out_dtype``, s_row the static scale or
-    max(amax, 1e-8) / 127 (``_quantize_rows``'s). One launch of the Hopper
-    GEMM's int8 A mode on the card (the weights share A); plain on the CPU."""
-    if not ik.on_cuda(qa, "the int8 dense"):
-        s = (float(np.float32(s_static)) if amax is None
-             else amax.clamp_min(1e-8)[:, None] / 127.0)
-        ys = (_deq(int_dot(qa, w.w_q), s, w) for w in _plain_weights(ws, w4))
-        return [(y if residual is None else y + residual.float()).to(out_dtype) for y in ys]
-    # one allocation for all the weights' outputs: each costs host time
-    outs = torch.empty((len(ws), qa.shape[0], ws[0].w_q.shape[0]), dtype=out_dtype,
-                       device=qa.device).unbind(0)
-    ik.dense(load_kernel(), qa, ws, outs, amode=ik.INT8, s=s_static, amax_in=amax,
-             residual=residual, w4=w4)
-    return outs
-
-
 def _attn_half(x, mod, ws_in, wproj, s_in, s_out, out_dtype, w4: bool, mha, kv=None):
     """One attention half, five steps: [quantize pass, AdaLN] -> [q/k/v dots
     (``ws_in`` three weights), or q's with ``kv`` the condition's K/V] ->
@@ -457,41 +409,59 @@ def _check_mlp(x, mod, w1, w2, w4, lib):
 
 
 def mlp_block(x, mod, w1, w2, *, static_s: StaticS = None, w4: bool = False):
-    """K3: x (M, D) bf16 -> x + fc2(gelu2(fc1(ln(x)))) (M, D) bf16. Two
-    launches on a CUDA tensor; the (M, 4D) middle passes through HBM, as
-    int8 with a static ``s_mid`` and as f32 (plus its row maxima) without."""
+    """K3: x (M, D) bf16 -> x + fc2(gelu2(fc1(ln(x)))) (M, D) bf16. On a CUDA
+    tensor two launches under a static scale (the middle through HBM as int8
+    with ``s_mid``), three without (the middle as f32 with its row maxima,
+    then the wide quantize pass) (``_mlp``)."""
     if not ik.on_cuda(x, "mlp_block"):
         return mlp_block_reference(x, mod, w1, w2, static_s=static_s, w4=w4)
     lib = load_kernel()
-    Dh = _check_mlp(x, mod, w1, w2, w4, lib)
-    out = _mlp(lib, x, mod, w1, w2, Dh, static_s, w4)
+    _check_mlp(x, mod, w1, w2, w4, lib)
+    out = _mlp(x, mod, w1, w2, static_s, w4)
     mlp_block.launches += 1
     return out
 
 
-def _mlp(lib, x, mod, w1, w2, Dh: int, static_s, w4: bool, n_chunks: Optional[int] = None):
-    """fc1 launch, then fc2 launch. ``n_chunks`` (K9) gives each chunk of the
-    middle its own dynamic row scale and flushes fc2's sums per chunk into
-    an f32 accumulator that starts at the residual."""
-    M = x.shape[0]
-    s_in, s_mid = _split(static_s)
-    out = torch.empty_like(x)
-    epi = ik.EPI_STORE if n_chunks is None else ik.EPI_CHUNKED
-    n_chunks = n_chunks or 1
-    if s_mid is None:
-        u = torch.empty((M, Dh), dtype=torch.float32, device=x.device)
-        amax = torch.empty((M, n_chunks), dtype=torch.float32, device=x.device)
-        ik.dense(lib, x, (w1,), (u,), norm="ln", mod=mod, s=s_in, gelu=True, amax_out=amax,
-                 nch=n_chunks, w4=w4)
-        ik.dense(lib, u, (w2,), (out,), amode=ik.STREAM, epi=epi, amax_in=amax, residual=x,
-                 nch=n_chunks, w4=w4)
-    else:
+def _fc1(x, mod, w1, s_in, s_mid, nch: int, w4: bool):
+    """K3's fc1, LN -> quantize -> dot -> GELU2: int8 quantized with the
+    static ``s_mid`` and no maxima, or f32 with its row max |u| per (row,
+    chunk of ``nch``) (M, nch). One launch of the Hopper GEMM's LN panel on
+    the card; plain on the CPU."""
+    if not ik.on_cuda(x, "the fc1 launch"):
+        (w,) = _plain_weights((w1,), w4)
+        h = _prologue(x.float(), *_mods(mod), "ln")
+        q, s = _quant(h, s_in)
+        u = _gelu2(_deq(int_dot(q, w.w_q), s, w))
+        if s_mid is not None:
+            return _quantize_static(u, s_mid)[0], None
+        return u, u.abs().reshape(u.shape[0], nch, -1).amax(-1)
+    M, Dh = x.shape[0], w1.w_q.shape[0]
+    lib = load_kernel()
+    if s_mid is not None:
         uq = torch.empty((M, Dh), dtype=torch.int8, device=x.device)
         ik.dense(lib, x, (w1,), (uq,), norm="ln", mod=mod, s=s_in, epi=ik.EPI_GELU_INT8,
                  s_out=s_mid, w4=w4)
-        ik.dense(lib, uq, (w2,), (out,), amode=ik.INT8, epi=epi, s=s_mid, residual=x,
-                 nch=n_chunks, w4=w4)
-    return out
+        return uq, None
+    u = torch.empty((M, Dh), dtype=torch.float32, device=x.device)
+    amax = torch.empty((M, nch), dtype=torch.float32, device=x.device)
+    ik.dense(lib, x, (w1,), (u,), norm="ln", mod=mod, s=s_in, gelu=True, amax_out=amax, nch=nch,
+             w4=w4)
+    return u, amax
+
+
+def _mlp(x, mod, w1, w2, static_s, w4: bool, n_chunks: Optional[int] = None):
+    """The MLP blocks' schedule: fc1 (``_fc1``) -> under a dynamic scale the
+    wide quantize pass, each of ``n_chunks`` chunks (K9; one for K3) with its
+    own row scale -> fc2 in the int8 A mode + residual (K9: the chunked
+    epilogue, y from x, += acc_c * (s_c * scale) per chunk, then + bias).
+    Three launches on CUDA tensors (two under a static scale); the plain
+    pieces on CPU tensors, equal to ``mlp_block_reference`` /
+    ``mlp_chunked_reference`` bit for bit."""
+    s_in, s_mid = _split(static_s)
+    u, amax = _fc1(x, mod, w1, s_in, s_mid, n_chunks or 1, w4)
+    if s_mid is None:
+        u, amax = quantize_wide(u, amax=amax)
+    return _dense_int8(u, amax, (w2,), s_mid, w4, residual=x, n_chunks=n_chunks)[0]
 
 
 def _mlp_chunked(name: str, x, mod, w1, w2, n_chunks: int, static_s):
@@ -500,13 +470,13 @@ def _mlp_chunked(name: str, x, mod, w1, w2, n_chunks: int, static_s):
     if n_chunks < 1 or Dh % n_chunks or (Dh // n_chunks) % 128:
         raise ValueError(f"{name}: hidden width {Dh} in {n_chunks} chunks; the kernel takes "
                          "chunks that are a multiple of 128 wide")
-    return _mlp(lib, x, mod, w1, w2, Dh, static_s, False, n_chunks)
+    return _mlp(x, mod, w1, w2, static_s, False, n_chunks)
 
 
 def mlp_block_chunked(x, mod, w1, w2, *, n_chunks: int = 4, static_s: StaticS = None):
     """K9: x (M, D) bf16 -> x + fc2(gelu2(fc1(ln(x)))) with the hidden
     dimension in ``n_chunks`` chunks (``mlp_chunked_reference``). W8 weights.
-    Two launches on a CUDA tensor."""
+    Three launches on a CUDA tensor, two under a static scale (``_mlp``)."""
     if not ik.on_cuda(x, "mlp_block_chunked"):
         return mlp_chunked_reference(x, mod, w1, w2, n_chunks=n_chunks, static_s=static_s)
     out = _mlp_chunked("mlp_block_chunked", x, mod, w1, w2, n_chunks, static_s)
@@ -532,4 +502,3 @@ mlp_block.launches = 0
 mlp_block_chunked.launches = 0
 mlp_block_streamed.launches = 0
 mha_inline_int8.launches = 0
-quantize_rows.launches = 0

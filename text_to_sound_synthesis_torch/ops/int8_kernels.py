@@ -2,7 +2,8 @@
 (the T1-T3 probes) and ``csrc/mha_int8.cu``, and the launch helpers that the
 int8 kernel wrappers share: ``quant.fused_quant_dense[_multi]`` (K6),
 ``attention.fused_mha`` (K7) and the blocks of ``int8_block`` (K3-K5, K8, K9),
-their quantize pass and their int8 attention (K10); the ablation probes ``mlp_ablate`` (T2) and
+the quantize passes in front of their dots (``quant.quantize_rows``,
+``quant.quantize_wide``) and their int8 attention (K10); the ablation probes ``mlp_ablate`` (T2) and
 ``attn_ablate`` (T3) and ``dot.tiled_dot`` (T1) launch the probe library for
 their own configurations and the engine's for the launches they share with
 it; ``fused_gn_conv`` (K11) uses the checks. Nothing here counts launches:
@@ -22,17 +23,17 @@ import torch
 from ..utils.cuda_build import load_library
 
 __all__ = ["load_kernel", "load_probe_kernel", "load_mha_int8", "workspace", "on_cuda", "check",
-           "check_weight", "check_mha", "dense", "row_amax", "quant_rows", "mha", "mha_int8",
-           "MHA_MODES", "PANEL", "STREAM", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
+           "check_weight", "check_mha", "dense", "quant_rows", "quant_wide", "mha", "mha_int8",
+           "MHA_MODES", "PANEL", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
            "EPI_WRAP8", "EPI_CLIP8", "EPI_SHIFT8", "EF_MID_BF16", "EF_SIG_C", "EF_FAST_SIG",
            "EF_Q_BF16", "EF_RAW_BF16"]
 
-PANEL, STREAM, INT8 = 0, 1, 2
-# the panel's inputs; "cast", "ln_onepass" and "sum3" are the T2 / T3 probes'
-_NORM = {"none": 0, "adaln": 1, "ln": 2, "cast": 3, "ln_onepass": 4, "sum3": 5}
+PANEL, INT8 = 0, 2
+# the panel's and the row pass's norms; "cast" and "ln_onepass" are the T2 probe's
+_NORM = {"none": 0, "adaln": 1, "ln": 2, "cast": 3, "ln_onepass": 4}
 EPI_STORE, EPI_GELU_INT8, EPI_CHUNKED, EPI_RAW = 0, 1, 2, 3
 EPI_WRAP8, EPI_CLIP8, EPI_SHIFT8 = 4, 5, 6              # the T2 probe's int8 middles
-# the T2 probe's epilogue / quantize flags (``kEfProbe`` in csrc/int8_gemm_mma.cuh)
+# the T2 probe's epilogue flags (``kEfProbe`` in csrc/int8_gemm_sm90.cuh)
 EF_MID_BF16, EF_SIG_C, EF_FAST_SIG, EF_Q_BF16, EF_RAW_BF16 = 64, 128, 256, 512, 1024
 # the attention launch's MHA (``MhaMode`` in csrc/int8_mha.cuh): the engine's
 # library runs the first three, the probe library (``load_probe_kernel``) the rest
@@ -41,12 +42,15 @@ MHA_MODES = {"bf16": 0, "bf16_fold": 1, "pair": 2, "pair_nofold": 3, "no_softmax
 
 
 def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """argtypes of ``t2s_int8_dense`` and ``t2s_int8_mha``, which both
-    libraries export with the same signatures (each its own instantiations)."""
+    """argtypes of ``t2s_int8_dense``, ``t2s_int8_quant_wide`` and
+    ``t2s_int8_mha``, which both libraries export with the same signatures
+    (each its own instantiations)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.t2s_int8_dense.argtypes = ([I, I, I, I, P, I, P, P, F, F, I, I] + [P] * 12
+    lib.t2s_int8_dense.argtypes = ([I, I, I, I, P, P, P, F, F, I, I] + [P] * 12
                                    + [P, I, I, I, P, F, I, I, I, I, I, F, P, P])
     lib.t2s_int8_dense.restype = I
+    lib.t2s_int8_quant_wide.argtypes = [P, I, I, I, I, P, F, I, I, P, P, P]
+    lib.t2s_int8_quant_wide.restype = I
     lib.t2s_int8_mha.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.t2s_int8_mha.restype = I
     return lib
@@ -57,8 +61,6 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load ``csrc/int8_block.cu``, the engine's launches."""
     lib = _bind_dense(load_library("int8_block", ["int8_block.cu"]))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.t2s_int8_row_amax.argtypes = [P, I, I, P, P]
-    lib.t2s_int8_row_amax.restype = I
     lib.t2s_int8_quant_rows.argtypes = [I, P, I, P, I, I, ctypes.c_float, I, P, P, P]
     lib.t2s_int8_quant_rows.restype = I
     lib.t2s_int8_limits.argtypes = [I]
@@ -69,8 +71,8 @@ def load_kernel() -> ctypes.CDLL:
 @functools.cache
 def load_probe_kernel() -> ctypes.CDLL:
     """Build (first use) and load ``csrc/int8_probe.cu``: the T2 / T3
-    configurations of ``t2s_int8_dense`` and ``t2s_int8_mha``, and T1's
-    ``t2s_tiled_dot``."""
+    configurations of ``t2s_int8_dense``, ``t2s_int8_quant_wide`` and
+    ``t2s_int8_mha``, and T1's ``t2s_tiled_dot``."""
     lib = _bind_dense(load_library("int8_probe", ["int8_probe.cu"]))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.t2s_tiled_dot.argtypes = [I, P, P, P, I, I, I, P, P]
@@ -175,11 +177,11 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
           amax_floor: float = 0.0) -> None:
     """One ``t2s_int8_dense`` launch of ``lib`` (``load_kernel`` or
     ``load_probe_kernel``; see the function's comment in ``csrc/int8_block.cu``)
-    on tensors the caller has checked. The dtypes of ``a``, ``residual`` and
-    ``outs`` (bf16 or f32) pick the kernel's loads and stores. ``a`` is (M, K),
-    or (3, M, K) f32 for ``norm="sum3"``; ``probe`` holds the T2 probe's
+    on tensors the caller has checked. The dtypes of ``residual`` and ``outs``
+    (bf16 or f32) pick the kernel's loads and stores; ``a`` is (M, K), bf16 for
+    the panel, int8 for the int8 A mode. ``probe`` holds the T2 probe's
     ``EF_*`` flags, ``amax_floor`` the floor of ``EF_MID_BF16``'s row max."""
-    M, K = a.shape[-2:]
+    M, K = a.shape
     N = ws[0].w_q.shape[0]
     s_static, inv, is_static = _static_args(s)
     out_inv = _static_args(s_out)[1]
@@ -193,7 +195,7 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
     f32 = lambda t: int(t is not None and t.dtype == torch.float32)
     ws_ptr = workspace(a.device).data_ptr()
     with _on_card(a):
-        err = lib.t2s_int8_dense(amode, _NORM[norm], int(w4), epi, a.data_ptr(), f32(a),
+        err = lib.t2s_int8_dense(amode, _NORM[norm], int(w4), epi, a.data_ptr(),
                                  _ptr(mod), _ptr(amax_in), s_static, inv, is_static, len(ws),
                                  *wargs, _ptr(residual), f32(residual), int(gelu), f32(outs[0]),
                                  _ptr(amax_out), out_inv, nch, M, K, N, probe,
@@ -202,33 +204,45 @@ def dense(lib, a: torch.Tensor, ws: Sequence, outs: Sequence[torch.Tensor], *,
         raise RuntimeError(f"int8 dense kernel launch failed: cudaError {err}")
 
 
-def row_amax(lib, a: torch.Tensor) -> torch.Tensor:
-    """(M, K) bf16 -> (M,) f32 row max |a| (one warp per row)."""
-    M, K = a.shape
-    amax = torch.empty((M,), dtype=torch.float32, device=a.device)
-    with _on_card(a):
-        err = lib.t2s_int8_row_amax(a.data_ptr(), M, K, amax.data_ptr(), _stream(a))
-    if err != 0:
-        raise RuntimeError(f"row max kernel launch failed: cudaError {err}")
-    return amax
-
-
-def quant_rows(lib, x: torch.Tensor, mod: Optional[torch.Tensor],
-               s: Optional[float]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The quantize pass on checked tensors: x (M, K) bf16 or f32 [-> AdaLN
-    with ``mod`` (2, K) f32] -> (q (M, K) int8, amax (M,) f32 row max |h|, or
-    None under the static scale ``s``)."""
+def quant_rows(lib, x: torch.Tensor, mod: Optional[torch.Tensor], s: Optional[float],
+               norm: str = "adaln") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The row pass on checked tensors: x (M, K) bf16 or f32 [-> ``norm``
+    ("adaln" or "ln") with ``mod`` (2, K) f32] -> (q (M, K) int8, amax (M,)
+    f32 row max |h|, or None under the static scale ``s``)."""
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     amax = None if s is not None else torch.empty((M,), dtype=torch.float32, device=x.device)
     _, inv, is_static = _static_args(s)
     with _on_card(x):
-        err = lib.t2s_int8_quant_rows(0 if mod is None else 1, x.data_ptr(),
+        err = lib.t2s_int8_quant_rows(0 if mod is None else _NORM[norm], x.data_ptr(),
                                       int(x.dtype == torch.float32), _ptr(mod), M, K, inv,
                                       is_static, q.data_ptr(), _ptr(amax), _stream(x))
     if err != 0:
         raise RuntimeError(f"quantize pass launch failed: cudaError {err}")
     return q, amax
+
+
+def quant_wide(lib, x: torch.Tensor, s: Optional[float], amax: Optional[torch.Tensor] = None,
+               qbf: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The wide pass of ``lib`` on checked tensors: x (M, K) bf16 or f32, or
+    (3, M, K) f32 whose planes it sums (the probe library's) -> (q (M, K)
+    int8, the row maxima): under the static scale ``s`` (None); with ``amax``
+    (M, nch) f32, each chunk of K / nch columns quantized with its own row
+    scale (``amax`` itself); else the row's own max |x| (a new (M,) f32).
+    ``qbf``: the probe library's bf16 row scale and quotient (T2 mid_bf16)."""
+    M, K = x.shape[-2:]
+    kind = 2 if x.dim() == 3 else int(x.dtype == torch.float32)
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    own = None if s is not None or amax is not None else torch.empty((M,), dtype=torch.float32,
+                                                                      device=x.device)
+    _, inv, is_static = _static_args(s)
+    nch = 1 if amax is None else amax.shape[-1]
+    with _on_card(x):
+        err = lib.t2s_int8_quant_wide(x.data_ptr(), kind, M, K, nch, _ptr(amax), inv, is_static,
+                                      int(qbf), q.data_ptr(), _ptr(own), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"wide quantize pass launch failed: cudaError {err}")
+    return q, (amax if own is None else own)
 
 
 def check_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,

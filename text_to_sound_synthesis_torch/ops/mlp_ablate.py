@@ -2,9 +2,9 @@
 
 Port of ``tools/bench_mlp_ablate.py::make_variant``: K3 (LN -> quantize ->
 fc1 -> GELU2 -> quantize -> fc2 -> + x) with one stage taken out or changed,
-picked by name. Each is a compile-time configuration of K3's two launches
-(fc1 on the LN panel, fc2 in the int8 or stream mode): the probe's own in
-``csrc/int8_probe.cu``, the fc2 launches it shares with K3 and K6 in
+picked by name. Each is a compile-time configuration of K3's launches (fc1
+on the LN panel, [the wide quantize pass], fc2 in the int8 A mode): the
+probe's own in ``csrc/int8_probe.cu``, those it shares with K3 in
 ``csrc/int8_block.cu``; ``mlp_variant`` launches them for a CUDA tensor and
 runs the plain twin ``mlp_variant_reference`` for a CPU one, counting its launches in
 ``.launches``. W8 weights, dynamic scales, as the JAX tool runs them. Each
@@ -37,7 +37,8 @@ import torch
 
 from . import int8_kernels as ik
 from .int8_block import _check_mlp
-from .quant import QuantizedWeight, _deq, _gelu2, _prologue, _quantize_rows, int_dot
+from .quant import (QuantizedWeight, _deq, _dense_int8, _gelu2, _prologue, _quantize_rows, int_dot,
+                    quantize_wide)
 
 __all__ = ["FUNCTIONS", "mlp_variant", "mlp_variant_reference", "pack_w16", "cast_int8",
            "wrap_int8"]
@@ -150,9 +151,10 @@ _FLOOR = {"mid_bf16": float(torch.tensor(1e-6, dtype=_BF)), "mid_bf16b": 1e-6, "
 
 
 def _launch(lib, plib, x, mod, w1, w2, variant: str):
-    """fc1, then fc2: two launches of ``t2s_int8_dense``, of the probe
-    library (``plib``) where the configuration is the probe's, else of the
-    engine's (``lib``)."""
+    """fc1, then fc2 (two launches of ``t2s_int8_dense``), with the wide
+    quantize pass between them where the middle is f32 or bf16 (three): of
+    the probe library (``plib``) where the configuration is the probe's, else
+    of the engine's (``lib``)."""
     M = x.shape[0]
     Dh = w1.w_q.shape[0]
     dev = x.device
@@ -174,16 +176,19 @@ def _launch(lib, plib, x, mod, w1, w2, variant: str):
     ik.dense(plib, x, (w1,), (u,), norm=norm, mod=None if norm == "none" else mod,
              gelu=variant != "no_gelu", amax_out=amax, probe=flags,
              amax_floor=_FLOOR.get(variant, 0.0))
-    q_bf16 = variant == "mid_bf16"   # the probe's stream quantize; the others K3's or K6's fc2
-    ik.dense(plib if q_bf16 else lib, u, (w2,), (out,), amode=ik.STREAM, amax_in=amax,
-             residual=x, probe=ik.EF_Q_BF16 if q_bf16 else 0)
-    return out
+    if variant == "mid_bf16":   # the probe's bf16 quantize and row scale
+        qu, _ = ik.quant_wide(plib, u, None, amax, qbf=True)
+        ik.dense(plib, qu, (w2,), (out,), amode=ik.INT8, amax_in=amax, residual=x,
+                 probe=ik.EF_Q_BF16)
+        return out
+    qu, _ = quantize_wide(u, amax=amax)   # the others: K3's dynamic fc2
+    return _dense_int8(qu, amax, (w2,), None, False, residual=x)[0]
 
 
 def mlp_variant(x, mod, w1: QuantizedWeight, w2: QuantizedWeight, *, variant: str) -> torch.Tensor:
     """T2: ``variant`` of K3 (module docstring), x (M, D) bf16 -> (M, D) bf16.
-    Two launches on a CUDA tensor (W8 weights, the width and hidden width as
-    K3 takes them); the plain twin on a CPU one."""
+    Two or three launches on a CUDA tensor (W8 weights, the width and hidden
+    width as K3 takes them); the plain twin on a CPU one."""
     _check_variant(variant)
     if not ik.on_cuda(x, "mlp_variant"):
         return mlp_variant_reference(x, mod, w1, w2, variant=variant)

@@ -6,9 +6,19 @@ Port of ``text_to_sound_synthesis_tpu/ops/quant.py``: ``QuantizedWeight``,
 quantize helpers, the plain quantized dense ``quant_dense_reference`` (and
 ``quant_dense_multi_reference``, the same over several weights), and K6:
 ``fused_quant_dense`` / ``fused_quant_dense_multi``, wrappers that launch the
-CUDA dense of ``csrc/int8_block.cu`` for a CUDA tensor and run the plain
+CUDA kernels of ``csrc/int8_block.cu`` for a CUDA tensor and run the plain
 twin for a CPU one, each counting its calls in ``.launches``. The TPU
 schedule options (``block_m``, ``interpret``) are not carried over.
+
+On the card every int8 dot of the engine reads an int8 A that a quantize
+pass wrote, and this module holds those pieces (``int8_block`` composes
+them too): the row pass ``quantize_rows`` ([LN or AdaLN] -> quantize, rows
+up to ``ROW_PASS_K`` wide) and the wide pass ``quantize_wide`` (no norm, any
+width, the row's own max, given per-chunk maxima or a static scale), each
+with its plain twin and its own ``.launches``, and ``_dense_int8``, the dot
+launch in the Hopper GEMM's int8 A mode. K6 is a pass and one such dot
+(``_dense_schedule``); on CPU tensors the same schedule runs from the plain
+pieces and equals ``quant_dense_reference`` bit for bit.
 
 Layout: ``w_q`` is stored as the torch ``Linear`` weight is, (N, K) = (out,
 in), where the JAX package stores (K, N); the values are bit-identical to the
@@ -32,9 +42,13 @@ from . import int8_kernels as ik
 
 __all__ = ["QuantizedWeight", "quantize_weight", "quantize_weight_w4", "unpack_weight_w4",
            "quant_dense_reference", "quant_dense_multi_reference", "quant_dense_xla",
-           "fused_quant_dense", "fused_quant_dense_multi", "int_dot", "LN_EPS"]
+           "fused_quant_dense", "fused_quant_dense_multi", "quantize_rows",
+           "quantize_rows_reference", "quantize_wide", "quantize_wide_reference", "int_dot",
+           "LN_EPS", "ROW_PASS_K"]
 
 LN_EPS = 1e-6
+# the row pass's widest row (``t2s_int8_limits(0)``: its rows live in registers)
+ROW_PASS_K = 1024
 
 
 class QuantizedWeight(NamedTuple):
@@ -174,6 +188,145 @@ def quant_dense_multi_reference(x: torch.Tensor, ws: Sequence[QuantizedWeight],
 
 
 # ---------------------------------------------------------------------------
+# The quantize passes and the int8 A mode's dot, the pieces of every schedule
+# ---------------------------------------------------------------------------
+
+_NORMS = ("adaln", "ln")
+
+
+def _mods(mod):
+    mod = mod.float()
+    return mod[0:1], mod[1:2]
+
+
+def quantize_rows_reference(x, mod=None, *, static_s: Optional[float] = None,
+                            norm: str = "adaln"):
+    """Plain twin of the row pass: x (M, K) bf16 or f32 [-> ``norm`` ("adaln"
+    or "ln") with ``mod`` (2, K)] -> (q (M, K) int8, the f32 (M,) row max |h|,
+    or None under the static scale ``static_s``): the JAX kernels'
+    ``_prologue(x, mod, norm)`` (or none) and ``_quant``."""
+    if norm not in _NORMS:
+        raise ValueError(f"norm must be one of {_NORMS}, got {norm!r}")
+    xf = x.float()
+    h = xf if mod is None else _prologue(xf, *_mods(mod), norm)
+    q, _ = _quant(h, static_s)
+    return q, (h.abs().amax(dim=-1) if static_s is None else None)
+
+
+def quantize_rows(x, mod=None, *, static_s: Optional[float] = None, norm: str = "adaln"):
+    """The row pass (``quantize_rows_reference``): one launch on a CUDA
+    tensor, K a multiple of 128 up to ``ROW_PASS_K``; bf16 rows with any
+    norm, f32 rows with AdaLN (K8's cross half). Its int8 rows and row maxima
+    are what the GEMM's panel held."""
+    if norm not in _NORMS:
+        raise ValueError(f"norm must be one of {_NORMS}, got {norm!r}")
+    if not ik.on_cuda(x, "quantize_rows"):
+        return quantize_rows_reference(x, mod, static_s=static_s, norm=norm)
+    lib = ik.load_kernel()
+    M, K = x.shape
+    ik.check("x", x, (M, K), (torch.bfloat16, torch.float32), x.device)
+    if K % 128 or K > lib.t2s_int8_limits(0):
+        raise ValueError(f"width {K} must be a multiple of 128 and at most "
+                         f"{lib.t2s_int8_limits(0)}")
+    if mod is not None:
+        ik.check("mod", mod, (2, K), torch.float32, x.device)
+    if x.dtype == torch.float32 and (mod is None or norm != "adaln"):
+        raise TypeError("the row pass takes f32 rows with AdaLN only, bf16 rows otherwise")
+    out = ik.quant_rows(lib, x, mod, static_s, norm)
+    quantize_rows.launches += 1
+    return out
+
+
+def quantize_wide_reference(x, *, static_s: Optional[float] = None,
+                            amax: Optional[torch.Tensor] = None):
+    """Plain twin of the wide pass: x (M, K) bf16 or f32, no norm -> (q (M, K)
+    int8, the row maxima): ``_quantize_static`` under ``static_s`` (maxima
+    None); with ``amax`` (M, nch) given, chunk c of the K / nch columns
+    quantized as ``_quantize_rows`` would with max |h| = amax[:, c] (maxima:
+    ``amax``); else ``_quantize_rows`` over the row (maxima (M,))."""
+    xf = x.float()
+    if static_s is not None:
+        return _quantize_static(xf, static_s)[0], None
+    if amax is None:
+        return _quantize_rows(xf)[0], xf.abs().amax(dim=-1)
+    M, K = xf.shape
+    s = amax.clamp_min(1e-8) / 127.0                               # (M, nch)
+    q = torch.round(xf.reshape(M, s.shape[1], -1) / s[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(M, K), amax
+
+
+def quantize_wide(x, *, static_s: Optional[float] = None, amax: Optional[torch.Tensor] = None):
+    """The wide pass (``quantize_wide_reference``): one launch on a CUDA
+    tensor, x (M, K) bf16 or f32, K a multiple of 4; ``amax`` (M, nch) f32,
+    chunks of a multiple of 4 columns."""
+    if not ik.on_cuda(x, "quantize_wide"):
+        return quantize_wide_reference(x, static_s=static_s, amax=amax)
+    lib = ik.load_kernel()
+    M, K = x.shape
+    ik.check("x", x, (M, K), (torch.bfloat16, torch.float32), x.device)
+    if K % 4:
+        raise ValueError(f"width {K} must be a multiple of 4")
+    if amax is not None and static_s is None:
+        nch = amax.shape[-1]
+        ik.check("amax", amax, (M, nch), torch.float32, x.device)
+        if K % nch or (K // nch) % 4:
+            raise ValueError(f"width {K} in {nch} chunks: each a multiple of 4 wide")
+    out = ik.quant_wide(lib, x, static_s, None if static_s is not None else amax)
+    quantize_wide.launches += 1
+    return out
+
+
+def _row_scale(amax, s_static):
+    """The dots' row scales: the static scale rounded to f32, or max(amax,
+    1e-8) / 127 per row (and chunk) as ``_quantize_rows`` takes it, (M, nch)."""
+    if amax is None:
+        return float(np.float32(s_static))
+    return amax.reshape(amax.shape[0], -1).clamp_min(1e-8) / 127.0
+
+
+def _dense_int8_reference(qa, s, ws, w4: bool, residual=None, out_dtype=torch.bfloat16,
+                          gelu: bool = False, n_chunks: Optional[int] = None):
+    """Plain twin of ``_dense_int8`` given the row scales ``s`` (a float, or
+    (M, 1) / (M, n_chunks) f32)."""
+    outs = []
+    for w in (unpack_weight_w4(w) if w4 else w for w in ws):
+        if n_chunks is None:
+            y = _deq(int_dot(qa, w.w_q), s, w)
+            y = _gelu2(y) if gelu else y
+            y = y if residual is None else y + residual.float()
+        else:
+            y, ck = residual.float(), qa.shape[1] // n_chunks
+            for c in range(n_chunks):
+                sl = slice(c * ck, (c + 1) * ck)
+                sc = s if isinstance(s, float) else s[:, c:c + 1]
+                y = y + int_dot(qa[:, sl], w.w_q[:, sl]) * (sc * w.scale)
+            y = y + w.bias
+        outs.append(y.to(out_dtype))
+    return outs
+
+
+def _dense_int8(qa, amax, ws, s_static, w4: bool, residual=None, out_dtype=torch.bfloat16,
+                gelu: bool = False, n_chunks: Optional[int] = None):
+    """The dots from a quantize pass's output, one per weight, s_row the
+    static scale or max(amax, 1e-8) / 127 (``_quantize_rows``'s): acc *
+    (s_row * scale) + bias [-> GELU2] [+ residual] -> ``out_dtype``; or, with
+    ``n_chunks`` (K9's fc2; ``amax`` (M, n_chunks)), from the residual, +=
+    acc_c * (s_c * scale) per chunk of K in order, then + bias. One launch of
+    the Hopper GEMM's int8 A mode on the card (the weights share A); plain
+    (``_dense_int8_reference``) on the CPU."""
+    if not ik.on_cuda(qa, "the int8 dense"):
+        return _dense_int8_reference(qa, _row_scale(amax, s_static), ws, w4, residual, out_dtype,
+                                     gelu, n_chunks)
+    # one allocation for all the weights' outputs: each costs host time
+    outs = torch.empty((len(ws), qa.shape[0], ws[0].w_q.shape[0]), dtype=out_dtype,
+                       device=qa.device).unbind(0)
+    ik.dense(ik.load_kernel(), qa, ws, outs, amode=ik.INT8, s=s_static, amax_in=amax,
+             residual=residual, w4=w4, gelu=gelu, nch=n_chunks or 1,
+             epi=ik.EPI_STORE if n_chunks is None else ik.EPI_CHUNKED)
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # K6: the per-dense kernel
 # ---------------------------------------------------------------------------
 
@@ -189,13 +342,29 @@ def _check_dense_args(ws, norm: str, mod, act: str, residual) -> None:
         raise ValueError("residual requires equal output widths")
 
 
+def _dense_schedule(x, ws, *, norm, mod, act, residual, out_dtype, s_static):
+    """K6 as two steps: the quantize pass (the row pass with the norm at K a
+    multiple of 128 up to ``ROW_PASS_K``, else the wide pass, which takes no
+    norm) -> one int8-A-mode dot launch that the weights share, [GELU2] [+
+    residual] -> ``out_dtype``. Two launches on CUDA tensors; the plain
+    pieces on CPU tensors, equal to ``quant_dense_multi_reference`` bit for
+    bit."""
+    K = x.shape[1]
+    if norm == "none" and (K % 128 or K > ROW_PASS_K):
+        qa, amax = quantize_wide(x, static_s=s_static)
+    else:
+        if norm != "none" and mod is None:   # AdaLN without a modulation, as the twin takes it
+            mod = torch.zeros((2, K), dtype=torch.float32, device=x.device)
+        qa, amax = quantize_rows(x, None if norm == "none" else mod, static_s=s_static,
+                                 norm="adaln" if norm == "none" else norm)
+    return tuple(_dense_int8(qa, amax, ws, s_static, False, residual=residual,
+                             out_dtype=out_dtype, gelu=act == "gelu2"))
+
+
 def _dense_cuda(x, ws, *, norm, mod, act, residual, out_dtype, s_static):
-    """K6 on the card: one GEMM launch that shares its quantized input among
-    up to three weights. K <= 1024 (a multiple of 128) builds normalised,
-    quantized row panels in shared memory; a wider input (norm 'none' only,
-    the per-dense fc2 at K = 4096) streams its rows and quantizes them on the
-    fly, after a one-warp-per-row pass for the row max |x| under a dynamic
-    scale."""
+    """K6 on the card: ``_dense_schedule`` on checked tensors (x bf16, one to
+    three W8 weights of one output width, a multiple of 128; K a multiple of
+    128 up to ``ROW_PASS_K`` under a norm, any multiple of 64 without)."""
     lib = ik.load_kernel()
     M, K = x.shape
     dev = x.device
@@ -211,25 +380,16 @@ def _dense_cuda(x, ws, *, norm, mod, act, residual, out_dtype, s_static):
         raise ValueError(f"output width {N} must be a multiple of 128")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
-    panel_k = lib.t2s_int8_limits(0)
-    panel = K % 128 == 0 and K <= panel_k
-    if not panel and (norm != "none" or K % 64):
+    row_k = lib.t2s_int8_limits(0)
+    if (norm != "none" and (K % 128 or K > row_k)) or K % 64:
         raise ValueError(f"input width {K}: a normalised input must be a multiple of 128 and at "
-                         f"most {panel_k} wide, any input a multiple of 64")
-    if norm != "none":
-        if mod is None:    # AdaLN without a modulation, as the plain twin takes it
-            mod = torch.zeros((2, K), dtype=torch.float32, device=dev)
+                         f"most {row_k} wide, any input a multiple of 64")
+    if norm != "none" and mod is not None:
         ik.check("mod", mod, (2, K), torch.float32, dev)
     if residual is not None:
         ik.check("residual", residual, (M, N), (torch.bfloat16, torch.float32), dev)
-    outs = tuple(torch.empty((M, N), dtype=out_dtype, device=dev) for _ in ws)
-    kw = dict(s=s_static, residual=residual, gelu=act == "gelu2")
-    if panel:
-        ik.dense(lib, x, ws, outs, norm=norm, mod=mod if norm != "none" else None, **kw)
-    else:
-        amax = None if s_static is not None else ik.row_amax(lib, x)
-        ik.dense(lib, x, ws, outs, amode=ik.STREAM, amax_in=amax, **kw)
-    return outs
+    return _dense_schedule(x, ws, norm=norm, mod=mod, act=act, residual=residual,
+                           out_dtype=out_dtype, s_static=s_static)
 
 
 def fused_quant_dense(x: torch.Tensor, w: QuantizedWeight, *, norm: str = "none",
@@ -240,7 +400,8 @@ def fused_quant_dense(x: torch.Tensor, w: QuantizedWeight, *, norm: str = "none"
     """K6, one weight: x (M, K) -> [LN/AdaLN] -> quantize (per row, or static
     ``s_static``) -> int8 dot -> dequant + bias -> [GELU2] -> [+ residual] ->
     (M, N) ``out_dtype``. The CUDA kernel for a CUDA tensor (W8 weights, x
-    bf16), ``quant_dense_reference`` for a CPU one."""
+    bf16): a quantize pass and one int8-A-mode dot (``_dense_schedule``);
+    ``quant_dense_reference`` for a CPU one."""
     _check_dense_args((w,), norm, mod, act, residual)
     kw = dict(norm=norm, mod=mod, act=act, residual=residual, out_dtype=out_dtype,
               s_static=s_static)
@@ -272,3 +433,5 @@ def fused_quant_dense_multi(x: torch.Tensor, ws: Sequence[QuantizedWeight], *,
 
 fused_quant_dense.launches = 0
 fused_quant_dense_multi.launches = 0
+quantize_rows.launches = 0
+quantize_wide.launches = 0

@@ -10,9 +10,12 @@
 # parent / change / change / parent ($AB_TOOLS, by default bench_attn_ablate
 # full pair_both: K4 with the bf16 and with the pair MHA; e.g. AB_TOOLS="-m
 # text_to_sound_synthesis_torch.tools.bench_kernel_dot 200" for the GEMMs'
-# tools), then chip_profile.py in the parent and in the
-# change (the full tables go to $AB_OUT/profile_{parent,change}.txt, build/ab
-# by default), and, given arguments, tools.sass_diff with the parent's
+# tools; AB_COPY="text_to_sound_synthesis_torch/tools/bench_schedules.py" to run a
+# tool the parent lacks), then the change's chip_profile.py (copied over the
+# parent's, so that both profile the same requests) in the parent and in the change, on the
+# paths $AB_PROFILE names (all by default; the full tables go to
+# $AB_OUT/profile_{parent,change}.txt, build/ab by default, and each path's
+# summary line is printed), and, given arguments, tools.sass_diff with the parent's
 # int8_block.cu as OLD and those arguments after it (e.g. --new
 # ...int8_block.cu ...int8_probe.cu --moved REGEX ...). Prints the card's name
 # and power limit first.
@@ -57,14 +60,18 @@ tools() {
   (cd "$1" && timeout 600 python $AB_TOOLS)
 }
 
+# the change's profile script and the files named in $AB_COPY (tools the
+# parent lacks) over the parent's, so that both trees run the same measurements
+for f in chip_profile.py ${AB_COPY}; do cp "$f" "$PARENT/$f"; done
 echo "=== build: parent"; build "$PARENT"
 echo "=== build: change"; build .
 tools "$PARENT"; tools .; tools .; tools "$PARENT"
 for side in parent change; do
   dir=$([ "$side" = parent ] && echo "$PARENT" || echo .)
   echo "=== chip_profile.py: ${side}"
-  (cd "$dir" && timeout 900 python3 chip_profile.py) > "$OUT/profile_${side}.txt" 2>&1
-  grep -A32 "^\[W4A8 static\]" "$OUT/profile_${side}.txt"
+  # shellcheck disable=SC2086   # AB_PROFILE is a list of path names
+  (cd "$dir" && timeout 900 python3 chip_profile.py $AB_PROFILE) > "$OUT/profile_${side}.txt" 2>&1
+  grep "^\[" "$OUT/profile_${side}.txt"
 done
 if [ $# -gt 0 ]; then
   echo "=== sass_diff"
