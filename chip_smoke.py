@@ -45,8 +45,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
              bf16 ulps off and the pair MHA on the share more than
              PAIR_MHA_ULPS off, gates the bf16 MHA must fail; K4, K5 (W8 and
              W4) and K8 with the int8 MHA, dynamic and static scales; eager
-             and CUDA-graph times, kernel and plain, and for K7 the time of
-             ``scaled_dot_product_attention`` on the same tensors. K11 (no
+             and CUDA-graph times, kernel and plain, for K7 the time of
+             ``scaled_dot_product_attention`` on the same tensors, and K10
+             and the pair MHA in CUDA graphs at 265 and 77 keys beside K7
+             and ``scaled_dot_product_attention``. K11 (no
              request path reaches it) at the flagship decoder's five stages
              (batch 8, bf16, 32 groups) against its twin within GN_TOL, its
              gradient at GN_GRAD_SHAPE within GN_GRAD_TOL (its backward, given
@@ -84,13 +86,15 @@ Phases (any failed check exits nonzero, and no result line is printed):
              100-step ``generate_int8`` requests to a wav, in turns with the
              default switches and under ``T2S_ATTN_MHA=base`` (the bf16 MHA),
              with the same output checks and exact launch counts (K4 = K5 =
-             K3 = 19 x 100, K2 = 100, the quantize pass 4 x 19 x 100, every
+             K3 = 19 x 100, K2 = 100, the quantize pass 4 x 19 x 100, the
+             pair MHA 2 x 19 x 100 by default and 0 under the switch, every
              other kernel, the wide pass, K11 and T1-T3 too, 0 per request).
 7. W8      — the W8A8 dynamic engine, ``quantize_for_serving()``: three steps
              of the per-dense path (``impl="pallas_dense"``) and three of
              ``T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked``, each kernel call against
              its twin as in phase 6; then seven batch-8, 100-step requests to a
-             wav, in turns: the block path twice, the per-dense path twice
+             wav, in turns: the block path twice (the pair MHA 2 x 19 x 100),
+             the per-dense path twice
              (K6 multi = 6 x 19 x 100, K7 = 2 x 19 x 100, the quantize pass 5
              x 19 x 100), pair + chunked
              twice (K8 = K9 chunked = 19 x 100) and pair + streamed once
@@ -104,8 +108,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
              wide pass 19 x 100).
 9. long    — one W4A8 ``generate_long`` request, batch 8, 2120 frames: 24
              sampler rows in one sampler call (K2 = 100, K4 = K5 = K3 = 19 x
-             100), a finite (8, 80, 2120, 1) mel whose cross-fade agrees with
-             its segments, then the wav in [-1, 1].
+             100, the pair MHA 2 x 19 x 100), a finite (8, 80, 2120, 1) mel
+             whose cross-fade agrees with its segments, then the wav in [-1,
+             1].
 10. times  — each path's request time and clips/s, beside the card's name
              and power limit. Every request phase counts K11 and T1-T3 at 0.
 
@@ -853,15 +858,21 @@ def phase_schedules(dev):
             quant.fused_quant_dense.launches, {"fused_mha": sum(sdpa_times) / len(sdpa_times)})
 
 
+def _sdpa(qkv):
+    """``scaled_dot_product_attention`` on q, k, v (B*L, D) as (B, H, L, hd)
+    views, no key masked, as a function of nothing."""
+    hd = D_MODEL // N_HEAD
+    q, k, v = (t.view(BATCH, -1, N_HEAD, hd).transpose(1, 2) for t in qkv)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
 def time_sdpa(label: str, qkv, want) -> float:
     """PyTorch's one call for the bf16 MHA, ``scaled_dot_product_attention``
     on the same q, k, v as (B, H, L, hd) views, no key masked: returns its
     eager time per call, the faster of two runs, as the kernels' (prints its
     CUDA-graph time too). A yardstick only; the port never calls it. Checks
     that it computes the same function (within BLOCK_TOL)."""
-    hd = D_MODEL // N_HEAD
-    q, k, v = (t.view(BATCH, -1, N_HEAD, hd).transpose(1, 2) for t in qkv)
-    call = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    call = _sdpa(qkv)
     _block_err(call().transpose(1, 2).reshape(want.shape), want, f"{label} SDPA: ")
     ms = min(cuda_time_ms(call, iters=20, warmup=3), cuda_time_ms(call, iters=20, warmup=3))
     print(f"  {label}, scaled_dot_product_attention per call: eager {ms:.4f} ms, CUDA graph "
@@ -872,10 +883,11 @@ def time_sdpa(label: str, qkv, want) -> float:
 def phase_int8_attention(dev):
     """Phase 4 (cont.): K10, the folded bf16 MHA and the pair-packed MHA
     against their plain versions at the flagship shapes, then K4, K5 (W8
-    and W4) and K8 with the int8 MHA, dynamic and static scales. Returns
-    {name: (max_abs_err, ms, plain_ms)}: K10 and the three bf16 MHAs
+    and W4) and K8 with the int8 MHA, dynamic and static scales; K10 and the
+    pair MHA in CUDA graphs beside K7 and ``scaled_dot_product_attention``.
+    Returns ({name: (max_abs_err, ms, plain_ms)}: K10 and the three bf16 MHAs
     averaged over the self and the cross attention, K4 / K5 with the int8
-    MHA in the served mode (W4 static)."""
+    MHA in the served mode (W4 static); SDPA's eager ms averaged alike)."""
     from text_to_sound_synthesis_torch.ops import attention as attn
     from text_to_sound_synthesis_torch.ops import int8_block as ib
     from text_to_sound_synthesis_torch.ops import int8_kernels as ik
@@ -992,7 +1004,21 @@ def phase_int8_attention(dev):
           f"{times['mha folded divide'][2]:.4f} ms), pair MHA {times['mha pair'][1]:.4f} ms (plain "
           f"{times['mha pair'][2]:.4f} ms), bf16 MHA {times['mha bf16'][1]:.4f} ms: the pair MHA "
           f"{times['mha pair'][1] / times['mha bf16'][1]:.3f} x the bf16 MHA")
-    return times
+    # device time per call (CUDA graphs) at the self and the cross attention's
+    # key counts: K10 and the pair MHA beside K7 (the bf16 MHA) and SDPA
+    sdpa = []
+    for label, (qkv, valid) in cases.items():
+        if "masked" in label:
+            continue
+        want = attn.mha_reference(*qkv, batch=BATCH, n_head=N_HEAD, kv_valid=valid)
+        sdpa.append(time_sdpa(f"mha {label}", qkv, want))
+        graphs = [(name, graph_time_ms(make(qkv, valid)[0], reps=10, replays=5))
+                  for name, make in (("K10", k10), ("pair MHA", pair_mha), ("K7", bf16_mha))]
+        graphs.append(("scaled_dot_product_attention", graph_time_ms(_sdpa(qkv), reps=10,
+                                                                     replays=5)))
+        print(f"  CUDA graph per call, {label}: "
+              + ", ".join(f"{name} {ms:.4f} ms" for name, ms in graphs))
+    return times, sum(sdpa) / len(sdpa)
 
 
 def phase_gn_conv(dev):
@@ -1446,8 +1472,8 @@ def _counters():
             "K4": ib.self_attn_block, "K5": ib.cross_attn_block, "K6": quant.fused_quant_dense,
             "K6m": quant.fused_quant_dense_multi, "K7": attn.fused_mha, "K8": ib.attn_pair_block,
             "K9c": ib.mlp_block_chunked, "K9s": ib.mlp_block_streamed,
-            "K10": ib.mha_inline_int8, "K11": gn.gn_swish_conv, "T1": dot.tiled_dot,
-            "T2": mlp_ablate.mlp_variant, "T3": attn_ablate.attn_variant,
+            "K10": ib.mha_inline_int8, "Kp": attn.mha_pair, "K11": gn.gn_swish_conv,
+            "T1": dot.tiled_dot, "T2": mlp_ablate.mlp_variant, "T3": attn_ablate.attn_variant,
             "Kq": quant.quantize_rows, "Kw": quant.quantize_wide}
 
 
@@ -1484,7 +1510,8 @@ def phase_w8(model, fs, dd, vocoder, cond_tokens, dev):
     # under dynamic scales one wide pass a K3 or K9 call (its middle), and
     # one a layer of the per-dense path (fc2's input, 4096 wide); each of
     # the other five K6 calls a row pass
-    paths = {"blocks": ({}, None, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kw=LN)),
+    paths = {"blocks": ({}, None, expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kw=LN,
+                                                   Kp=2 * LN)),
              "per-dense": ({}, "pallas_dense",
                            expected_counts(K2=N_STEPS, K6m=6 * LN, K7=2 * LN, Kq=5 * LN, Kw=LN)),
              "pair+chunked": (pair_chunked, None,
@@ -1577,7 +1604,7 @@ def phase_long(model, qp, vocoder, cond_tokens, dev):
         counts = read_counts()
     finally:
         del model.generate_int8
-    want = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)
+    want = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kp=2 * LN)
     rows = [s.shape[0] for s in segments]
     check(rows == [BATCH * n_seg], f"long: sampler calls of {rows} rows, expected one of "
           f"{BATCH * n_seg}")
@@ -1641,9 +1668,10 @@ def _sum_bound(*bounds):
 def kernel_bounds():
     """Each kernel's bound at the shapes its time was taken at (phases 3 and
     4): K1 bf16 logits; K3-K5 W4 static; K6-K9 W8 dynamic; K6 multi over a
-    layer's six sites, K7 and K10 over the self and the cross attention; K11
-    summed over the decoder's five stages (x and y in bf16, the f32 kernel,
-    gamma, beta and bias read once); T1 int8 -> int32 at the fc1 shape; T2
+    layer's six sites, K7, K10 and the pair MHA over the self and the cross
+    attention; K11 summed over the decoder's five stages (x and y in bf16,
+    the f32 kernel, gamma, beta and bias read once); T1 int8 -> int32 at the
+    fc1 shape; T2
     ``dots_only`` (x, two W8 weights and y; its two int8 dots) and T3
     ``qkvp_dots_only`` (x, four W8 weights and y; its four int8 dots, the
     AdaLN and quantize passes) at their tools' shapes."""
@@ -1696,6 +1724,9 @@ def kernel_bounds():
             dense(act(M, D) + 8 * D + w8(F, D) + act(M, F), F, D, norm + 8 * M * F),
             dense(act(M, F) + w8(D, F) + 2 * act(M, D), D, F, 4 * M * F + 4 * M * D)),
         "fused_mha": _mean_bound(mha(L, "bf16", lambda k: 0), mha(S, "bf16", lambda k: 0)),
+        # the pair MHA: K7's bytes and products (the second Q K^T of head B is
+        # the kernel's choice, not the function's work)
+        "mha_pair": _mean_bound(mha(L, "bf16", lambda k: 0), mha(S, "bf16", lambda k: 0)),
         # the quantize pass, AdaLN, static: x in, int8 out, the LayerNorm and quantize
         "quantize_rows": _bound(act(M, D) + 8 * D + M * D, f32=norm),
         # the wide pass at K9's middle: f32 rows and 4 maxima a row in, int8
@@ -1766,7 +1797,7 @@ def main() -> int:
     wide_res = phase_wide_pass(dev)
     head_res = phase_head(fs, dd, dev)
     sched_res, k6_launches, library = phase_schedules(dev)
-    att_res = phase_int8_attention(dev)
+    att_res, library["mha_pair"] = phase_int8_attention(dev)
     gn_res, gn_launches = phase_gn_conv(dev)
     dot_res, dot_launches, library["make_pallas_dot"] = phase_dot(dev)
     (t2_res, t2_launches), (t3_res, t3_launches), library["mlp_variant"] = phase_ablate(dev)
@@ -1816,7 +1847,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     int8_times, base_times, int8_counts = [], [], {k: 0 for k in _counters()}
     LN = N_LAYER * N_STEPS
-    expect = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN)
+    expect = {mode: expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kp=2 * LN * (mode == "pair"))
+              for mode in ("pair", "base")}
     # in turns: the default (the pair MHA) and T2S_ATTN_MHA=base (the bf16 MHA)
     for i, mode in enumerate(("pair", "base", "pair", "base")):
         with switches(**({} if mode == "pair" else dict(T2S_ATTN_MHA="base"))):
@@ -1824,13 +1856,13 @@ def main() -> int:
             (int8_times if mode == "pair" else base_times).append(
                 request(int8_generate, vocoder, SEED + i, dev))
             counts = read_counts()
-        check(counts == expect, f"serving ({mode} MHA): launches {counts} per request, expected "
-              f"{expect}")
+        check(counts == expect[mode], f"serving ({mode} MHA): launches {counts} per request, "
+              f"expected {expect[mode]}")
         if mode == "pair":
             int8_counts = {k: int8_counts[k] + v for k, v in counts.items()}
     print(f"  W4A8 static requests of batch {BATCH} x {N_STEPS} steps, in turns: the served default "
           f"(pair MHA) {int8_times[0]:.3f} s, {int8_times[1]:.3f} s; T2S_ATTN_MHA=base (bf16 MHA) "
-          f"{base_times[0]:.3f} s, {base_times[1]:.3f} s; launches per request {expect}; peak "
+          f"{base_times[0]:.3f} s, {base_times[1]:.3f} s; launches per request {expect['pair']}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     print("[7 W8 serving]")
@@ -1902,6 +1934,8 @@ def main() -> int:
              sched_res["mlp_block_streamed"]),
             ("mha_inline_int8", "mha_int8.cu", tpu + "int8_block.py:128", att_counts["K10"],
              att_res["mha_inline_int8"]),
+            ("mha_pair", "mha_sm90.cuh", tpu + "int8_block.py:244", int8_counts["Kp"],
+             att_res["mha pair"]),
             # K11 and T1-T3 run on no request path: their launches are their tools' runs
             ("gn_swish_conv", "gn_swish_conv.cu", tpu + "fused_gn_conv.py:289", gn_launches,
              gn_res),

@@ -414,6 +414,69 @@ def test_pair_mha_matches_plain(cuda, shape, mode):
         _ulp_gate(got, want, PAIR_MHA_ULPS, PAIR_MHA_SHARE, controls)
 
 
+# Key counts at and beside the attention kernels' bucket edges (K10: 32, 96,
+# 160, 288; the bf16 and pair MHAs: 32, 80, 144, 272), the cross attention's
+# 77 and the self attention's 265
+EDGE_KEYS = (1, 31, 32, 33, 77, 80, 265, 272)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", EDGE_KEYS)
+@pytest.mark.parametrize("batch", [1, 8])
+def test_mha_kernels_at_bucket_edges(cuda, keys, batch):
+    """K10 (16 heads of 64, 32 of 32) and the pair MHA (``mha_pair``, and
+    T3's ``pair_nofold``) against their twins at 265 queries and ``keys``
+    keys, the last three masked where there are more than three: within
+    BLOCK_TOL and chip_smoke.py's gates (K10_ULPS / K10_SHARE, PAIR_MHA_ULPS
+    / PAIR_MHA_SHARE); each wrapper counts its launch."""
+    from text_to_sound_synthesis_torch.ops import attention as attn
+    from text_to_sound_synthesis_torch.ops import int8_block as ib
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    L, D = 265, 1024
+    g = torch.Generator(cuda).manual_seed(keys * 10 + batch)
+    rnd = lambda rows: torch.randn((rows, D), generator=g, device=cuda).bfloat16()
+    q, k, v = rnd(batch * L), rnd(batch * keys), rnd(batch * keys)
+    valid = keys - 3 if keys > 3 else keys
+    for H in (16, 32):
+        kw = dict(batch=batch, n_head=H, kv_valid=valid)
+        launches = ib.mha_inline_int8.launches
+        got = ib.mha_inline_int8(q, k, v, **kw)
+        want = ib.mha_inline_int8_reference(q, k, v, **kw).bfloat16()
+        _check_kernel(ib.mha_inline_int8, got, want, launches)
+        assert _share_beyond_ulps(got, want, K10_ULPS) <= K10_SHARE
+    kw = dict(batch=batch, n_head=16, kv_valid=valid)
+    launches = attn.mha_pair.launches
+    got = attn.mha_pair(q, k, v, **kw)
+    want = attn.mha_pair_reference(q, k, v, **kw)
+    _check_kernel(attn.mha_pair, got, want, launches)
+    _ulp_gate(got, want, PAIR_MHA_ULPS, PAIR_MHA_SHARE)
+    got = ik.mha(ik.load_probe_kernel(), q, k, v, batch, 16, valid, mode="pair_nofold")
+    torch.cuda.synchronize()
+    want = attn.mha_pair_reference(q, k, v, fold=False, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL, atol=BLOCK_TOL)
+    _ulp_gate(got, want, PAIR_MHA_ULPS, PAIR_MHA_SHARE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", EDGE_KEYS)
+def test_k10_quantize_pass_writes_vt_slot_layout(cuda, keys):
+    """K10's quantize pass writes V^T bit for bit as ``vt_slot_layout`` lays
+    out V quantized with the pass's own column scales (batch 2, 8 heads of
+    64: D 512 is eight blocks of 64 columns)."""
+    from text_to_sound_synthesis_torch.ops import int8_kernels as ik
+
+    B, L, D = 2, 40, 512
+    g = torch.Generator(cuda).manual_seed(keys)
+    q, k, v = (torch.randn((B * n, D), generator=g, device=cuda).bfloat16() for n in (L, keys, keys))
+    scratch = {}
+    ik.mha_int8(ik.load_mha_int8(), q, k, v, B, 8, keys, scratch)
+    torch.cuda.synchronize()
+    sv = scratch["sv"]
+    vq = torch.round(v.float().reshape(B, keys, D) / sv[:, None, :]).clamp(-127, 127)
+    assert torch.equal(scratch["vt"], ik.vt_slot_layout(vq.to(torch.int8).reshape(B * keys, D), B))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", list(PAIR_SHAPES))
 @pytest.mark.parametrize("static", [False, True])

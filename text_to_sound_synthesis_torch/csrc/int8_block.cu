@@ -67,7 +67,8 @@
 // divided by the row sum before the rounding. The served default at a head
 // width of 64 is the TPU's pair-packed MHA (int8_block.py::_mha_pair_premasked
 // / _mha_pair): one row max shared by heads 2g and 2g + 1, the divide after
-// P V (mha_pair_kernel, int8_mha.cuh).
+// P V (mha_pair_kernel, mha_sm90.cuh: the same warpgroup tiles, B's scores
+// taken twice).
 // K10, the int8 attention, is in mha_int8.cu; the T1-T3 probes' launches are
 // in int8_probe.cu.
 // The rounding points are the twins': q/k/v, p, the attention output and
@@ -79,7 +80,6 @@
 #include <stdint.h>
 
 #include "int8_gemm_sm90.cuh"
-#include "int8_mha.cuh"
 #include "int8_quant.cuh"
 #include "mha_sm90.cuh"
 
@@ -198,8 +198,8 @@ extern "C" int t2s_int8_quant_wide(const void* x, int in, int M, int K, int nch,
 
 // Multi-head attention: q (batch*Lq, H*hd), k/v (batch*Lkv, H*hd) bf16 ->
 // out (batch*Lq, H*hd) bf16; keys >= kv_valid masked (0 < kv_valid <= Lkv).
-// hd 32 or 64. mode (MhaMode): 0 the softmax's divide before P V, 1 folded
-// into the output (both the Hopper MHA, mha_sm90.cuh); hd 64 only: 2 the
+// hd 32 or 64. mode (MhaMode, all the Hopper MHA of mha_sm90.cuh): 0 the
+// softmax's divide before P V, 1 folded into the output; hd 64 only: 2 the
 // pair-packed MHA (n_head even). The T3 probe's modes 3-6 are int8_probe.cu's
 // function of the same name.
 extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* out, int batch,
@@ -215,8 +215,7 @@ extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* o
   T2S_MHA(64, kMhaFold)
   T2S_MHA(32, kMhaDiv)
   T2S_MHA(32, kMhaFold)
+  T2S_MHA(64, kMhaPair)
 #undef T2S_MHA
-  if (hd == 64 && mode == kMhaPair)
-    return launch_mha_pair_keys<kMhaPair>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,7 +3,7 @@
 // and T3 (tools/bench_attn_ablate.py, K4 likewise), for Hopper, sm_90a.
 //
 // Each is a compile-time configuration of the engine's templates (the
-// headers int8_gemm_sm90.cuh, int8_quant.cuh, int8_mha.cuh and mha_sm90.cuh;
+// headers int8_gemm_sm90.cuh, int8_quant.cuh and mha_sm90.cuh;
 // see int8_block.cu's header comment), built here, apart from the engine, so
 // that a request never waits for their build. The wrappers (ops/dot.py,
 // ops/mlp_ablate.py, ops/attn_ablate.py) launch these for the probes'
@@ -30,7 +30,6 @@
 #include <stdint.h>
 
 #include "int8_gemm_sm90.cuh"
-#include "int8_mha.cuh"
 #include "int8_quant.cuh"
 #include "mha_sm90.cuh"
 
@@ -233,11 +232,10 @@ extern "C" int t2s_int8_mha(const void* q, const void* k, const void* v, void* o
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!mha_args_ok(batch, Lq, Lkv, n_head, hd, kv_valid, mode))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 64 && mode == kMhaPairNoFold)
-    return launch_mha_pair_keys<kMhaPairNoFold>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
 #define T2S_MHA(MODE) \
   if (hd == 64 && mode == MODE) \
     return mha90::launch_keys<64, MODE>(q, k, v, out, batch, Lq, Lkv, n_head, kv_valid, s);
+  T2S_MHA(kMhaPairNoFold)
   T2S_MHA(kMhaNoSoftmax)
   T2S_MHA(kMhaNoAv)
   T2S_MHA(kMhaNoScores)

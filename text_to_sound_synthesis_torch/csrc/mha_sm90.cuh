@@ -1,10 +1,11 @@
 // The bf16 multi-head attention of the engine on Hopper, sm_90a: K7
 // (attention.py::fused_mha) and the MHA inside K4, K5 and K8 under
-// T2S_ATTN_MHA=base and T2S_SOFTMAX_FOLD_DIV; and, as compile-time modes of
-// the same kernel, the T3 probe's MHAs (tools/bench_attn_ablate.py), so that
-// the probe ablates what the engine runs. The pair-packed MHA of the served
-// default (mha_pair_kernel) and K10 keep their kernels (int8_mha.cuh,
-// mha_int8.cu).
+// T2S_ATTN_MHA=base and T2S_SOFTMAX_FOLD_DIV; the pair-packed MHA of the
+// served default (kMhaPair) and T3's pair_nofold (kMhaPairNoFold), as
+// mha_pair_kernel below; and, as compile-time modes of the same kernel, the
+// T3 probe's MHAs (tools/bench_attn_ablate.py), so that the probe ablates
+// what the engine runs. K10, the int8 MHA, is mha_int8.cu, on the same
+// helpers.
 //
 // Replaces text_to_sound_synthesis_tpu/ops/attention.py::fused_mha and the
 // bf16 MHA of int8_block.py::_mha_inline: q (B*Lq, D), k/v (B*Lkv, D) bf16,
@@ -61,9 +62,36 @@
 #include <string.h>
 
 #include "int8_gemm_sm90.cuh"
-#include "int8_mha.cuh"
 
 namespace {
+
+using namespace t2s_int8;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The MHA's modes: kMhaDiv the exact softmax over all keys (keys >= kv_valid
+// at -inf), p = exp(s - max) / sum rounded to bf16, P V summed in f32;
+// kMhaFold (T2S_SOFTMAX_FOLD_DIV) p = exp(s - max) rounded to bf16, and the
+// f32 output divided by the sum; kMhaPair, kMhaPairNoFold the pair-packed MHA
+// (mha_pair_kernel); and T3's (tools/bench_attn_ablate.py::make_variant):
+// kMhaNoSoftmax p = bf16(s * 0.001) over every key, none masked; kMhaNoAv the
+// head's output is p of its first HD keys, no P V; kMhaNoScores every score
+// of a row is the row's q[0] (its first column), no Q K^T, unscaled, then the
+// masked softmax. The engine's library (int8_block.cu) launches the first
+// three, the probe library (int8_probe.cu) the rest.
+enum MhaMode { kMhaDiv = 0, kMhaFold = 1, kMhaPair = 2, kMhaPairNoFold = 3, kMhaNoSoftmax = 4,
+               kMhaNoAv = 5, kMhaNoScores = 6 };
+
+// What t2s_int8_mha (int8_block.cu, int8_probe.cu) takes, whatever its mode.
+bool mha_args_ok(int batch, int Lq, int Lkv, int n_head, int hd, int kv_valid, int mode) {
+  return !(batch <= 0 || Lq <= 0 || Lkv <= 0 || Lkv > 272 || kv_valid <= 0 || kv_valid > Lkv ||
+           ((mode == kMhaPair || mode == kMhaPairNoFold) && (n_head % 2 != 0 || hd != 64)) ||
+           (mode == kMhaNoAv && Lkv < hd));
+}
+
 namespace mha90 {
 
 using sm90::desc;
@@ -432,6 +460,205 @@ __global__ void __launch_bounds__(128, 3) mha_sm90_kernel(const __grid_constant_
   }
 }
 
+// The pair-packed MHA of the TPU engine (int8_block.py::_mha_pair_premasked,
+// _mha_pair; its served default at a head width of 64), MODE kMhaPair or
+// kMhaPairNoFold: heads A = 2g and B = 2g + 1 share one row max, taken over
+// both heads' masked scores; p = exp(s - max) in f32; each head's sum, B's
+// as (sum_A + sum_B) - sum_A (JAX takes it from the pair's total); kMhaPair:
+// p rounded to bf16 unnormalised, P V summed in f32 and divided by the
+// head's sum, rounded to bf16; kMhaPairNoFold (T3 pair_nofold): p divided by
+// the head's sum before its rounding, no divide after. The masks the TPU
+// folds into its K/V dequants (x1.0, x0.0) are exact, so each head simply
+// reads its own 64 columns.
+// The kernel above's pieces, one warpgroup per (64 queries, pair g, batch
+// element): ceil(Lq / 64) x heads / 2 x batch blocks. Both heads' score
+// tiles would take 2 x 136 registers a thread at 272 keys, so B's scores are
+// taken twice: first for their row max alone, then, after A's output, for
+// B's own (the extra Q K^T is 0.6 GFLOP a call at the flagship). Shared
+// memory: Q_A and Q_B (64 rows each, then the head's output staging), K_A and
+// K_B (NK rows each); V_A lands where K_A was once S_A is done, V_B where K_B
+// was once S_B is taken the second time. 87 KB at 272 keys: two blocks an SM.
+template <int NK, int MODE>
+__global__ void __launch_bounds__(128, 2) mha_pair_kernel(const __grid_constant__ Params p) {
+  static_assert(MODE == kMhaPair || MODE == kMhaPairNoFold, "the pair modes");
+  constexpr int HD = 64, kRow = 2 * HD, kSwz = 1;
+  constexpr int kHalves = NK > 256 ? 2 : 1;
+  constexpr int kN = NK / kHalves, kPer = kN / 2;
+  constexpr bool kFold = MODE == kMhaPair;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sq_a = smem_u32(sm), sq_b = sq_a + kQ * kRow;
+  const uint32_t sk_a = sq_b + kQ * kRow, sk_b = sk_a + NK * kRow;
+  const uint32_t bar_qk = sk_b + NK * kRow, bar_va = bar_qk + 8, bar_vb = bar_qk + 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * kQ, col_a = blockIdx.y * 2 * HD, b = blockIdx.z;
+
+  if (tid == 0) {
+    mbar_init(bar_qk, 1);
+    mbar_init(bar_va, 1);
+    mbar_init(bar_vb, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_qk, 2 * (kQ + NK) * kRow);
+    tma_load3(sq_a, &p.q, col_a, q0, b, bar_qk);
+    tma_load3(sq_b, &p.q, col_a + HD, q0, b, bar_qk);
+#pragma unroll
+    for (int i = 0; i < kHalves; ++i) {
+      tma_load3(sk_a + i * kN * kRow, &p.k, col_a, i * kN, b, bar_qk);
+      tma_load3(sk_b + i * kN * kRow, &p.k, col_a + HD, i * kN, b, bar_qk);
+    }
+  }
+  // one head's V (columns col ..) where its K was, once every warp's
+  // products are done with that K
+  auto load_v = [&](uint32_t dst, int col, uint32_t bar) {
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(bar, NK * kRow);
+#pragma unroll
+      for (int i = 0; i < kHalves; ++i) tma_load3(dst + i * kN * kRow, &p.v, col, i * kN, b, bar);
+    }
+  };
+
+  // one head's scores: element i of half c is row gq + 8 ((i % 4) / 2), key
+  // c kN + 8 (i / 4) + 2 tq + i % 2; times 1/8, the same value as the divide
+  // by sqrt(64); keys >= kv_valid at -inf
+  float s[kHalves][kPer];
+  auto scores = [&](uint32_t sq, uint32_t sk) {
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) s[c][i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kHalves; ++c)
+        wgmma_ss<kN>(s[c], desc(sq + 32 * kk, kSwz), desc(sk + c * kN * kRow + 32 * kk, kSwz), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c) {
+      fence_f(s[c]);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int key = c * kN + 8 * (i / 4) + 2 * tq + (i & 1);
+        s[c][i] = key < p.kv_valid ? __fmul_rn(s[c][i], 0.125f) : -INFINITY;
+      }
+    }
+  };
+  // the rows' max over s, folded into mx (row gq: mx[0], gq + 8: mx[1])
+  auto row_max = [&](float (&mx)[2]) {
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[c][i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    }
+  };
+  // s = exp(s - mx); the rows' sums
+  auto exp_sum = [&](const float (&mx)[2], float (&sum)[2]) {
+    sum[0] = sum[1] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        s[c][i] = expf(s[c][i] - mx[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += s[c][i];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+    }
+  };
+  // one head's output from the exp registers and its sums: P V with the V at
+  // sv (its barrier bar), through the head's Q tile at stage, into the
+  // columns col ..
+  auto pv_store = [&](uint32_t sv, uint32_t bar, unsigned char* stage, int col, const float (&sum)[2]) {
+    const float rs0 = rcp_refined(sum[0]), rs1 = rcp_refined(sum[1]);
+    auto pv = [&](int c, int i) {   // p before its bf16 rounding
+      const float e = s[c][i];
+      if (kFold) return e;
+      return (i >> 1) & 1 ? div_rn_for_bf16(e, sum[1], rs1) : div_rn_for_bf16(e, sum[0], rs0);
+    };
+    auto pj = [&](int j, int e) { return pv(j / (kN / 8), 4 * (j % (kN / 8)) + e); };
+    uint32_t pa[NK / 16][4];
+#pragma unroll
+    for (int t = 0; t < NK / 16; ++t) {
+      pa[t][0] = pack_bf16(pj(2 * t, 0), pj(2 * t, 1));
+      pa[t][1] = pack_bf16(pj(2 * t, 2), pj(2 * t, 3));
+      pa[t][2] = pack_bf16(pj(2 * t + 1, 0), pj(2 * t + 1, 1));
+      pa[t][3] = pack_bf16(pj(2 * t + 1, 2), pj(2 * t + 1, 3));
+    }
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    mbar_wait(bar, 0);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NK / 16; ++t) wgmma_rs<HD>(o, pa[t], desc(sv + t * 16 * kRow, kSwz), t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_f(o);
+    if (kFold) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i)
+        o[i] = (i >> 1) & 1 ? div_rn_by(o[i], sum[1], rs1) : div_rn_by(o[i], sum[0], rs0);
+    }
+    unsigned char* st = stage + 16 * warp * kRow;   // this warp's 16 rows
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<__nv_bfloat162*>(st + swz<HD>((gq + 8 * hf) * kRow + 16 * j + 4 * tq)) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 16 * kRow / 16 / 32; ++it) {
+      const int ci = 32 * it + lane, r = ci / (kRow / 16), cc = ci % (kRow / 16);
+      const int grow = q0 + 16 * warp + r;
+      if (grow < p.Lq)
+        *reinterpret_cast<uint4*>(p.out + (static_cast<size_t>(b) * p.Lq + grow) * p.D + col + 8 * cc) =
+            *reinterpret_cast<const uint4*>(st + swz<HD>(r * kRow + 16 * cc));
+    }
+  };
+
+  // three passes over one copy of the code: B's scores for the row max
+  // alone, then A's and B's, each with its softmax and output. Between a
+  // request's GEMMs the kernel starts from a cold instruction cache, where
+  // each inlined copy of the unrolled score code costs fetch time: with one
+  // copy it runs there about as fast as back to back (tools/bench_mha,
+  // PERF.md)
+  float mx[2] = {-INFINITY, -INFINITY}, sum_a[2] = {0.0f, 0.0f};
+  mbar_wait(bar_qk, 0);
+#pragma unroll 1
+  for (int pass = 0; pass < 3; ++pass) {
+    const int hh = pass == 1 ? 0 : 1;   // head A or B
+    const uint32_t sk = hh ? sk_b : sk_a, bar_v = hh ? bar_vb : bar_va;
+    scores(hh ? sq_b : sq_a, sk);
+    if (pass < 2) row_max(mx);
+    if (pass == 0) continue;
+    load_v(sk, col_a + hh * HD, bar_v);
+    float sum[2];
+    exp_sum(mx, sum);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (hh)
+        sum[r] = __fsub_rn(__fadd_rn(sum_a[r], sum[r]), sum_a[r]);
+      else
+        sum_a[r] = sum[r];
+    }
+    pv_store(sk, bar_v, sm + hh * kQ * kRow, col_a + hh * HD, sum);
+  }
+}
+
 // (D, L, B) bf16 with the row stride D, in boxes of (hd, rows, 1) with the
 // swizzle of a row's width (128 or 64 bytes); reads past L fill with zeros
 bool encode3(CUtensorMap* map, const void* ptr, int D, int L, int B, int hd, int rows) {
@@ -454,6 +681,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
   if constexpr (MODE == kMhaNoAv && NK < HD) {   // no_av reads p of the first hd keys
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
+    constexpr bool kPair = MODE == kMhaPair || MODE == kMhaPairNoFold;
     constexpr int kBox = NK > 256 ? NK / 2 : NK;
     Params p;
     memset(&p, 0, sizeof(p));
@@ -468,16 +696,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
     p.D = D;
     p.kv_valid = kv_valid;
     p.sqrt_hd = sqrtf(static_cast<float>(HD));
-    const int smem = 1024 + (kQ + NK) * 2 * HD + 16;
+    // the pair kernel: two heads' Q and K tiles and three mbarriers
+    const int smem = kPair ? 1024 + 2 * (kQ + NK) * 2 * HD + 32 : 1024 + (kQ + NK) * 2 * HD + 16;
+    const auto kernel = [] {
+      if constexpr (kPair)
+        return mha_pair_kernel<NK, MODE>;
+      else
+        return mha_sm90_kernel<HD, NK, MODE>;
+    }();
     static bool attr_set = false;
     if (!attr_set) {
-      const cudaError_t e = cudaFuncSetAttribute(mha_sm90_kernel<HD, NK, MODE>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
       attr_set = true;
     }
-    const dim3 grid((Lq + kQ - 1) / kQ, n_head, batch);
-    mha_sm90_kernel<HD, NK, MODE><<<grid, 128, smem, stream>>>(p);
+    const dim3 grid((Lq + kQ - 1) / kQ, kPair ? n_head / 2 : n_head, batch);
+    kernel<<<grid, 128, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
 }

@@ -8,9 +8,11 @@ Hopper attention kernel (``csrc/mha_sm90.cuh``, built into
 K8 launch the same kernel inside their own schedules and do not count here) and runs ``mha_reference`` for a CPU one; it counts its calls
 in ``.launches``. The TPU's ``interpret`` option is not carried over.
 
-Beside it, ``mha_pair_reference``, the plain twin of the attention kernel's
-pair mode: the pair-packed MHA that the JAX engine's blocks run by default at
-a head width of 64 (``int8_block.py::_mha_pair_premasked`` / ``_mha_pair``).
+Beside it, ``mha_pair``, the pair-packed MHA that the JAX engine's blocks run
+by default at a head width of 64 (``int8_block.py::_mha_pair_premasked`` /
+``_mha_pair``), the launch inside the blocks' ``attn="pair"``: the same
+kernel's pair mode on a CUDA tensor (counted in ``.launches``), its plain twin
+``mha_pair_reference`` on a CPU one.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from . import int8_kernels as ik
 
-__all__ = ["fused_mha", "mha_reference", "mha_pair_reference", "check_pair"]
+__all__ = ["fused_mha", "mha_reference", "mha_pair", "mha_pair_reference", "check_pair"]
 
 
 def _heads(t, batch: int, n_head: int):
@@ -75,6 +77,29 @@ def mha_pair_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int, fold:
     return _merge(o.reshape(B, H, Lq, hd), q.dtype)
 
 
+def mha_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, n_head: int,
+             kv_valid: int) -> torch.Tensor:
+    """The pair-packed MHA: q (B*Lq, D), k/v (B*Lkv, D) bf16 -> (B*Lq, D)
+    bf16, what ``mha_pair_reference`` computes (``fold``). On the card:
+    ``csrc/mha_sm90.cuh``'s ``mha_pair_kernel``, one warpgroup per 64 queries
+    of a (pair of heads, batch), an even number of heads of 64, at most 272
+    keys."""
+    if not ik.on_cuda(q, "mha_pair"):
+        return mha_pair_reference(q, k, v, batch=batch, n_head=n_head, kv_valid=kv_valid)
+    lib = ik.load_kernel()
+    ik.check_mha(q, k, v, batch, n_head, kv_valid, lib.t2s_int8_limits(3))
+    check_pair(n_head, q.shape[1])
+    return launch_pair(lib, q, k, v, batch, n_head, kv_valid)
+
+
+def launch_pair(lib, q, k, v, batch: int, n_head: int, kv_valid: int) -> torch.Tensor:
+    """``mha_pair``'s launch on tensors the caller has checked (the blocks'
+    ``attn="pair"`` too), counted in ``mha_pair.launches``."""
+    out = ik.mha(lib, q, k, v, batch, n_head, kv_valid, mode="pair")
+    mha_pair.launches += 1
+    return out
+
+
 def mha_reference(q, k, v, *, batch: int, n_head: int, kv_valid: int, fold_div: bool = False):
     """q (B*Lq, D), k/v (B*Lkv, D) -> (B*Lq, D) in q's dtype. Scores from the
     inputs' values in f32, keys at or beyond ``kv_valid`` masked, f32 softmax,
@@ -117,3 +142,4 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, batch: int, 
 
 
 fused_mha.launches = 0
+mha_pair.launches = 0

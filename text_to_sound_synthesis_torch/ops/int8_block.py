@@ -43,7 +43,8 @@ the kernels compute (the JAX package's ``*_reference`` twins; W4 goes through
 launch the hand-written CUDA kernels of ``csrc/int8_block.cu`` (K10:
 ``csrc/mha_int8.cu``) for CUDA tensors and run the plain version only for
 CPU tensors; each counts its kernel runs in ``.launches`` (K10 counts every
-int8 MHA, inside a block or called alone; the quantize passes
+int8 MHA, inside a block or called alone, ``attention.mha_pair`` every pair
+MHA; the quantize passes
 ``quantize_rows`` and ``quantize_wide`` (``quant.py``) each of their
 launches: two per attention half, one per dynamic K3 or K9 call).
 
@@ -70,7 +71,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import int8_kernels as ik
-from .attention import check_pair, mha_pair_reference, mha_reference
+from .attention import check_pair, launch_pair, mha_pair_reference, mha_reference
 from .int8_kernels import load_kernel
 from .quant import (QuantizedWeight, _deq, _dense_int8, _gelu2, _mods, _prologue, _quant,
                     _quantize_rows, _quantize_static, int_dot, quantize_rows,
@@ -288,11 +289,14 @@ def _check_weights(names, ws, n: int, k: int, w4: bool, device):
 
 def _attend(lib, batch: int, n_head: int, kv_valid: int, attn: str):
     """The blocks' MHA launch(es), as a function of checked bf16 q, k, v ->
-    (B*Lq, D) bf16: the bf16 MHA of ``int8_block.cu`` in the ``attn`` mode,
-    or K10 through its wrapper ``mha_inline_int8``."""
+    (B*Lq, D) bf16: the bf16 MHA of ``int8_block.cu`` in the ``attn`` mode
+    (the pair mode counted as ``attention.mha_pair``'s), or K10 through its
+    wrapper ``mha_inline_int8``."""
     if attn == "int8":
         return lambda q, k, v: mha_inline_int8(q, k, v, batch=batch, n_head=n_head,
                                                kv_valid=kv_valid)
+    if attn == "pair":
+        return lambda q, k, v: launch_pair(lib, q, k, v, batch, n_head, kv_valid)
     return lambda q, k, v: ik.mha(lib, q, k, v, batch, n_head, kv_valid, mode=attn)
 
 
@@ -312,8 +316,8 @@ def _attn_half(x, mod, ws_in, wproj, s_in, s_out, out_dtype, w4: bool, mha, kv=N
 def mha_inline_int8(q, k, v, *, batch: int, n_head: int, kv_valid: int):
     """K10: q (B*Lq, D), k/v (B*Lkv, D) bf16 -> (B*Lq, D) bf16, the int8
     attention ``mha_inline_int8_reference`` computes, rounded once to bf16.
-    On the card: a quantize pass, then an int8 MHA, one block per (batch,
-    head), head width 32 or 64, at most 272 keys."""
+    On the card: a quantize pass, then the int8 MHA on wgmma, one warpgroup
+    per 64 queries of a (batch, head), head width 32 or 64, at most 272 keys."""
     if not ik.on_cuda(q, "mha_inline_int8"):
         return mha_inline_int8_reference(q, k, v, batch=batch, n_head=n_head,
                                          kv_valid=kv_valid).to(q.dtype)

@@ -24,6 +24,7 @@ from ..utils.cuda_build import load_library
 
 __all__ = ["load_kernel", "load_probe_kernel", "load_mha_int8", "workspace", "on_cuda", "check",
            "check_weight", "check_mha", "dense", "quant_rows", "quant_wide", "mha", "mha_int8",
+           "mha_int8_keys", "key_slots", "vt_slot_layout",
            "MHA_MODES", "PANEL", "INT8", "EPI_STORE", "EPI_GELU_INT8", "EPI_CHUNKED", "EPI_RAW",
            "EPI_WRAP8", "EPI_CLIP8", "EPI_SHIFT8", "EF_MID_BF16", "EF_SIG_C", "EF_FAST_SIG",
            "EF_Q_BF16", "EF_RAW_BF16"]
@@ -35,7 +36,7 @@ EPI_STORE, EPI_GELU_INT8, EPI_CHUNKED, EPI_RAW = 0, 1, 2, 3
 EPI_WRAP8, EPI_CLIP8, EPI_SHIFT8 = 4, 5, 6              # the T2 probe's int8 middles
 # the T2 probe's epilogue flags (``kEfProbe`` in csrc/int8_gemm_sm90.cuh)
 EF_MID_BF16, EF_SIG_C, EF_FAST_SIG, EF_Q_BF16, EF_RAW_BF16 = 64, 128, 256, 512, 1024
-# the attention launch's MHA (``MhaMode`` in csrc/int8_mha.cuh): the engine's
+# the attention launch's MHA (``MhaMode`` in csrc/mha_sm90.cuh): the engine's
 # library runs the first three, the probe library (``load_probe_kernel``) the rest
 MHA_MODES = {"bf16": 0, "bf16_fold": 1, "pair": 2, "pair_nofold": 3, "no_softmax": 4,
              "no_av": 5, "no_scores": 6}
@@ -105,7 +106,7 @@ def load_mha_int8() -> ctypes.CDLL:
     """Build (first use) and load ``csrc/mha_int8.cu`` (K10)."""
     lib = load_library("mha_int8", ["mha_int8.cu"])
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.t2s_mha_int8.argtypes = [P] * 10 + [I] * 6 + [P]
+    lib.t2s_mha_int8.argtypes = [P] * 10 + [I] * 7 + [P]
     lib.t2s_mha_int8.restype = I
     lib.t2s_mha_int8_max_keys.argtypes = []
     lib.t2s_mha_int8_max_keys.restype = I
@@ -281,25 +282,71 @@ def mha(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_he
     return out
 
 
+# K10's key buckets (``key_bucket`` in csrc/mha_int8.cu): P V steps 32 keys at
+# a time, so each is a multiple of 32; Q K^T runs one int8 wgmma width N per
+# part (int8 wgmma takes N = 8, 16, 24 and the multiples of 16 up to 256)
+_INT8_BUCKETS = ((32, (32,)), (96, (96,)), (160, (160,)), (288, (144, 144)))
+
+
+def mha_int8_keys(keys: int) -> Tuple[int, Tuple[int, ...]]:
+    """K10's key bucket for ``keys`` (1..272): (the padded key count, the
+    wgmma widths N its Q K^T is split into)."""
+    if not 0 < keys <= 272:
+        raise ValueError(f"K10 takes 1 to 272 keys, got {keys}")
+    return next((pad, parts) for pad, parts in _INT8_BUCKETS if keys <= pad)
+
+
+def key_slots(padded: int) -> torch.Tensor:
+    """The key at each k slot of K10's P V (``key_slot`` in csrc/mha_int8.cu):
+    within each 32-key group slot 4t + 2e + f holds key 8e + 2t + f, and the
+    same in the upper 16, the order in which the score accumulator's
+    registers pack into P V's A fragment."""
+    slot = torch.arange(padded)
+    r = slot % 16
+    t, e, f = r // 4, (r % 4) // 2, r % 2
+    return slot - r + 8 * e + 2 * t + f
+
+
+def vt_slot_layout(vq: torch.Tensor, batch: int) -> torch.Tensor:
+    """The V^T that K10's quantize pass writes, from int8 V (B*Lkv, D): (B, D,
+    padded) int8, per batch element and column its keys innermost, zero-padded
+    to the key bucket and in ``key_slots`` order (the P V wgmma's B operand,
+    K-major, for each head its hd rows)."""
+    Lkv, D = vq.shape[0] // batch, vq.shape[1]
+    padded, _ = mha_int8_keys(Lkv)
+    vt = torch.zeros((batch, D, padded), dtype=vq.dtype, device=vq.device)
+    vt[:, :, :Lkv] = vq.reshape(batch, Lkv, D).transpose(1, 2)
+    return vt[:, :, key_slots(padded).to(vq.device)].contiguous()
+
+
 def mha_int8(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, batch: int, n_head: int,
-             kv_valid: int) -> torch.Tensor:
+             kv_valid: int, scratch: Optional[dict] = None) -> torch.Tensor:
     """K10's two launches on checked bf16 tensors: the quantize pass (int8 q
-    and k with row scales, int8 V with one scale per (batch, column)) into
-    scratch allocated here, then the int8 MHA -> (B*Lq, D) bf16."""
+    and k with row scales; V^T as ``vt_slot_layout`` lays it out, one scale
+    per (batch, column)) into scratch allocated here, one buffer (the host's
+    time per launch is what the int8 requests wait on), then the int8 MHA ->
+    (B*Lq, D) bf16. ``scratch``, when given, receives views of the scratch by
+    name."""
     M, D = q.shape
     Mkv = k.shape[0]
-    dev = q.device
-    qq = torch.empty((M, D), dtype=torch.int8, device=dev)
-    kq, vq = (torch.empty((Mkv, D), dtype=torch.int8, device=dev) for _ in range(2))
-    sq = torch.empty((M,), dtype=torch.float32, device=dev)
-    sk = torch.empty((Mkv,), dtype=torch.float32, device=dev)
-    sv = torch.empty((batch, D), dtype=torch.float32, device=dev)
+    padded, _ = mha_int8_keys(Mkv // batch)
+    # bytes of qq, kq, vt (int8) and sq, sk, sv (f32), each part 16-byte aligned
+    sizes = (M * D, Mkv * D, batch * D * padded, 4 * M, 4 * Mkv, 4 * batch * D)
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + (n + 15) // 16 * 16)
+    buf = torch.empty((offsets[-1] + sizes[-1],), dtype=torch.uint8, device=q.device)
+    base = buf.data_ptr()
     out = torch.empty_like(q)
     with _on_card(q):
         err = lib.t2s_mha_int8(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), sq.data_ptr(),
-                               sk.data_ptr(), sv.data_ptr(), batch, M // batch, Mkv // batch,
-                               n_head, D // n_head, kv_valid, _stream(q))
+                               *(base + o for o in offsets), batch, M // batch, Mkv // batch,
+                               n_head, D // n_head, kv_valid, padded, _stream(q))
+    if scratch is not None:
+        shapes = ((M, D), (Mkv, D), (batch, D, padded), (M,), (Mkv,), (batch, D))
+        for i, name in enumerate(("qq", "kq", "vt", "sq", "sk", "sv")):
+            part = buf[offsets[i]:offsets[i] + sizes[i]]
+            scratch[name] = part.view(torch.int8 if i < 3 else torch.float32).view(shapes[i])
     if err != 0:
         raise RuntimeError(f"int8 MHA kernel launch failed: cudaError {err}")
     return out
