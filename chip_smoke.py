@@ -13,7 +13,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
 3. K1      — the kernel against its plain PyTorch version at the slice's
              shape (2120 rows x 256 classes): bf16 and f32 logits, r 0 and
              0.85, t_post 0, 50 and 99; Philox determinism and sampled
-             frequencies over 2000 seeds; kernel and plain times.
+             frequencies over 2000 seeds; kernel and plain times, and the
+             kernel's at r = 0 (no threshold search), eager and in a CUDA
+             graph.
 4. K2-K11, T1-T3 — the int8 kernels against their plain versions at the
              flagship shapes (2120 x 1024, 16 heads, condition 8 x 77, MLP
              4096): the blocks K3-K5, W8 and W4, dynamic and static scales
@@ -31,7 +33,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
              rows of 4096, the row's own max, given maxima at 1, 4 and 16
              chunks, static) bit for bit against its plain version on the
              CPU; K2 against
-             its plain version and against K1 on the same logits; then, W8,
+             its plain version and against K1 on the same logits at 256, 512
+             and 2048 classes (the repo's three codebooks); then, W8,
              dynamic and static, K6 at the per-dense path's six sites and
              single (each a quantize pass and one int8-A-mode dot: the pass
              counted), K7 (the Hopper MHA, mha_sm90.cuh) at 265 and 77 keys with
@@ -382,6 +385,10 @@ def phase_kernel(fs, dd, dev):
     g_plain = graph_time_ms(lambda: fs.p_sample_from_indices(lb, xt, c, gumbel=gumbel, truncation_r=0.85))
     print(f"  K1 device time per call (CUDA graph of 50 calls): kernel {g_kernel:.4f} ms, "
           f"plain {g_plain:.4f} ms (plain with supplied noise)")
+    # what sets K1's pace besides the threshold search: r = 0 skips it
+    k1_r0 = lambda: fs.fused_p_sample(lb, xt, c, 1, 2)
+    print(f"  K1 at r=0 (no threshold search) beside r=0.85: eager {cuda_time_ms(k1_r0):.4f} / "
+          f"{ms:.4f} ms, CUDA graph {graph_time_ms(k1_r0):.4f} / {g_kernel:.4f} ms")
     return max_err, ms, plain_ms
 
 
@@ -660,49 +667,61 @@ def phase_wide_pass(dev):
 
 def phase_head(fs, dd, dev):
     """Phase 4 (cont.): K2 against its plain version, and against K1 on the
-    same logits. Returns (max_abs_err, ms, plain_ms)."""
+    same logits, at the codebooks of the repo's configs (256, 512 and 2048
+    codes + MASK; the flagship's at every r and t_post checked, the others
+    at t_post 50) and at 249 codes, a K - 1 that is no multiple of 8 (the
+    wrapper pads the weight's rows). Returns (max_abs_err, ms, plain_ms) at
+    the flagship's."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    K = 257
     M = BATCH * L_TOK
-    gen = torch.Generator(dev).manual_seed(SEED + 2)
-    x = (torch.randn((M, D_MODEL), generator=gen, device=dev) * 2).bfloat16()
-    norm = torch.stack([1 + 0.1 * torch.randn(D_MODEL, generator=gen, device=dev),
-                        0.1 * torch.randn(D_MODEL, generator=gen, device=dev)])
-    hw = (torch.randn((D_MODEL, K - 1), generator=gen, device=dev) * 0.1).bfloat16()
-    hb = 0.1 * torch.randn(K - 1, generator=gen, device=dev)
-    xt = torch.randint(0, K, (M,), generator=gen, device=dev, dtype=torch.int32)
-    g = dd.gumbel_from_uniform(torch.rand((M, K), generator=gen, device=dev))
-    sched = dd.make_schedule(N_STEPS, K, device=dev)
     max_err = 0.0
-    for r in (0.0, 0.85):
-        for t_post in (0, 50, 99):
-            c = fs.step_coeffs(sched, t_post).as_array().contiguous()
-            want_tok, want = fs.head_sample_reference(x, xt, norm, hw, hb, c, gumbel=g,
-                                                      truncation_r=r)
-            tok, got = fs.fused_head_sample(x, xt, norm, hw, hb, c, 11, 3, truncation_r=r,
-                                            gumbel=g, return_log_probs=True)
-            torch.cuda.synchronize()
-            err = (got - want).abs().amax(dim=-1)
-            boundary = int((err > K2_POST_ATOL).sum())
-            tok_diff = int((tok != want_tok).sum())
-            row_err = float(err[err <= K2_POST_ATOL].max()) if boundary < M else float("inf")
-            max_err = max(max_err, row_err)
-            print(f"  K2 r={r:<4} t_post={t_post:<2}  max|dpost| {row_err:.3e}  rows beyond 1e-4 "
-                  f"{int((err > 1e-4).sum())}/{M}  boundary rows {boundary}/{M}  token "
-                  f"mismatches {tok_diff}/{M}")
-            check(boundary <= (int(BOUNDARY_ROWS * M) if r > 0 else 0),
-                  f"K2 posterior: {boundary} rows beyond {K2_POST_ATOL}")
-            check(tok_diff <= int(BOUNDARY_ROWS * M), f"K2 tokens: {tok_diff} rows differ")
-    # K2's Philox draws are K1's on the same logits (the plain f32 logits)
-    c = fs.step_coeffs(sched, 50).as_array().contiguous()
-    logits = fs.head_logits(x, norm, hw, hb)
-    k2 = fs.fused_head_sample(x, xt, norm, hw, hb, c, 5, 7, truncation_r=0.85)
-    k1 = fs.fused_p_sample(logits[None].contiguous(), xt[None].contiguous(), c, 5, 7,
-                           truncation_r=0.85)[0]
-    torch.cuda.synchronize()
-    diff = int((k1 != k2).sum())
-    print(f"  K2 vs K1 on the same logits, Philox draws, r=0.85: {diff}/{M} tokens differ")
-    check(diff <= int(BOUNDARY_ROWS * M), "K2 draws differ from K1's")
+    for K in (257, 513, 2049, 250):
+        gen = torch.Generator(dev).manual_seed(SEED + 2)
+        x = (torch.randn((M, D_MODEL), generator=gen, device=dev) * 2).bfloat16()
+        norm = torch.stack([1 + 0.1 * torch.randn(D_MODEL, generator=gen, device=dev),
+                            0.1 * torch.randn(D_MODEL, generator=gen, device=dev)])
+        hw = (torch.randn((D_MODEL, K - 1), generator=gen, device=dev) * 0.1).bfloat16()
+        hb = 0.1 * torch.randn(K - 1, generator=gen, device=dev)
+        xt = torch.randint(0, K, (M,), generator=gen, device=dev, dtype=torch.int32)
+        g = dd.gumbel_from_uniform(torch.rand((M, K), generator=gen, device=dev))
+        sched = dd.make_schedule(N_STEPS, K, device=dev)
+        for r in (0.0, 0.85):
+            for t_post in ((0, 50, 99) if K == 257 else (50,)):
+                c = fs.step_coeffs(sched, t_post).as_array().contiguous()
+                want_tok, want = fs.head_sample_reference(x, xt, norm, hw, hb, c, gumbel=g,
+                                                          truncation_r=r)
+                tok, got = fs.fused_head_sample(x, xt, norm, hw, hb, c, 11, 3, truncation_r=r,
+                                                gumbel=g, return_log_probs=True)
+                torch.cuda.synchronize()
+                err = (got - want).abs().amax(dim=-1)
+                boundary = int((err > K2_POST_ATOL).sum())
+                tok_diff = int((tok != want_tok).sum())
+                row_err = float(err[err <= K2_POST_ATOL].max()) if boundary < M else float("inf")
+                max_err = max(max_err, row_err)
+                print(f"  K2 K={K:<4} r={r:<4} t_post={t_post:<2}  max|dpost| {row_err:.3e}  rows "
+                      f"beyond 1e-4 {int((err > 1e-4).sum())}/{M}  boundary rows {boundary}/{M}  "
+                      f"token mismatches {tok_diff}/{M}")
+                check(boundary <= (int(BOUNDARY_ROWS * M) if r > 0 else 0),
+                      f"K2 K={K} posterior: {boundary} rows beyond {K2_POST_ATOL}")
+                check(tok_diff <= int(BOUNDARY_ROWS * M), f"K2 K={K} tokens: {tok_diff} rows differ")
+        # K2's Philox draws are K1's on the same logits (the plain f32 logits)
+        c = fs.step_coeffs(sched, 50).as_array().contiguous()
+        logits = fs.head_logits(x, norm, hw, hb)
+        k2 = fs.fused_head_sample(x, xt, norm, hw, hb, c, 5, 7, truncation_r=0.85)
+        k1 = fs.fused_p_sample(logits[None].contiguous(), xt[None].contiguous(), c, 5, 7,
+                               truncation_r=0.85)[0]
+        torch.cuda.synchronize()
+        diff = int((k1 != k2).sum())
+        print(f"  K2 K={K} vs K1 on the same logits, Philox draws, r=0.85: {diff}/{M} tokens differ")
+        check(diff <= int(BOUNDARY_ROWS * M), f"K2 K={K} draws differ from K1's")
+        if K != 257:
+            kern = lambda: fs.fused_head_sample(x, xt, norm, hw, hb, c, 1, 2, truncation_r=0.85)
+            print(f"  K2 K={K} per call, r=0.85: eager {cuda_time_ms(kern, iters=50):.4f} ms, "
+                  f"CUDA graph {graph_time_ms(kern):.4f} ms")
+            continue
+        flagship = x, xt, norm, hw, hb, g, c
+    x, xt, norm, hw, hb, g, c = flagship
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
 
     t = {}
     kern = lambda: fs.fused_head_sample(x, xt, norm, hw, hb, c, 1, 2, truncation_r=0.85)

@@ -209,19 +209,20 @@ T_, K_ = 10, 17
 POST_ATOL = 2e-4
 
 
-def _head_inputs(seed=0):
+def _head_inputs(seed=0, k=K_):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((M, D)).astype(np.float32) * 2
     norm = np.stack([1.0 + rng.standard_normal(D) * 0.1, rng.standard_normal(D) * 0.1]).astype(np.float32)
-    hw = (rng.standard_normal((D, K_ - 1)) * 0.1).astype(np.float32)
-    hb = (rng.standard_normal(K_ - 1) * 0.1).astype(np.float32)
-    xt = rng.integers(0, K_, M).astype(np.int32)
-    xt[0] = K_ - 1
+    hw = (rng.standard_normal((D, k - 1)) * 0.1).astype(np.float32)
+    hb = (rng.standard_normal(k - 1) * 0.1).astype(np.float32)
+    xt = rng.integers(0, k, M).astype(np.int32)
+    xt[0] = k - 1
     return x, norm, hw, hb, xt
 
 
 def _jhead(x, norm, hw, hb, xt, t_post, r):
-    c = jfs.step_coeffs(jdd.make_schedule(T_, K_), jnp.asarray(t_post))
+    k = hw.shape[1] + 1
+    c = jfs.step_coeffs(jdd.make_schedule(T_, k), jnp.asarray(t_post))
     return jfs.head_sample_reference(jnp.asarray(x, jnp.bfloat16), jnp.asarray(xt),
                                      jnp.asarray(norm), jnp.asarray(hw, jnp.bfloat16),
                                      jnp.asarray(hb), c, jax.random.PRNGKey(0),
@@ -231,7 +232,7 @@ def _jhead(x, norm, hw, hb, xt, t_post, r):
 def _targs(x, norm, hw, hb, xt, t_post):
     return (_bf16(x)[1], torch.from_numpy(xt), torch.from_numpy(norm), _bf16(hw)[1],
             torch.from_numpy(hb),
-            tfs.step_coeffs(tdd.make_schedule(T_, K_), t_post).as_array())
+            tfs.step_coeffs(tdd.make_schedule(T_, hw.shape[1] + 1), t_post).as_array())
 
 
 @pytest.mark.parametrize("r", [0.0, 0.85])
@@ -280,3 +281,63 @@ def test_head_sample_draws_equal_k1_draws_on_the_same_logits():
                                 truncation_r=0.85)[0]
         assert torch.equal(k2, k1)
     assert not torch.equal(tfs.fused_head_sample(*args, 5, 0), tfs.fused_head_sample(*args, 5, 1))
+
+
+@pytest.mark.parametrize("k", [100, 513, 2049])
+def test_head_sample_twin_matches_jax_at_larger_codebooks(k):
+    """The 512- and 2048-code configs' class counts (K2 runs them in column
+    passes on the card) and 99 codes (a K - 1 that is no multiple of 8, whose
+    weight K2's wrapper pads): the twin against JAX's oracle, r = 0 and 0.85."""
+    x, norm, hw, hb, xt = _head_inputs(3, k)
+    g = np.random.default_rng(8).gumbel(size=(M, k)).astype(np.float32)
+    for r in (0.0, 0.85):
+        _, want = _jhead(x, norm, hw, hb, xt, 4, r)
+        tok, got = tfs.head_sample_reference(*_targs(x, norm, hw, hb, xt, 4),
+                                             gumbel=torch.from_numpy(g), truncation_r=r)
+        assert got.shape == (M, k)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=POST_ATOL)
+        np.testing.assert_array_equal(tok.numpy(), np.argmax(np.asarray(want) + g, axis=-1))
+
+
+@pytest.mark.parametrize("k", [100, 513, 2049])
+def test_head_sample_twin_matches_jax_kernel_interpret_at_larger_codebooks(k):
+    """As test_head_sample_twin_matches_jax_kernel_interpret, at 99, 512 and 2048 codes."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    x, norm, hw, hb, xt = _head_inputs(4, k)
+    c = jfs.step_coeffs(jdd.make_schedule(T_, k), jnp.asarray(4))
+    with pltpu.force_tpu_interpret_mode():
+        _, want = jfs.fused_head_sample(jnp.asarray(x, jnp.bfloat16), jnp.asarray(xt)[:, None],
+                                        jnp.asarray(norm), jnp.asarray(hw, jnp.bfloat16),
+                                        jnp.asarray(hb), c, jnp.asarray(5, jnp.int32),
+                                        truncation_r=0.85, return_log_probs=True)
+    _, got = tfs.head_sample_reference(*_targs(x, norm, hw, hb, xt, 4), truncation_r=0.85,
+                                       generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=POST_ATOL)
+
+
+def test_head_sample_takes_seed_and_step_as_int32_tensors():
+    """K2's key words as one-element int32 tensors: the int form's tokens."""
+    x, norm, hw, hb, xt = _head_inputs(2)
+    args = _targs(x, norm, hw, hb, xt, 0)
+    key = lambda v: torch.tensor([v], dtype=torch.int32)
+    a = tfs.fused_head_sample(*args, 5, 3, truncation_r=0.85)
+    assert torch.equal(a, tfs.fused_head_sample(*args, key(5), key(3), truncation_r=0.85))
+    assert torch.equal(tfs.fused_head_sample(*args, 2**32 - 1, 3),
+                       tfs.fused_head_sample(*args, key(-1), 3))
+    with pytest.raises(ValueError, match="one int32"):
+        tfs.fused_head_sample(*args, torch.tensor([5]), 3)
+
+
+@pytest.mark.parametrize("k", [K_, 100])
+def test_head_sample_takes_a_padded_weight_view(k):
+    """``head_weight_rows``'s view of a weight (padded rows when K - 1 is no
+    multiple of 8) samples as the contiguous weight does."""
+    x, norm, hw, hb, xt = _head_inputs(5, k)
+    args = _targs(x, norm, hw, hb, xt, 2)
+    view = tfs.head_weight_rows(args[3])
+    assert view.stride(0) % 8 == 0
+    want = tfs.fused_head_sample(*args, 5, 3, truncation_r=0.85, return_log_probs=True)
+    got = tfs.fused_head_sample(*args[:3], view, *args[4:], 5, 3, truncation_r=0.85,
+                                return_log_probs=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

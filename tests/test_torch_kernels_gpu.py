@@ -46,6 +46,70 @@ def test_fused_p_sample_kernel_matches_plain(cuda, dtype):
     assert fs.fused_p_sample.launches == launches + 3
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_p_sample_kernel_matches_plain_truncated(cuda, dtype):
+    """As above at r = 0.85 (the threshold search), chip_smoke.py's gates: an
+    ulp of a sum may move one class across the nucleus boundary, which
+    changes that row, in at most 0.1 % of the rows; the rest within 1e-4."""
+    rng = np.random.default_rng(5)
+    K, rows = 257, 8 * 265
+    logits = torch.from_numpy((rng.standard_normal((8, 265, K - 1)) * 3).astype(np.float32))
+    xt = torch.from_numpy(rng.integers(0, K, (8, 265)).astype(np.int32))
+    g = torch.from_numpy(rng.gumbel(size=(8, 265, K)).astype(np.float32))
+    logits, xt, g = logits.to(cuda, dtype), xt.to(cuda), g.to(cuda)
+    sched = dd.make_schedule(100, K, device=cuda)
+    for t_post in (0, 50, 99):
+        c = fs.step_coeffs(sched, t_post).as_array().contiguous()
+        want_tok, want = fs.p_sample_from_indices(logits, xt, c, gumbel=g, truncation_r=0.85,
+                                                  return_log_probs=True)
+        tok, got = fs.fused_p_sample(logits, xt, c, 1, 2, gumbel=g, truncation_r=0.85,
+                                     return_log_probs=True)
+        torch.cuda.synchronize()
+        assert int(((got - want).abs().amax(dim=-1) > 1e-4).sum()) <= rows // 1000
+        assert int((tok != want_tok).sum()) <= rows // 1000
+
+
+@pytest.mark.gpu
+def test_sampler_kernels_read_seed_and_step_from_device(cuda):
+    """The int form and the device-tensor form of (seed, step) draw the same
+    tokens, an int32 read as its 32 bits; a CUDA graph captured with the
+    tensors draws for the values they hold when it replays."""
+    K, M, D = 257, 2 * 265, 256
+    g = torch.Generator(cuda).manual_seed(3)
+    logits = torch.randn((2, 265, K - 1), generator=g, device=cuda).bfloat16()
+    xt = torch.randint(0, K, (2, 265), generator=g, device=cuda, dtype=torch.int32)
+    c = fs.step_coeffs(dd.make_schedule(100, K, device=cuda), 0).as_array().contiguous()
+    key = lambda v: torch.tensor([v], dtype=torch.int32, device=cuda)
+    x = torch.randn((M, D), generator=g, device=cuda).bfloat16()
+    norm = torch.stack([torch.ones(D, device=cuda), torch.zeros(D, device=cuda)])
+    hw = (0.1 * torch.randn((D, K - 1), generator=g, device=cuda)).bfloat16()
+    hb = torch.zeros(K - 1, device=cuda)
+    k1 = lambda s, t: fs.fused_p_sample(logits, xt, c, s, t, truncation_r=0.85)
+    k2 = lambda s, t: fs.fused_head_sample(x, xt.flatten(), norm, hw, hb, c, s, t,
+                                           truncation_r=0.85)
+    for kernel in (k1, k2):
+        assert torch.equal(kernel(5, 7), kernel(key(5), key(7)))
+        assert torch.equal(kernel(5, 7), kernel(5, key(7)))
+        assert torch.equal(kernel(2**31 + 5, 7), kernel(key(-2**31 + 5), 7))
+        assert not torch.equal(kernel(5, 7), kernel(5, 8))
+    seed, step = key(5), key(7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k1(seed, step)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k1(seed, step)
+    for s_, t_ in ((5, 7), (6, 7), (5, 9)):
+        seed.fill_(s_)
+        step.fill_(t_)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k1(s_, t_))
+
+
 # ---------------------------------------------------------------------------
 # K3-K5 (int8 blocks) and K2 (fused head + sampler)
 # ---------------------------------------------------------------------------
@@ -254,6 +318,102 @@ def test_fused_head_sample_kernel_matches_plain(cuda, shape):
     assert fs.fused_head_sample.launches == launches + 1
     assert float((got - want).abs().max()) <= 5e-3
     assert int((tok != want_tok).sum()) <= max(1, M // 1000)
+
+
+def _head_case(dev, M, D, K, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = (torch.randn((M, D), generator=g, device=dev) * 2).bfloat16()
+    norm = torch.stack([1 + 0.1 * torch.randn(D, generator=g, device=dev),
+                        0.1 * torch.randn(D, generator=g, device=dev)])
+    hw = (torch.randn((D, K - 1), generator=g, device=dev) * 0.1).bfloat16()
+    hb = 0.1 * torch.randn(K - 1, generator=g, device=dev)
+    xt = torch.randint(0, K, (M,), generator=g, device=dev, dtype=torch.int32)
+    noise = dd.gumbel_from_uniform(torch.rand((M, K), generator=g, device=dev))
+    return x, xt, norm, hw, hb, noise
+
+
+def _check_head(dev, M, D, K, seed):
+    """test_fused_head_sample_kernel_matches_plain's gates at (M, D, K)."""
+    x, xt, norm, hw, hb, noise = _head_case(dev, M, D, K, seed)
+    c = fs.step_coeffs(dd.make_schedule(100, K, device=dev), 50).as_array().contiguous()
+    launches = fs.fused_head_sample.launches
+    want_tok, want = fs.head_sample_reference(x, xt, norm, hw, hb, c, gumbel=noise)
+    tok, got = fs.fused_head_sample(x, xt, norm, hw, hb, c, 1, 2, gumbel=noise,
+                                    return_log_probs=True)
+    torch.cuda.synchronize()
+    assert fs.fused_head_sample.launches == launches + 1
+    assert float((got - want).abs().max()) <= 5e-3
+    assert int((tok != want_tok).sum()) <= max(1, M // 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [100, 250, 257, 513, 2049])
+@pytest.mark.parametrize("M", [1, 63, 65, 2120])
+def test_fused_head_sample_kernel_at_each_class_count(cuda, K, M):
+    """The codebooks JAX serves (256, 512 and 2048 codes + MASK: one column
+    pass, two, eight through the f32 scratch; 99 and 249, K - 1 no multiple
+    of 8: the weight's rows padded by the wrapper) at ragged row counts, D
+    1024."""
+    _check_head(cuda, M, 1024, K, seed=K + M)
+
+
+@pytest.mark.gpu
+def test_fused_head_sample_takes_padded_and_unaligned_operands(cuda):
+    """A weight view with a padded row pitch (``head_weight_rows``), taken as
+    it is, and x, norm_out and head_w at bases off 16 bytes, which the
+    wrapper copies: the contiguous operands' tokens and posterior."""
+    M, D, K = 65, 256, 250
+    x, xt, norm, hw, hb, noise = _head_case(cuda, M, D, K, seed=9)
+    c = fs.step_coeffs(dd.make_schedule(100, K, device=cuda), 50).as_array().contiguous()
+
+    def off(t):
+        v = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)[1:1 + t.numel()].view(t.shape)
+        return v.copy_(t)
+
+    run = lambda x_, n_, w_: fs.fused_head_sample(x_, xt, n_, w_, hb, c, 1, 2, gumbel=noise,
+                                                  truncation_r=0.85, return_log_probs=True)
+    want = run(x, norm, hw)
+    padded = fs.head_weight_rows(hw)
+    assert padded.stride(0) == 256
+    for got in (run(x, norm, padded), run(off(x), off(norm), off(hw))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 96, 1056, 4096])
+def test_fused_head_sample_kernel_at_ragged_widths(cuda, D):
+    """D slices past the width (zero-filled) and the widest D."""
+    _check_head(cuda, 65, D, 257, seed=D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [257, 513, 2049])
+def test_fused_head_sample_draws_equal_k1_on_exact_logits(cuda, K):
+    """Rows of +-4, half of each sign, normalise to +-1 under gamma 1, beta 0
+    whatever the order of the statistics' sums; head weights and biases on a
+    2^-6 grid make every logit an exact f32 sum. So K2's logits are the plain
+    ones bit for bit, and its Philox tokens and its posterior are K1's on
+    them."""
+    M, D = 2120, 1024
+    g = torch.Generator(cuda).manual_seed(K)
+    sign = torch.ones((M, D), device=cuda)
+    sign[:, D // 2:] = -1
+    x = (4 * sign.gather(1, torch.rand((M, D), generator=g, device=cuda).argsort(dim=1)))
+    x = x.bfloat16()
+    norm = torch.stack([torch.ones(D, device=cuda), torch.zeros(D, device=cuda)])
+    hw = (torch.randint(-8, 9, (D, K - 1), generator=g, device=cuda) / 64).bfloat16()
+    hb = torch.randint(-8, 9, (K - 1,), generator=g, device=cuda) / 64
+    xt = torch.randint(0, K, (M,), generator=g, device=cuda, dtype=torch.int32)
+    c = fs.step_coeffs(dd.make_schedule(100, K, device=cuda), 50).as_array().contiguous()
+    logits = fs.head_logits(x, norm, hw, hb)
+    for r in (0.0, 0.85):
+        tok2, post2 = fs.fused_head_sample(x, xt, norm, hw, hb, c, 5, 7, truncation_r=r,
+                                           return_log_probs=True)
+        tok1, post1 = fs.fused_p_sample(logits[None], xt[None], c, 5, 7, truncation_r=r,
+                                        return_log_probs=True)
+        torch.cuda.synchronize()
+        assert torch.equal(tok2, tok1[0]) and torch.equal(post2, post1[0])
 
 
 # ---------------------------------------------------------------------------

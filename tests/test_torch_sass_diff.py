@@ -69,3 +69,14 @@ def test_parse_leaves_out_addresses_namespace_tag_and_header_flags():
                  .replace(" ;   ", " ;            "))   # the other file's column padding
     assert list(a) == ["_ZN46ANON4kernEv"] and a == b
     assert a["_ZN46ANON4kernEv"][0].startswith("LDC R1")
+
+
+def test_count_prints_each_new_functions_matching_instructions(tables, capsys):
+    """``--count``: per NEW function, its instructions matching each expression
+    (e.g. CALL, which makes ptxas serialize a kernel's wgmma)."""
+    assert sd.counts({"k": ["CALL.REL 0x10", "WGMMA", "EXIT", "CALL.ABS"]}, ["CALL", "MMA"]) == \
+        {"k": [2, 1]}
+    assert sd.main(["old.cu", "--new", "a.cu", "b.cu", "--moved", ".*", "--count", "WGMMA",
+                    "--count", "EXIT"]) == 1   # kC still differs
+    out = capsys.readouterr().out
+    assert "sm90ILi2EE: WGMMA 1, EXIT 1" in out and "kA: WGMMA 0, EXIT 1" in out

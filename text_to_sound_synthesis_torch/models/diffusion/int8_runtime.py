@@ -356,8 +356,9 @@ def sample_tokens_int8(
     Per step: the embedding, the layers on the ``impl`` path (module
     docstring), then K2 (final LN, head and the sampler step; step ``idx``
     keyed on ``(seed_base, idx)``). The condition K/V, the AdaLN modulations
-    of the whole plan, the step coefficients and, for a W4 engine on the
-    per-dense path, the unpacked weights are made once before the loop."""
+    of the whole plan, the step coefficients, the head weight in K2's row
+    pitch and, for a W4 engine on the per-dense path, the unpacked weights
+    are made once before the loop."""
     from .process import _timestep_plan
 
     impl = _check_impl(impl)
@@ -370,9 +371,11 @@ def sample_tokens_int8(
     if noise is not None and tuple(noise.shape) != (len(ts), B, L, K):
         raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(len(ts), B, L, K)}")
     coeffs = fs.step_coeffs(sched, t_post).as_array().contiguous()      # (n_steps, 10)
-    seed_base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                  device=generator.device))
+    # on the device: the kernels read it there, no host sync
+    seed_base = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                              device=generator.device).to(device, torch.int32)
     kvs = precompute_cond_kvs(qp, cond_emb)
+    head_w = fs.head_weight_rows(qp.head_w)   # K2's row pitch, padded once if need be
     tsel = torch.as_tensor(ts, device=device)
     mods_seq = [(lyr.ada1[tsel].reshape(-1, 2, D), lyr.ada2[tsel].reshape(-1, 2, D))
                 for lyr in qp.layers]
@@ -381,7 +384,7 @@ def sample_tokens_int8(
         x = _int8_backbone_hidden(qp, tokens.reshape(B, L), None, kvs, impl=impl,
                                   mods=[(a[idx], b[idx]) for a, b in mods_seq])
         g = None if noise is None else noise[idx].reshape(B * L, K)
-        tokens = fs.fused_head_sample(x, tokens, qp.norm_out, qp.head_w, qp.head_b,
+        tokens = fs.fused_head_sample(x, tokens, qp.norm_out, head_w, qp.head_b,
                                       coeffs[idx], seed_base, idx,
                                       truncation_r=truncation_r, gumbel=g)
     return tokens.reshape(B, L)

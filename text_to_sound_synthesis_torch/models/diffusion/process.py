@@ -150,8 +150,9 @@ def sample_tokens_fused(
     if noise is not None and tuple(noise.shape) != (len(ts), B, L, K):
         raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(len(ts), B, L, K)}")
     coeffs = fs.step_coeffs(sched, t_post).as_array().contiguous()  # (n_steps, 10)
-    seed_base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                  device=generator.device))
+    # on the device: the kernels read it there, no host sync
+    seed_base = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                              device=generator.device).to(device, torch.int32)
 
     tables = model.ada_tables()
     kvs = model.cond_kvs(cond_emb)

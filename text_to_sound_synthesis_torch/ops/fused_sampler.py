@@ -18,7 +18,10 @@ for a CPU tensor; there is no fallback between the two.
 LayerNorm and the logits head in front of the same step, with the logits kept
 in f32; its plain version is ``head_sample_reference``. Both kernels key
 their Philox on ``(seed, step)`` and count on ``(row, class)``, so on the same
-logits K2 draws what K1 draws.
+logits K2 draws what K1 draws. ``seed`` and ``step`` are each a Python int or,
+as the TPU kernels' seed is, a one-element int32 tensor on the logits'
+device, which the kernel reads there (no host sync; a CUDA graph can replay
+the step).
 """
 
 from __future__ import annotations
@@ -100,10 +103,11 @@ def _posterior_rows(lp, xt, c: StepCoeffs, K: int, col):
     return out.clamp(MIN_LOGP, 0.0)
 
 
-def _truncate_rows(lp, r: float, iters: int = _BISECT_ITERS):
-    """Bisection top-r nucleus over the class axis (keep p > tau, + argmax)."""
-    p = torch.exp(lp)
-    lo = torch.zeros(lp.shape[:-1] + (1,), dtype=lp.dtype, device=lp.device)
+def _bisect_threshold(p, r: float, iters: int = _BISECT_ITERS):
+    """The top-r threshold tau of rows of probabilities p (..., C): the hi of
+    an ``iters``-step bisection of [0, 1] on sum(p > mid) < r, as the
+    kernels take it (``csrc/sampler_body.cuh::search_threshold``)."""
+    lo = torch.zeros(p.shape[:-1] + (1,), dtype=p.dtype, device=p.device)
     hi = torch.ones_like(lo)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
@@ -111,6 +115,13 @@ def _truncate_rows(lp, r: float, iters: int = _BISECT_ITERS):
         take = above < r
         hi = torch.where(take, mid, hi)
         lo = torch.where(take, lo, mid)
+    return hi
+
+
+def _truncate_rows(lp, r: float, iters: int = _BISECT_ITERS):
+    """Top-r nucleus over the class axis (keep p > tau, + argmax), no sort."""
+    p = torch.exp(lp)
+    hi = _bisect_threshold(p, r, iters)
     amax = lp.amax(dim=-1, keepdim=True)
     keep = (p > hi) | (lp == amax)
     return torch.where(keep, lp, MIN_LOGP)
@@ -157,11 +168,32 @@ def load_kernel() -> ctypes.CDLL:
     P = ctypes.c_void_p
     lib.t2s_fused_p_sample.argtypes = [P, ctypes.c_int, P, P, P, P, P, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                                       ctypes.c_uint, P]
+                                       ctypes.c_uint, P, P, P]
     lib.t2s_fused_p_sample.restype = ctypes.c_int
     lib.t2s_fused_p_sample_max_classes.argtypes = []
     lib.t2s_fused_p_sample_max_classes.restype = ctypes.c_int
     return lib
+
+
+KeyWord = Union[int, torch.Tensor]
+
+
+def _key_word(name: str, v: KeyWord, device: torch.device):
+    """A Philox key word as a kernel takes it: (host value, device pointer or
+    None). An int must fit in 32 bits; a tensor is one int32 on ``device``."""
+    if isinstance(v, torch.Tensor):
+        if v.device != device or v.dtype != torch.int32 or v.numel() != 1:
+            raise ValueError(f"{name} must be one int32 on {device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+        return 0, v.data_ptr()
+    if not 0 <= v < 2**32:
+        raise ValueError(f"{name} {v} must fit in 32 bits")
+    return v, None
+
+
+def _host_word(v: KeyWord) -> int:
+    """The key word's value as the kernel reads it (an int32 as its 32 bits)."""
+    return int(v) & 0xFFFFFFFF if isinstance(v, torch.Tensor) else v
 
 
 def _cpu_gumbel(shape, seed: int, step: int) -> torch.Tensor:
@@ -171,14 +203,14 @@ def _cpu_gumbel(shape, seed: int, step: int) -> torch.Tensor:
     return gumbel_from_uniform(torch.from_numpy(rng.random(shape, np.float32)))
 
 
-def _check(name: str, t: torch.Tensor, shape, dtypes, device):
+def _check(name: str, t: torch.Tensor, shape, dtypes, device, contiguous: bool = True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -186,8 +218,8 @@ def fused_p_sample(
     logits: torch.Tensor,       # (B, L, K-1) bf16 or f32
     xt: torch.Tensor,           # (B, L) int32
     coeffs: torch.Tensor,       # (10,) f32, StepCoeffs order, on the logits' device
-    seed: int,                  # seed_base of the request
-    step: int = 0,              # step index: the second Philox key word
+    seed: KeyWord,              # seed_base of the request
+    step: KeyWord = 0,          # step index: the second Philox key word
     *,
     truncation_r: float = 0.0,
     gumbel: Optional[torch.Tensor] = None,   # (B, L, K) f32 in place of Philox
@@ -201,11 +233,11 @@ def fused_p_sample(
     with Gumbel noise from numpy's Philox keyed on ``(seed, step)``."""
     B, L, Km1 = logits.shape
     K = Km1 + 1
-    if not (0 <= seed < 2**32 and 0 <= step < 2**32):
-        raise ValueError(f"seed {seed} and step {step} must fit in 32 bits")
+    seed_v, seed_p = _key_word("seed", seed, logits.device)
+    step_v, step_p = _key_word("step", step, logits.device)
     if logits.device.type == "cpu":
         if gumbel is None:
-            gumbel = _cpu_gumbel((B, L, K), seed, step)
+            gumbel = _cpu_gumbel((B, L, K), _host_word(seed), _host_word(step))
         return p_sample_from_indices(logits, xt, coeffs, gumbel=gumbel,
                                      truncation_r=truncation_r,
                                      return_log_probs=return_log_probs)
@@ -229,7 +261,7 @@ def fused_p_sample(
             logits.data_ptr(), int(logits.dtype == torch.bfloat16), xt.data_ptr(),
             coeffs.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
             tokens.data_ptr(), None if post is None else post.data_ptr(),
-            B * L, Km1, float(truncation_r), seed, step, stream)
+            B * L, Km1, float(truncation_r), seed_v, step_v, seed_p, step_p, stream)
     if err != 0:
         raise RuntimeError(f"fused_p_sample kernel launch failed: cudaError {err}")
     fused_p_sample.launches += 1
@@ -277,12 +309,28 @@ def load_head_kernel() -> ctypes.CDLL:
     """Build (first use) and load ``csrc/fused_head_sample.cu``."""
     lib = load_library("fused_head_sample", ["fused_head_sample.cu"])
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.t2s_fused_head_sample.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
-                                          ctypes.c_uint, ctypes.c_uint, P]
+    lib.t2s_fused_head_sample.argtypes = [P, P, P, P, I, P, P, P, P, P, P, I, I, I,
+                                          ctypes.c_float, ctypes.c_uint, ctypes.c_uint, P, P, P]
     lib.t2s_fused_head_sample.restype = I
-    lib.t2s_head_sample_max_classes.restype = I
-    lib.t2s_head_sample_max_width.restype = I
+    for fn in ("max_classes", "max_width", "pass_classes"):
+        getattr(lib, f"t2s_head_sample_{fn}").restype = I
     return lib
+
+
+def head_weight_rows(head_w: torch.Tensor) -> torch.Tensor:
+    """``head_w`` (D, K-1) as K2 loads it by TMA: unit column stride, a row
+    pitch of a multiple of 8 classes (16 bytes) and a 16-byte-aligned base.
+    The tensor itself when it is so, else a (D, K-1) view of a copy whose
+    rows are zero-padded to a multiple of 8 classes. ``fused_head_sample``
+    makes the copy per call; a caller that serves a codebook whose K-1 is
+    not a multiple of 8 pads once (``sample_tokens_int8`` does)."""
+    D, km1 = head_w.shape
+    if (head_w.stride(1) == 1 and head_w.stride(0) >= km1 and head_w.stride(0) % 8 == 0
+            and head_w.data_ptr() % 16 == 0):
+        return head_w
+    padded = head_w.new_zeros((D, -(-km1 // 8) * 8))
+    padded[:, :km1] = head_w
+    return padded[:, :km1]
 
 
 def fused_head_sample(
@@ -292,8 +340,8 @@ def fused_head_sample(
     head_w: torch.Tensor,       # (D, K-1) bf16
     head_b: torch.Tensor,       # (K-1,) f32
     coeffs: torch.Tensor,       # (10,) f32, StepCoeffs order
-    seed: int,
-    step: int = 0,
+    seed: KeyWord,
+    step: KeyWord = 0,
     *,
     truncation_r: float = 0.0,
     gumbel: Optional[torch.Tensor] = None,   # (M, K) f32 in place of Philox
@@ -305,15 +353,18 @@ def fused_head_sample(
 
     A CUDA tensor launches the kernel (counted in ``fused_head_sample.launches``);
     a CPU tensor runs ``head_sample_reference`` with numpy Philox noise keyed
-    on ``(seed, step)``."""
+    on ``(seed, step)``. The kernel takes up to 2079 classes and D a multiple
+    of 32 up to 4096; above 256 classes its logits pass through an f32 (M,
+    K - 1) scratch. ``head_w`` may be a view with a padded row pitch
+    (``head_weight_rows``)."""
     M, D = x.shape
     Km1 = head_w.shape[1]
     K = Km1 + 1
-    if not (0 <= seed < 2**32 and 0 <= step < 2**32):
-        raise ValueError(f"seed {seed} and step {step} must fit in 32 bits")
+    seed_v, seed_p = _key_word("seed", seed, x.device)
+    step_v, step_p = _key_word("step", step, x.device)
     if x.device.type == "cpu":
         if gumbel is None:
-            gumbel = _cpu_gumbel((M, K), seed, step)
+            gumbel = _cpu_gumbel((M, K), _host_word(seed), _host_word(step))
         tokens, post = head_sample_reference(x, xt, norm_out, head_w, head_b, coeffs,
                                              gumbel=gumbel, truncation_r=truncation_r)
         return (tokens, post) if return_log_probs else tokens
@@ -324,23 +375,31 @@ def fused_head_sample(
     _check("x", x, (M, D), (torch.bfloat16,), dev)
     _check("xt", xt, (M,), (torch.int32,), dev)
     _check("norm_out", norm_out, (2, D), (torch.float32,), dev)
-    _check("head_w", head_w, (D, Km1), (torch.bfloat16,), dev)
+    _check("head_w", head_w, (D, Km1), (torch.bfloat16,), dev, contiguous=False)
     _check("head_b", head_b, (Km1,), (torch.float32,), dev)
     _check("coeffs", coeffs, (10,), (torch.float32,), dev)
     if gumbel is not None:
         _check("gumbel", gumbel, (M, K), (torch.float32,), dev)
     lib = load_head_kernel()
     if K > lib.t2s_head_sample_max_classes() or D > lib.t2s_head_sample_max_width() or D % 32:
-        raise ValueError(f"{K} classes or width {D} outside the kernel's range")
+        raise ValueError(f"{K} classes or width {D} outside the kernel's range (K <= "
+                         f"{lib.t2s_head_sample_max_classes()}; D a multiple of 32, D <= "
+                         f"{lib.t2s_head_sample_max_width()})")
+    # 16-byte loads, the bulk copy of norm_out and the weight's TMA map
+    x, norm_out = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, norm_out))
+    head_w = head_weight_rows(head_w)
     tokens = torch.empty((M,), dtype=torch.int32, device=dev)
     post = torch.empty((M, K), dtype=torch.float32, device=dev) if return_log_probs else None
+    scratch = (torch.empty((M, Km1), dtype=torch.float32, device=dev)
+               if Km1 > lib.t2s_head_sample_pass_classes() else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.t2s_fused_head_sample(
             x.data_ptr(), xt.data_ptr(), norm_out.data_ptr(), head_w.data_ptr(),
-            head_b.data_ptr(), coeffs.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
-            tokens.data_ptr(), None if post is None else post.data_ptr(), M, D, Km1,
-            float(truncation_r), seed, step, stream)
+            head_w.stride(0), head_b.data_ptr(), coeffs.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
+            tokens.data_ptr(), None if post is None else post.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), M, D, Km1, float(truncation_r),
+            seed_v, step_v, seed_p, step_p, stream)
     if err != 0:
         raise RuntimeError(f"fused_head_sample kernel launch failed: cudaError {err}")
     fused_head_sample.launches += 1

@@ -6,13 +6,15 @@
     python -m text_to_sound_synthesis_torch.tools.bench_attn_ablate [names...]
     python -m text_to_sound_synthesis_torch.tools.bench_schedules [names...]
     python -m text_to_sound_synthesis_torch.tools.bench_mha [names...]
+    python -m text_to_sound_synthesis_torch.tools.bench_sampler
 
 Ports of ``tools/bench_gn_conv.py`` (K11 against the plain composition),
 ``tools/bench_kernel_dot.py`` (T1, the bare dot rate) and
 ``tools/bench_mlp_ablate.py`` / ``bench_attn_ablate.py`` (T2 / T3, the MLP
 and self-attention blocks with one stage taken out); ``bench_schedules``
 times the W8 engine's K6 sites and MLP blocks (K3, K9), ``bench_mha`` the
-MHAs (K7, the pair MHA, K10) alone and between K3's calls. Without a card they
+MHAs (K7, the pair MHA, K10) alone and between K3's calls, ``bench_sampler``
+the sampler kernels (K1, K2) with K1's output digests. Without a card they
 exit nonzero; they do not run on the CPU. Helpers they share live here.
 """
 

@@ -2,7 +2,7 @@
 by function, on a machine with the CUDA toolkit.
 
     python -m text_to_sound_synthesis_torch.tools.sass_diff OLD.cu --new NEW.cu [NEW2.cu ...] \
-        [--moved PATTERN ...] [--rename PATTERN REPLACEMENT ...]
+        [--moved PATTERN ...] [--rename PATTERN REPLACEMENT ...] [--count REGEX ...]
 
 Each source is compiled to an sm_90a cubin with the package's device flags
 (with its own directory on the include path), disassembled with ``cuobjdump
@@ -18,8 +18,11 @@ where they part). ``--moved`` names OLD's functions (regular
 expressions, matched in full) that are expected to be gone, moved onto
 another kernel. ``--rename`` maps OLD's (mangled) function names through a
 regular expression first, for a template parameter that changed type (a bool
-flag become an int mode) but not the code of its old values. Exits nonzero if
-any function of OLD differs, or is gone without matching ``--moved``.
+flag become an int mode) but not the code of its old values. ``--count``
+prints, for each NEW function, how many of its instructions match each
+expression (``CALL``: a call makes ptxas serialize the kernel's wgmma;
+``HGMMA``: the wgmma themselves). Exits nonzero if any function of OLD
+differs, or is gone without matching ``--moved``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,12 @@ def compare(old: Dict[str, List[str]], new: Dict[str, List[str]], moved: Sequenc
         [k for k in new if k not in old]
 
 
+def counts(funcs: Dict[str, List[str]], patterns: Sequence[str]) -> Dict[str, List[int]]:
+    """{function: [instructions matching each pattern]} (re.search on each line)."""
+    return {k: [sum(1 for line in v if re.search(p, line)) for p in patterns]
+            for k, v in funcs.items()}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
@@ -82,6 +91,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--rename", nargs=2, action="append", default=[],
                     metavar=("PATTERN", "REPLACEMENT"),
                     help="re.sub applied to OLD's function names before matching")
+    ap.add_argument("--count", action="append", default=[], metavar="REGEX",
+                    help="print each NEW function's instructions matching REGEX (e.g. CALL)")
     args = ap.parse_args(argv)
     sources = args.new
     new: Dict[str, List[str]] = {}
@@ -109,6 +120,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      min(len(old[k]), len(new[k])))
         print(f"{k}: {len(old[k])} lines in OLD, {len(new[k])} in NEW; first difference at line "
               f"{first}:\n  OLD {old[k][first:first + 3]}\n  NEW {new[k][first:first + 3]}")
+    for k, n in counts(new, args.count).items() if args.count else ():
+        print(f"{k}: " + ", ".join(f"{p} {c}" for p, c in zip(args.count, n)))
     return 0 if not differ and not lost else 1
 
 
