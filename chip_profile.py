@@ -21,12 +21,14 @@ runs, the same way: five ``gn_swish_conv`` calls at each of the flagship
 decoder's five stages (its A/B tool's inputs), to split its time between its
 launches (a single short call left the profiler without device rows on
 three stages of five on the H100). Prints the card line, each path's request (or call) time, its
-device time and idle share (1 - device time / unprofiled time), and the
-kernels by device time. Exits 1 without a CUDA card. Imports nothing of JAX.
+device time and idle share (1 - device time / unprofiled time), the sha256
+of its tokens (all but the long form), and the kernels by device time.
+Exits 1 without a CUDA card. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import sys
 import time
 
@@ -47,16 +49,21 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        out = run()
         torch.cuda.synchronize()
     ka = prof.key_averages()
     # kernel rows only: an aten op's row repeats the time of the kernels it launched
     device_ms = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA) / 1e3
+    # a request that returns (mel, tokens): its tokens' digest, to hold two trees' requests
+    tokens = (f"; tokens sha256 {hashlib.sha256(out[1].cpu().numpy().tobytes()).hexdigest()[:16]}"
+              if isinstance(out, tuple) else "")
     print(f"[{name}] {what} {wall:.4f} s; device time {device_ms:.3f} ms; "
-          f"idle share {1 - device_ms / (wall * 1e3):.3f}")
+          f"idle share {1 - device_ms / (wall * 1e3):.3f}{tokens}")
     print(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=90))
 
 
+# a request's sampling, and its tokens returned beside the mel
+REQ = dict(sample_type="top0.85r", return_tokens=True)
 PATHS = ("bf16", "w4", "w8", "int8mha", "long", "k11")
 
 
@@ -80,28 +87,27 @@ def main(argv=None) -> int:
     cond = cs.caption_ids(np.random.default_rng(cs.SEED)).to(dev)
     gen = lambda: torch.Generator(dev).manual_seed(cs.SEED)
     if "bf16" in paths:
-        profile("bf16", lambda: model.generate(gen(), cond, sample_type="top0.85r"))
+        profile("bf16", lambda: model.generate(gen(), cond, **REQ))
     if paths & {"w4", "int8mha", "long"}:
         qp = model.quantize_for_serving(weight_bits=4)
         model.calibrate_serving_engine(qp, gen(), cond)
     if "w4" in paths:
-        profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+        profile("W4A8 static", lambda: model.generate_int8(qp, gen(), cond, **REQ))
         with cs.switches(T2S_ATTN_MHA="base"):
             profile("W4A8 static, bf16 MHA (T2S_ATTN_MHA=base)",
-                    lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+                    lambda: model.generate_int8(qp, gen(), cond, **REQ))
     if "w8" in paths:
         qp8 = model.quantize_for_serving()
         for impl in ("pallas", "pallas_dense"):
             profile(f"W8A8 dynamic {impl}",
-                    lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r",
-                                                impl=impl))
+                    lambda: model.generate_int8(qp8, gen(), cond, impl=impl, **REQ))
         with cs.switches(T2S_ATTN_PAIR="1", T2S_MLP_IMPL="chunked"):
             profile("W8A8 dynamic pallas, T2S_ATTN_PAIR=1 T2S_MLP_IMPL=chunked",
-                    lambda: model.generate_int8(qp8, gen(), cond, sample_type="top0.85r"))
+                    lambda: model.generate_int8(qp8, gen(), cond, **REQ))
     if "int8mha" in paths:
         with cs.switches(T2S_ATTN_INT8="1", T2S_ATTN_MHA="base"):
             profile("W4A8 static, int8 MHA",
-                    lambda: model.generate_int8(qp, gen(), cond, sample_type="top0.85r"))
+                    lambda: model.generate_int8(qp, gen(), cond, **REQ))
     if "long" in paths:
         profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
                 lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))

@@ -1096,9 +1096,25 @@ def _pm_rows(dev, M, K, g):
     return signs.gather(1, order) * 2.0 ** torch.randint(3, 6, (M, 1), generator=g, device=dev)
 
 
+def _half_rows(dev, M, K, g, e: int = -3):
+    """(M, K) rows whose quotients by their row scale sit on half-integers:
+    (n + 0.5) 2^e for n in -127..126, and 127 2^e once a row, so that the
+    row max is 127 2^e and s = max / 127 is 2^e: every value exact in bf16
+    and f32, every h / s a tie for rint, inside quant_div's band."""
+    n = torch.randint(-127, 127, (M, K), generator=g, device=dev).float() + 0.5
+    n[torch.arange(M, device=dev), torch.randint(0, K, (M,), generator=g, device=dev)] = 127.0
+    return n * 2.0 ** e
+
+
+# the row pass's grid edges: one and two rows a block, about one wave of the
+# 132 SMs (131, 132, 133 rows), 2112 = 132 x 16 and the flagship's 2120
+# (one wave of 1060 blocks) beside 2121, and two flagships' rows
+ROW_PASS_M = [1, 65, 131, 132, 133, 2112, 2120, 2121, 4240]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 65, 2120])
-@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("M", ROW_PASS_M)
+@pytest.mark.parametrize("K", [128, 640, 1024])
 @pytest.mark.parametrize("case", ["adaln bf16", "adaln f32", "none bf16", "ln bf16"])
 @pytest.mark.parametrize("static", [False, True])
 def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
@@ -1106,7 +1122,8 @@ def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
     twins' divides are correctly rounded (on the card PyTorch divides by a
     Python number through its reciprocal): int8 rows and row maxima equal bit
     for bit. AdaLN on rows whose statistics are exact in any order
-    (``_pm_rows``), no norm on Gaussian rows; one launch a call. AdaLN on
+    (``_pm_rows``), no norm on Gaussian rows and on rows of half-integer
+    quotients (``_half_rows``: quant_div's band); one launch a call. AdaLN on
     Gaussian rows too: there an ulp of the statistics may move an int8 value
     by one, in at most 1e-4 of them."""
     from text_to_sound_synthesis_torch.ops import int8_block as ib
@@ -1117,7 +1134,7 @@ def test_quantize_rows_kernel_matches_plain_bitwise(cuda, M, K, case, static):
     mod = torch.randn((2, K), generator=g, device=cuda) * 0.2 if norm != "none" else None
     s = 0.035 if static else None
     kw = dict(static_s=s, norm="ln" if norm == "ln" else "adaln")
-    xs = [_pm_rows(cuda, M, K, g)] if norm != "none" else []
+    xs = [_pm_rows(cuda, M, K, g)] if norm != "none" else [_half_rows(cuda, M, K, g)]
     xs.append(torch.randn((M, K), generator=g, device=cuda) * 2)
     for i, x in enumerate(xs):
         x = x.to(dtype)
@@ -1154,25 +1171,46 @@ def _amax_rows(dev, M, nch, g):
     return a
 
 
+def _wide_cases():
+    """(K, mode) of the wide pass: widths a multiple of 16 (16-byte units)
+    and not (K 4, 12, 1028: 4-value units and a tail), each with the row's
+    own max, a static scale, and given maxima at 1, 4 and 16 chunks where
+    they divide K into multiples of 4, and at chunk widths 4 and 12 (12 at K
+    12 is one chunk)."""
+    cases = []
+    for K in (4, 12, 1024, 1028, 4096):
+        nchs = [n for n in (1, 4, 16) if K % (4 * n) == 0]
+        widths = [c for c in (4, 12) if K % c == 0 and K // c not in nchs]
+        cases += [(K, m) for m in ["own max", "static"] + [f"nch {n}" for n in nchs]
+                  + [f"cw {c}" for c in widths]]
+    return cases
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 65, 2120])
-@pytest.mark.parametrize("K", [1024, 4096])
+@pytest.mark.parametrize("K,mode", _wide_cases())
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["own max", "nch 1", "nch 4", "nch 16", "static"])
-def test_sm90_quantize_wide_matches_plain_bitwise(cuda, M, K, dtype, mode):
+def test_sm90_quantize_wide_matches_plain_bitwise(cuda, M, K, mode, dtype):
     """The wide pass against its plain version run on the CPU: the row's own
     max (K6's fc2), given per-(row, chunk) maxima at 1, 4 and 16 chunks (the
-    MLP middle of K3 and K9), a static scale; int8 rows and maxima equal bit
-    for bit; one launch a call."""
+    MLP middle of K3 and K9) and at chunk widths 4 and 12, a static scale;
+    every fifth row (``_half_rows``) with quotients on half-integers, where
+    quant_div's band hands the rounding to the exact divide; int8 rows and
+    maxima equal bit for bit; one launch a call."""
     from text_to_sound_synthesis_torch.ops import quant
 
     g = torch.Generator(cuda).manual_seed(M + K)
-    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(dtype)
-    nch = int(mode.split()[1]) if mode.startswith("nch") else None
+    x = torch.randn((M, K), generator=g, device=cuda) * 2
+    half = torch.arange(M, device=cuda) % 5 == 1
+    x[half] = _half_rows(cuda, int(half.sum()), K, g)
+    x = x.to(dtype)
+    kind, n = mode.split()[0], mode.split()[-1]
+    nch = None if kind in ("own", "static") else int(n) if kind == "nch" else K // int(n)
     amax = None if nch is None else _amax_rows(cuda, M, nch, g)
     if nch is not None:   # the maxima of the chunks themselves where they are not tiny
         own = x.float().abs().reshape(M, nch, -1).amax(-1)
         amax = torch.where(torch.arange(M, device=cuda)[:, None] % 3 == 0, own, amax)
+        amax[half] = 127.0 * 2.0 ** -3        # s = 2^-3: the half rows' ties
     s = 0.035 if mode == "static" else None
     launches = quant.quantize_wide.launches
     q, got_amax = quant.quantize_wide(x, static_s=s, amax=amax)
@@ -1185,6 +1223,27 @@ def test_sm90_quantize_wide_matches_plain_bitwise(cuda, M, K, dtype, mode):
     assert (got_amax is None) == (wamax is None)
     if wamax is not None:
         assert torch.equal(got_amax.cpu(), wamax)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_passes_refuse_unaligned_inputs(cuda, dtype):
+    """Inputs whose base is not 16-byte aligned (a view one element into a
+    flat buffer) are refused by the wrappers with ValueError, before any
+    launch: both passes load 16 bytes at a time."""
+    from text_to_sound_synthesis_torch.ops import quant
+
+    M = 130
+    for K, fn in ((1024, lambda x: quant.quantize_rows(x, None, static_s=None)),
+                  (4096, lambda x: quant.quantize_wide(x)),
+                  (4096, lambda x: quant.quantize_wide(x, static_s=0.03))):
+        buf = torch.randn(M * K + 8, device=cuda).to(dtype)
+        x = buf[1:1 + M * K].view(M, K)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        rows, wide = quant.quantize_rows.launches, quant.quantize_wide.launches
+        with pytest.raises(ValueError):
+            fn(x)
+        assert (quant.quantize_rows.launches, quant.quantize_wide.launches) == (rows, wide)
 
 
 # every (act, residual, out) combination K6 takes

@@ -7,6 +7,7 @@
     python -m text_to_sound_synthesis_torch.tools.bench_schedules [names...]
     python -m text_to_sound_synthesis_torch.tools.bench_mha [names...]
     python -m text_to_sound_synthesis_torch.tools.bench_sampler
+    python -m text_to_sound_synthesis_torch.tools.bench_quant [names...]
 
 Ports of ``tools/bench_gn_conv.py`` (K11 against the plain composition),
 ``tools/bench_kernel_dot.py`` (T1, the bare dot rate) and
@@ -14,8 +15,10 @@ Ports of ``tools/bench_gn_conv.py`` (K11 against the plain composition),
 and self-attention blocks with one stage taken out); ``bench_schedules``
 times the W8 engine's K6 sites and MLP blocks (K3, K9), ``bench_mha`` the
 MHAs (K7, the pair MHA, K10) alone and between K3's calls, ``bench_sampler``
-the sampler kernels (K1, K2) with K1's output digests. Without a card they
-exit nonzero; they do not run on the CPU. Helpers they share live here.
+the sampler kernels (K1, K2) with K1's output digests, ``bench_quant`` the
+quantize passes (the row pass's six forms, the wide pass's four). Without a
+card they exit nonzero; they do not run on the CPU. Helpers they share live
+here.
 """
 
 from __future__ import annotations
