@@ -53,7 +53,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
              and the pair MHA in CUDA graphs at 265 and 77 keys beside K7
              and ``scaled_dot_product_attention``. K11 (no
              request path reaches it) at the flagship decoder's five stages
-             (batch 8, bf16, 32 groups) against its twin within GN_TOL, its
+             (batch 8, bf16, 32 groups) against its twin within GN_TOL (two
+             runs bit for bit equal), its
              gradient at GN_GRAD_SHAPE within GN_GRAD_TOL (its backward, given
              one upstream gradient, bit for bit the twin's VJP with cuDNN's
              deterministic algorithms; two runs of the Function's backward
@@ -1069,6 +1070,7 @@ def phase_gn_conv(dev):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         e, flips, n, _ = _check_outputs(got, want, f"{label}: ", GN_TOL)
+        check(torch.equal(kern(), got), f"{label}: two runs differ")
         # the cuDNN composition on the same values, bf16 weights and intermediates
         x, gamma, beta, k, b = args
         k_cl = k.permute(3, 2, 0, 1).bfloat16().contiguous(memory_format=torch.channels_last)
@@ -1077,7 +1079,8 @@ def phase_gn_conv(dev):
                                  k_cl, b.bfloat16(), padding=1)
         d_cudnn = float((cudnn().permute(0, 2, 3, 1).float() - want.float()).abs().max())
         print(f"  {label}: max|d| {e:.3e}, elements off by > 1 bf16 ulp {flips}/{n}, differing "
-              f"{int((got != want).sum())}/{n}; the cuDNN composition max|d| {d_cudnn:.3e}")
+              f"{int((got != want).sum())}/{n}, two runs bit for bit equal; the cuDNN "
+              f"composition max|d| {d_cudnn:.3e}")
         err = max(err, e)
         t_kern, t_plain = time_pair(label, kern, plain)
         t_cudnn = min(cuda_time_ms(cudnn, iters=20, warmup=3) for _ in range(2))

@@ -266,3 +266,119 @@ def test_tool_tables_match_jax_tool():
         T._check_kernel_args(torch.zeros((port.B, H, W, C), dtype=torch.bfloat16),
                              torch.ones(C), torch.zeros(C), torch.zeros(3, 3, C, C),
                              torch.zeros(C), port.GROUPS)
+
+
+# The conv launch's host-side plan (ops/fused_gn_conv.py::conv_plan,
+# stat_chunks) at the decoder's five stages (batch 8, C == Co) and at the
+# kernel's limits: C 32 and 2048, W 1, H 1, B 1, a wide and a tall image,
+# the channel transitions 512 -> 256 and 256 -> 128.
+PLAN_SHAPES = [(8, 5, 53, 512, 512), (8, 10, 106, 256, 256), (8, 20, 212, 256, 256),
+               (8, 40, 424, 128, 128), (8, 80, 848, 128, 128), (8, 10, 106, 512, 256),
+               (8, 40, 424, 256, 128), (2, 5, 53, 32, 128), (2, 5, 53, 2048, 128),
+               (1, 7, 1, 64, 128), (3, 1, 9, 64, 128), (1, 1, 1, 32, 128), (1, 3, 5000, 64, 128),
+               (2, 3000, 3, 64, 256), (65535, 1, 2, 32, 128)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_conv_plan_fits_the_kernel(shape):
+    B, H, W, C, Co = shape
+    pitch, bm = T.conv_plan(B, H, W, C, Co)
+    assert bm in (128, 256) and pitch >= 3
+    assert bm + 2 * pitch + 2 <= T.HALO_ENTRIES            # the halo window fits a buffer
+    tw = pitch - 2
+    strips = -(-W // tw)
+    assert strips * tw >= W and (strips - 1) * tw < W       # no empty strip
+    assert T.conv_plan(B, H, W, C, Co, 132) == (pitch, bm)  # the default is the H100's SMs
+    tiles = strips * -(-B * (H + 1) * pitch // bm) * (Co // 128)
+    assert tiles < 2 ** 31
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_stat_chunks_cover_each_image(shape):
+    B, H, W, C = shape[:4]
+    n = T.stat_chunks(B, H * W, C)
+    pix = -(-H * W // n)
+    assert 1 <= n <= min(H * W, 65535)
+    assert (n - 1) * pix < H * W <= n * pix                  # no empty chunk (the kernel checks)
+    # about STAT_BLOCKS blocks of at least STAT_BYTES: ceil(HW / n) pixels a
+    # chunk keeps at least half of the chunks asked for
+    want = min(-(-T.STAT_BLOCKS // B), -(-H * W * 2 * C // T.STAT_BYTES), H * W, 65535)
+    assert 2 * n >= want and n <= want
+
+
+def test_conv_plan_at_the_decoder_stages():
+    """The plans of the five stages: each wastes at most half of its tiles'
+    pixels (junk columns, pad rows, the last tile), and a tile's halo window
+    is under 2.5 times its pixels."""
+    for B, H, W, C, Co in PLAN_SHAPES[:5]:
+        pitch, bm = T.conv_plan(B, H, W, C, Co)
+        tw = pitch - 2
+        tiles = -(-W // tw) * -(-B * (H + 1) * pitch // bm)
+        assert B * H * W / (tiles * bm) >= 0.5, (H, W, pitch, bm)
+        assert (bm + 2 * pitch + 2) / bm < 2.5
+
+
+def _emulate_conv(act, kernel, bias, pitch, bm, lanes=28):
+    """The conv kernel's geometry in f64 on an activated input (B, H, W, C):
+    strips of pitch - 2 columns, tiles of bm consecutive pixels over the
+    virtual rows (a zero row after each image), each tile's halo window of
+    bm + 2 pitch + 2 entries filled as the transform threads walk it (lane l
+    takes entries l, l + lanes, ..., advancing column, row and image), the
+    nine taps as offsets dy pitch + dx into the window, and the epilogue's
+    decode of which rows are pixels."""
+    B, H, W, C = act.shape
+    Co = kernel.shape[-1]
+    tw = pitch - 2
+    ne = bm + 2 * pitch + 2
+    y = torch.full((B, H, W, Co), float("nan"), dtype=torch.float64)
+    mt = -(-B * (H + 1) * pitch // bm)
+    for strip in range(-(-W // tw)):
+        col0 = strip * tw
+        for m in range(mt):
+            q0 = m * bm
+            row0 = q0 // pitch - 1
+            off0 = q0 - (row0 + 1) * pitch
+            halo = torch.zeros((ne, C), dtype=torch.float64)
+            for ln in range(lanes):
+                local = off0 + ln
+                dr, col = divmod(local, pitch)
+                row = row0 + dr
+                b, h = (-1, H) if row < 0 else divmod(row, H + 1)
+                for e in range(ln, ne, lanes):
+                    w = col0 + col - 1
+                    if 0 <= b < B and h < H and 0 <= w < W:
+                        halo[e] = act[b, h, w]
+                    col += lanes
+                    while col >= pitch:
+                        col -= pitch
+                        h += 1
+                        if h > H:
+                            h, b = 0, b + 1
+            rows = torch.arange(bm)
+            acc = sum(halo[rows + dy * pitch + dx] @ kernel[dy, dx]
+                      for dy in range(3) for dx in range(3))
+            for r in range(bm):
+                row, col = divmod(q0 + r, pitch)
+                b, h = divmod(row, H + 1)
+                if col < tw and col0 + col < W and h < H and b < B:
+                    assert torch.isnan(y[b, h, col0 + col, 0])      # each pixel once
+                    y[b, h, col0 + col] = acc[r] + bias
+    return y
+
+
+@pytest.mark.parametrize("shape,plan", [((2, 5, 13, 8, 4), (7, 128)), ((2, 5, 13, 8, 4), (15, 256)),
+                                        ((1, 3, 1, 8, 4), (3, 128)), ((3, 1, 9, 8, 4), (5, 128)),
+                                        ((2, 4, 11, 8, 4), (13, 128)), ((1, 40, 6, 8, 4), (8, 256))])
+def test_conv_tiling_emulation_matches_conv(shape, plan):
+    """The kernel's tiles, halo windows and taps, emulated, give the twin's
+    conv of the zero-padded activation (f64): every pixel once, the zero ring
+    from the pad rows between images and the out-of-image columns."""
+    B, H, W, C, Co = shape
+    rng = np.random.RandomState(7)
+    act = torch.from_numpy(rng.randn(B, H, W, C))
+    kernel = torch.from_numpy(rng.randn(3, 3, C, Co))
+    bias = torch.from_numpy(rng.randn(Co))
+    got = _emulate_conv(act, kernel, bias, *plan)
+    want = torch.nn.functional.conv2d(act.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1) + bias
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)

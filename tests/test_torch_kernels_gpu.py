@@ -753,12 +753,25 @@ def _gn_inputs(dev, B, H, W, C, Co, beta_shift=0.0, seed=5):
     return x, gamma, beta, k, 0.1 * torch.randn(Co, generator=g, device=dev)
 
 
+# (B, H, W, C, Co, groups): the decoder's five stages and its channel
+# transitions, C 32 (half a 64-channel chunk), 64, 96 (a chunk and a half) and
+# 2048, W 1, H 1, widths no multiple of a strip or a tile, B 1, 8 groups
+GN_SHAPES = [(8, 20, 212, 256, 256, 32),   # a flagship decoder stage
+             (2, 5, 53, 64, 128, 32),      # ragged rows (W = 53)
+             (2, 5, 53, 64, 128, 8),
+             (8, 5, 53, 512, 512, 32), (8, 10, 106, 256, 256, 32), (8, 40, 424, 128, 128, 32),
+             (8, 80, 848, 128, 128, 32),   # the other four stages
+             (8, 10, 106, 512, 256, 32), (8, 40, 424, 256, 128, 32),   # C != Co
+             (2, 5, 53, 32, 128, 8), (2, 6, 37, 96, 256, 32), (2, 5, 53, 2048, 128, 32),
+             (1, 7, 1, 64, 128, 32), (3, 1, 9, 64, 256, 8), (1, 1, 1, 32, 128, 32),
+             (1, 3, 301, 64, 128, 32), (1, 9, 67, 128, 384, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 20, 212, 256, 256, 32),   # a flagship decoder stage
-                                   (2, 5, 53, 64, 128, 32),      # ragged strips (W = 53)
-                                   (2, 5, 53, 64, 128, 8)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
 @pytest.mark.parametrize("beta_shift", [0.0, 6.0])               # 6: the zero ring matters
 def test_gn_swish_conv_kernel_matches_plain(cuda, shape, beta_shift):
+    """Within GN_TOL of the twin; two runs bit for bit equal; f32 refused."""
     from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
 
     B, H, W, C, Co, G = shape
@@ -767,8 +780,38 @@ def test_gn_swish_conv_kernel_matches_plain(cuda, shape, beta_shift):
     got = gn.gn_swish_conv(*args, groups=G)
     want = gn.gn_swish_conv_reference(*args, groups=G)
     _check_kernel(gn.gn_swish_conv, got, want, launches, tol=GN_TOL)
+    assert torch.equal(gn.gn_swish_conv(*args, groups=G), got)
     with pytest.raises(TypeError):
         gn.gn_swish_conv(args[0].float(), *args[1:], groups=G)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(3, 128), (7, 128), (32, 256), (55, 128), (76, 256),
+                                  (141, 128), (77, 256)])
+def test_gn_swish_conv_plans_agree(cuda, plan):
+    """Every plan (strip pitch, tile rows) gives the same bits: a tile's sums
+    run in one fixed order whatever its geometry; at the widest pitches the
+    halo window fills the buffer."""
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+
+    args = _gn_inputs(cuda, 2, 6, 300, 96, 256, 6.0)
+    a = gn._prepare(*args, groups=32)
+    want = gn._run(a).clone()
+    a["plan"] = plan
+    assert torch.equal(gn._run(a), want)
+    torch.testing.assert_close(want.float(), gn.gn_swish_conv_reference(*args, groups=32).float(),
+                               rtol=GN_TOL, atol=GN_TOL)
+
+
+@pytest.mark.gpu
+def test_gn_swish_conv_refuses_plans_beyond_the_halo(cuda):
+    from text_to_sound_synthesis_torch.ops import fused_gn_conv as gn
+
+    a = gn._prepare(*_gn_inputs(cuda, 1, 4, 500, 64, 256), groups=32)
+    for plan in [(78, 256), (142, 128), (2, 128), (7, 64)]:
+        a["plan"] = plan
+        with pytest.raises(RuntimeError):
+            gn._run(a, "conv")
 
 
 @pytest.mark.gpu

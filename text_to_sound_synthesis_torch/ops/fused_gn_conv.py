@@ -11,6 +11,14 @@ composition's; there is no backward kernel on either side), and
 the public functions: x NHWC, kernel HWIO (3, 3, C, Co), gamma / beta (C,),
 bias (Co,).
 
+The CUDA kernel (its header has the design) takes two launches: the group
+statistics, whose last block per image writes scale and shift, then the conv
+as an implicit GEMM on bf16 ``wgmma``, the activation computed in shared
+memory beside the products. The host side here plans both: ``stat_chunks``
+(the statistics' pixel chunks) and ``conv_plan`` (the conv's column strips
+and tile rows, within the kernel's ``HALO_ENTRIES``); neither changes the
+output's bits, only its time.
+
 On the TPU the kernel is a measured negative against XLA's own fused conv
 (the JAX module's docstring), so it is off by default and nothing in the
 model calls it: only the A/B tool (``tools/bench_gn_conv.py``, here
@@ -23,7 +31,7 @@ import contextlib
 import ctypes
 import functools
 import os
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -42,17 +50,69 @@ def load_kernel() -> ctypes.CDLL:
     """Build (first use) and load ``csrc/gn_swish_conv.cu``."""
     lib = load_library("gn_swish_conv", ["gn_swish_conv.cu"])
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.t2s_gn_swish_conv.argtypes = [P] * 8 + [I] * 6 + [P]
-    lib.t2s_gn_swish_conv.restype = I
-    lib.t2s_gn_stat_pixels.argtypes = []
-    lib.t2s_gn_stat_pixels.restype = I
+    lib.t2s_gn_stats.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.t2s_gn_stats.restype = I
+    lib.t2s_gn_conv.argtypes = [P] * 5 + [I] * 7 + [P]
+    lib.t2s_gn_conv.restype = I
+    lib.t2s_gn_halo_entries.argtypes = []
+    lib.t2s_gn_halo_entries.restype = I
+    if lib.t2s_gn_halo_entries() != HALO_ENTRIES:
+        raise RuntimeError(f"gn_swish_conv.cu holds {lib.t2s_gn_halo_entries()} halo entries, "
+                           f"the plan assumes {HALO_ENTRIES}")
     return lib
 
 
 # The kernel's limits (csrc/gn_swish_conv.cu checks them too): C a multiple of
-# C_MULTIPLE (its channel chunk) and at most MAX_C, Co a multiple of
-# CO_MULTIPLE (its output tile), H and B at most MAX_GRID (grid dimensions).
+# C_MULTIPLE (the tensor map's 16-byte rows, a 64-channel chunk's halves) and
+# at most MAX_C (the statistics block), Co a multiple of CO_MULTIPLE (its
+# output tile), H and B at most MAX_GRID.
 C_MULTIPLE, CO_MULTIPLE, MAX_C, MAX_GRID = 32, 128, 2048, 65535
+# Pixels one of the conv's halo buffers holds (the kernel's kMaxEntries): a
+# tile of bm pixels at a pitch p reads bm + 2 p + 2 of them.
+HALO_ENTRIES = 412
+# The statistics launch aims at this many blocks (some four per SM), each
+# reading at least STAT_BYTES of x: a small image has few chunks, so that the
+# finalize sums few partials.
+STAT_BLOCKS, STAT_BYTES = 528, 32768
+# The plan's cost model: a block's (tile, 64-channel chunk) unit takes
+# UNIT_COST[bm] = (a, b) as a + b * (halo entries) µs, the transform warps
+# setting the pace (a 128-row tile's block has 11 of them, a 256-row tile's
+# 7; PERF.md). Fitted to the H100's times of plans at the decoder's stages.
+UNIT_COST = {128: (3.8, 0.016), 256: (3.9, 0.027)}
+
+
+def stat_chunks(B: int, HW: int, C: int) -> int:
+    """Pixel chunks per image of the statistics launch: about STAT_BLOCKS
+    blocks over the batch, each reading at least STAT_BYTES of bf16 x where
+    the image allows, none empty (chunks of ceil(HW / n) pixels)."""
+    n = max(1, min(HW, 65535, -(-STAT_BLOCKS // B), -(-HW * 2 * C // STAT_BYTES)))
+    pix = -(-HW // n)
+    return -(-HW // pix)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(B: int, H: int, W: int, C: int, Co: int, sms: int = 132) -> Tuple[int, int]:
+    """(pitch, bm) of the conv launch: column strips of pitch - 2 columns,
+    output tiles of bm (128 or 256) consecutive pixels of a strip's rows (the
+    kernel's header), the halo window bm + 2 pitch + 2 within HALO_ENTRIES.
+    The least modelled time: waves of tiles over ``sms`` persistent blocks,
+    UNIT_COST a tile's 64-channel chunk; ties to fewer tile pixels."""
+    chunks = -(-C // 64)
+    best = None
+    for bm in (128, 256):
+        widest = (HALO_ENTRIES - bm - 2) // 2 - 2
+        for tw in range(1, min(W, widest) + 1):
+            strips = -(-W // tw)
+            if -(-W // strips) != tw:      # the same strips as a narrower tw
+                continue
+            pitch = tw + 2
+            tiles = strips * -(-B * (H + 1) * pitch // bm) * (Co // 128)
+            a, b = UNIT_COST[bm]
+            cost = -(-tiles // sms) * chunks * (a + b * (bm + 2 * pitch + 2))
+            key = (cost, tiles * bm, pitch, bm)
+            if best is None or key < best:
+                best = key
+    return best[2], best[3]
 
 
 def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
@@ -126,10 +186,28 @@ def _check_kernel_args(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          f"{CO_MULTIPLE}, groups dividing C, H and B up to {MAX_GRID}")
 
 
-def _gn_swish_conv_cuda(x, gamma, beta, kernel, bias, groups: int) -> torch.Tensor:
-    """The kernel's three launches (statistics, finalize, conv) on the card."""
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The statistics launch's tickets on ``device``, one int32 per image (at
+    least ``n``): zeroed once and kept (each image's last block resets its
+    own). Launches on one stream at a time share them. Allocated, or grown, at
+    a device's first launch with that many images, which must not be under
+    CUDA graph capture (the tools warm up eagerly first)."""
+    key = torch.device(device).index
+    if key not in _TICKETS or _TICKETS[key].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gn_swish_conv's tickets are allocated at the first launch on a "
+                               "device with as many images, which must run outside CUDA graph "
+                               "capture")
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _prepare(x, gamma, beta, kernel, bias, groups: int) -> dict:
+    """The kernel's operands, scratch and plan for one call on the card."""
     _check_kernel_args(x, gamma, beta, kernel, bias, groups)
-    lib = load_kernel()
     B, H, W, C = x.shape
     Co = kernel.shape[-1]
     dev = x.device
@@ -137,21 +215,51 @@ def _gn_swish_conv_cuda(x, gamma, beta, kernel, bias, groups: int) -> torch.Tens
     for name, t in (("gamma", gamma), ("beta", beta), ("kernel", kernel), ("bias", bias)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    # (Co, 3, 3, C) bf16, K-contiguous for the B fragments; per call, as the
-    # TPU kernel casts its kernel to x.dtype per call
-    w = kernel.to(torch.bfloat16).permute(3, 0, 1, 2).contiguous()
-    g32, b32, bias32 = (t.float().contiguous() for t in (gamma, beta, bias))
-    nchunk = -(-H * W // lib.t2s_gn_stat_pixels())
-    partial = torch.empty((B, nchunk, 2, groups), dtype=torch.float32, device=dev)
-    scale_shift = torch.empty((2, B, C), dtype=torch.float32, device=dev)
-    y = torch.empty((B, H, W, Co), dtype=torch.bfloat16, device=dev)
+    nchunk = stat_chunks(B, H * W, C)
+    pitch, bm = conv_plan(B, H, W, C, Co, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return dict(
+        x=x,
+        # (3, 3, C, Co) bf16 as HWIO stores it (the kernel reads its tiles
+        # MN-major); per call, as the TPU kernel casts its kernel to x.dtype
+        w=kernel.to(torch.bfloat16).contiguous(),
+        gamma=gamma.float().contiguous(), beta=beta.float().contiguous(),
+        bias=bias.float().contiguous(),
+        partial=torch.empty((B, nchunk, 2, groups), dtype=torch.float32, device=dev),
+        scale_shift=torch.empty((2, B, C), dtype=torch.float32, device=dev),
+        tickets=_tickets(dev, B), y=torch.empty((B, H, W, Co), dtype=torch.bfloat16, device=dev),
+        shape=(B, H, W, C, Co), groups=groups, nchunk=nchunk, plan=(pitch, bm))
+
+
+def _run(a: dict, part: str = "all") -> torch.Tensor:
+    """Launch on ``_prepare``'s operands: ``all`` (statistics then conv),
+    ``stats`` or ``conv`` alone (the A/B tool times them apart). Returns y."""
+    if part not in ("all", "stats", "conv"):
+        raise ValueError(f"part {part!r}: all, stats or conv")
+    lib = load_kernel()
+    B, H, W, C, Co = a["shape"]
+    pitch, bm = a["plan"]
+    x, dev = a["x"], a["x"].device
     with torch.cuda.device(dev):
-        err = lib.t2s_gn_swish_conv(x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
-                                    bias32.data_ptr(), y.data_ptr(), partial.data_ptr(),
-                                    scale_shift.data_ptr(), B, H, W, C, Co, groups,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gn_swish_conv kernel launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if part != "conv":
+            err = lib.t2s_gn_stats(x.data_ptr(), a["gamma"].data_ptr(), a["beta"].data_ptr(),
+                                   a["partial"].data_ptr(), a["scale_shift"].data_ptr(),
+                                   a["tickets"].data_ptr(), B, H, W, C, a["groups"], a["nchunk"],
+                                   stream)
+            if err != 0:
+                raise RuntimeError(f"gn_swish_conv statistics launch failed: cudaError {err}")
+        if part != "stats":
+            err = lib.t2s_gn_conv(x.data_ptr(), a["w"].data_ptr(), a["bias"].data_ptr(),
+                                  a["scale_shift"].data_ptr(), a["y"].data_ptr(), B, H, W, C, Co,
+                                  pitch, bm, stream)
+            if err != 0:
+                raise RuntimeError(f"gn_swish_conv conv launch failed: cudaError {err}")
+    return a["y"]
+
+
+def _gn_swish_conv_cuda(x, gamma, beta, kernel, bias, groups: int) -> torch.Tensor:
+    """The kernel's two launches (statistics, conv) on the card."""
+    y = _run(_prepare(x, gamma, beta, kernel, bias, groups))
     gn_swish_conv.launches += 1
     return y
 

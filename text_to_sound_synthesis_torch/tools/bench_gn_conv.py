@@ -6,7 +6,9 @@ Port of ``tools/bench_gn_conv.py``: the flagship decoder's five stages
 time per call, from a CUDA graph of ``repeats`` chained calls (h = f(h), as
 the JAX tool chains them in a scan):
 
-- "fused": ``ops.fused_gn_conv.gn_swish_conv`` (``csrc/gn_swish_conv.cu``);
+- "fused": ``ops.fused_gn_conv.gn_swish_conv`` (``csrc/gn_swish_conv.cu``),
+  and apart its two launches on the same operands and plan, each alone in
+  its own graph: "stats" (statistics and scale / shift) and "conv";
 - "cudnn": ``F.conv2d(F.silu(F.group_norm(h)))`` in bf16, channels-last, the
   counterpart of the JAX tool's "xla" arm and the only yardstick (no single
   PyTorch call computes this function). Its weights are bf16 and its
@@ -64,8 +66,14 @@ def stage_inputs(H: int, W: int, C: int, dev, seed: int = 0):
     return x, ones, zeros, k, zeros.clone()
 
 
+def stats_bound_us(H: int, W: int, C: int) -> float:
+    """The statistics launch's least time: x read once at the memory rate."""
+    return 1e6 * 2 * B * H * W * C / HBM_BYTES_PER_S
+
+
 def bench_one(H: int, W: int, C: int, repeats: int, dev=None) -> Dict[str, float]:
-    """{"fused": µs, "cudnn": µs} per call at one stage."""
+    """{"fused", "stats", "conv", "cudnn": µs} per call at one stage."""
+    from ..ops import fused_gn_conv as gn
     from ..ops.fused_gn_conv import gn_swish_conv
 
     dev = dev or torch.device("cuda")
@@ -88,8 +96,24 @@ def bench_one(H: int, W: int, C: int, repeats: int, dev=None) -> Dict[str, float
                          padding=1)
         return h
 
+    a = gn._prepare(x, gamma, beta, k, b, GROUPS)
+    gn._run(a)
+
+    def part(name):
+        def run():
+            for _ in range(repeats):
+                gn._run(a, name)
+        return run
+
     with torch.no_grad():
-        return {"fused": graph_us(fused, repeats), "cudnn": graph_us(cudnn, repeats)}
+        return {"fused": graph_us(fused, repeats), "stats": graph_us(part("stats"), repeats),
+                "conv": graph_us(part("conv"), repeats), "cudnn": graph_us(cudnn, repeats)}
+
+
+def _plan(H: int, W: int, C: int):
+    from ..ops.fused_gn_conv import conv_plan
+
+    return conv_plan(B, H, W, C, C, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -143,6 +167,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"({H:3d},{W:3d},{C:3d}) act {mb:6.1f} MB  fused {r['fused']:8.1f} us"
               f"  cudnn {r['cudnn']:8.1f} us  speedup {r['cudnn'] / r['fused']:.2f}x"
               f"  bound {bound:6.1f} us ({100 * bound / r['fused']:.1f} % of fused)")
+        print(f"      launches alone: stats {r['stats']:7.1f} us (bound {stats_bound_us(H, W, C):5.1f}),"
+              f" conv {r['conv']:8.1f} us (bound {bound:6.1f}, {100 * bound / r['conv']:.1f} %);"
+              f" plan (pitch, bm) {_plan(H, W, C)}")
     print(f"TOTAL per-site pass: fused {tot_f:.0f} us, cudnn {tot_c:.0f} us, "
           f"speedup {tot_c / tot_f:.2f}x, bound {tot_b:.0f} us ({100 * tot_b / tot_f:.1f} % of "
           f"fused)")
