@@ -14,7 +14,9 @@ bf16, batch 8, 100 steps, ``top0.85r``), then for the bf16 path
 T2S_MLP_IMPL=chunked`` (K8, K9), the W4A8 engine with the int8 MHA
 (``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``; ``int8mha``) and the W4A8 engine's
 long-form request (``generate_long``, 2120 frames, 24 sampler rows;
-``long``), then K11 (``k11``): all of them, or the paths named. One warm-up request,
+``long``), the f32 one-hot reference sampler in ``bench.py``'s scope
+(sampler + ``decode_code`` on an f32 copy, PyTorch's default precision;
+``ref``), then K11 (``k11``): all of them, or the paths named. One warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
 runs, the same way: five ``gn_swish_conv`` calls at each of the flagship
@@ -64,7 +66,7 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
 
 # a request's sampling, and its tokens returned beside the mel
 REQ = dict(sample_type="top0.85r", return_tokens=True)
-PATHS = ("bf16", "w4", "w8", "int8mha", "long", "k11")
+PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11")
 
 
 def main(argv=None) -> int:
@@ -111,6 +113,14 @@ def main(argv=None) -> int:
     if "long" in paths:
         profile(f"W4A8 static generate_long, {cs.LONG_FRAMES} frames",
                 lambda: model.generate_long(gen(), cond, duration_frames=cs.LONG_FRAMES, qp=qp))
+    if "ref" in paths:
+        ref = cs.reference_copy(model)
+        with cs.pytorch_default_precision():
+            with torch.no_grad():
+                emb = ref.embed_condition(cond)
+            profile("f32 one-hot reference, bench.py's scope",
+                    lambda: cs.bench_scope(ref, emb, False, gen()), what="sampler + decode_code")
+        del ref
     if "k11" not in paths:
         return 0
 

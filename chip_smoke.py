@@ -80,6 +80,23 @@ Phases (any failed check exits nonzero, and no result line is printed):
              answers two batch-8 requests of 100 steps each, caption BPE ids
              to wav, and checks what comes out and that every step went
              through K1 and no other kernel.
+5b. one-hot — on the same bf16 model: (a) three steps of the one-hot
+             reference sampler (``predict_start`` -> ``truncate_top_r`` ->
+             ``q_posterior`` -> Gumbel argmax) against K1 on the same logits,
+             each step from the one-hot chain's tokens, at r 0.85 and 0, on
+             one supplied noise: posteriors within POST_ATOL (boundary rows
+             at most BOUNDARY_ROWS of the rows at r 0.85, none at r 0), tokens
+             in at most BOUNDARY_ROWS of the rows; the two samplers' three
+             steps end to end within 1 % of the tokens; (b) three one-hot
+             requests to a wav (``top100p``, ``top0.85r,q0.5``, ``top0.85r``
+             with ``use_fused=False``), every kernel count 0; (c)
+             ``reconstruct`` at (8, 80, 848, 1) and ``sample_grid`` at batch 2;
+             (d) the codec written as a Lightning ``.ckpt`` and the vocoder as
+             ``args.yml`` + a weight-normed ``best_netG.pt``, loaded on the
+             card: ``decode_code`` bit for bit the source's, the wav within
+             VOC_TOL; (e) ``bench.py``'s scope (sampler + ``decode_code``, no
+             CLIP, no MelGAN) timed for an f32 copy on the one-hot sampler,
+             the reference's algorithm, beside the bf16 fused path, in turns.
 6. serving — the W4A8 static-scale engine of the same model:
              ``quantize_for_serving(weight_bits=4)`` -> ``calibrate_serving_engine``
              on the smoke's captions -> three steps, kernels against the plain
@@ -115,8 +132,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
              100, the pair MHA 2 x 19 x 100), a finite (8, 80, 2120, 1) mel
              whose cross-fade agrees with its segments, then the wav in [-1,
              1].
-10. times  — each path's request time and clips/s, beside the card's name
-             and power limit. Every request phase counts K11 and T1-T3 at 0.
+10. times  — each path's request time and clips/s, and phase 5b's
+             reference and fused times in bench.py's scope, beside the card's
+             name and power limit. Every request phase counts K11 and T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -141,6 +159,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "diffsound_audiocaps.yaml")
 SEED = 1234
 BATCH, CTX, N_STEPS = 8, 77, 100
+MEL = (80, 848)                 # the flagship's mel: bins, frames
+VOC_ARGS = {"n_mel_channels": 80, "ngf": 32, "n_residual_layers": 3}   # MelGAN's args.yml
 SOT, EOT = 49406, 49407
 # K1 checks. Posterior log-probs agree to POST_ATOL (f32 log-space chains whose
 # exp/log and sums run in another order in the kernel). With truncation, the
@@ -236,6 +256,10 @@ T2_CONTROLS = {"mid_bf16b": ("K3", "mid_bf16c"), "mid_bf16c": ("K3", "mid_bf16b"
 # cores' adds truncate (2^-23 per add), so the two within DOT_BOUND_K times
 # K 2^-24 sum_k |x_k w_k| of each other. The int cases are exact.
 DOT_BOUND_K = 4
+# The vocoder loaded from a weight-normed best_netG.pt against the one in
+# memory: folding g * v / |v| can move a weight by an f32 ulp (|v| sums in
+# another order), which the 31 convs carry to the wav, in [-1, 1].
+VOC_TOL = 1e-4
 N_LAYER, D_MODEL, N_HEAD, L_TOK, S_COND, D_MLP = 19, 1024, 16, 265, 77, 4096
 LONG_FRAMES = 2120
 
@@ -1320,12 +1344,253 @@ def request(generate, vocoder, seed, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     check(bool(((tokens >= 0) & (tokens < 256)).all()), "slice: tokens outside [0, 256) (MASK left)")
-    check(tuple(mel.shape) == (BATCH, 80, 848, 1), f"slice: mel shape {tuple(mel.shape)}")
+    check(tuple(mel.shape) == (BATCH, *MEL, 1), f"slice: mel shape {tuple(mel.shape)}")
     check(bool(torch.isfinite(mel).all()), "slice: mel not finite")
-    check(tuple(wav.shape) == (BATCH, 848 * 256), f"slice: wav shape {tuple(wav.shape)}")
+    check(tuple(wav.shape) == (BATCH, MEL[1] * 256), f"slice: wav shape {tuple(wav.shape)}")
     check(bool(torch.isfinite(wav).all()), "slice: wav not finite")
     check(float(wav.abs().max()) <= 1.0, "slice: wav outside [-1, 1]")
     return seconds
+
+
+def bench_scope(model, cond_emb, fused: bool, generator):
+    """One request in ``bench.py``'s scope: the sampler (the fused one, or
+    the one-hot reference) and ``decode_code``, batch and steps as given,
+    ``top0.85r``; the condition embedded before, no vocoder. -> (mel, tokens)."""
+    from functools import partial
+
+    from text_to_sound_synthesis_torch.models.diffusion.process import (
+        sample_tokens, sample_tokens_fused)
+    from text_to_sound_synthesis_torch.ops.sampling import truncate_top_r
+
+    with torch.no_grad():
+        if fused:
+            tokens = sample_tokens_fused(model.diffusion, cond_emb, generator=generator,
+                                         truncation_r=0.85)
+        else:
+            tokens = sample_tokens(model.diffusion, cond_emb, generator=generator,
+                                   filter_fn=partial(truncate_top_r, r=0.85))
+        return model.decode_tokens(tokens), tokens
+
+
+def reference_copy(model):
+    """The f32 copy of ``model`` that the reference sampler is timed on."""
+    import copy
+
+    ref = copy.deepcopy(model).float()
+    ref.dtype = torch.float32
+    return ref
+
+
+@contextlib.contextmanager
+def pytorch_default_precision():
+    """PyTorch's default f32 precision for the block (matmuls in full f32,
+    cuDNN convs in TF32), as the reference runs; restored after."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _onehot_steps_vs_k1(model, fs, cond_emb, r, rule, dev):
+    """Phase 5b (a): three steps of the one-hot sampler's step
+    (``predict_start`` -> a top-r filter -> ``q_posterior`` -> Gumbel argmax)
+    against K1 on the same logits, each step from the one-hot chain's
+    tokens, on one supplied noise; then the two samplers' three steps end to
+    end. ``rule`` is the one-hot side's filter: "sort" (``truncate_top_r``,
+    the reference's rule, which ``generate`` runs) or "bisect" (K1's rule,
+    ``fused_sampler._truncate_rows``). Returns the counts over the steps'
+    rows: posterior rows beyond POST_ATOL, token rows that differ, rows
+    whose sort nucleus is not K1's (bisect) plus the classes of one value,
+    the one that crosses r and its ties, and rows where those are more than
+    one class; then the end-to-end token mismatches and the rows."""
+    from functools import partial
+
+    from text_to_sound_synthesis_torch.models.diffusion.process import (
+        OneHotDraws, _timestep_plan, sample_tokens, sample_tokens_fused)
+    from text_to_sound_synthesis_torch.ops import diffusion as dd
+    from text_to_sound_synthesis_torch.ops.sampling import truncate_top_r
+
+    diff = model.diffusion
+    K, L = diff.num_classes, diff.content_seq_len
+    sched = diff.schedule(dev)
+    ts, t_post = _timestep_plan(N_STEPS, N_STEPS, 49)
+    filter_fn = None
+    if r:
+        filter_fn = partial(truncate_top_r if rule == "sort" else fs._truncate_rows, r=r)
+    coeffs = fs.step_coeffs(sched, t_post).as_array().contiguous()
+    noise = dd.gumbel_from_uniform(torch.rand((len(ts), BATCH, L, K), device=dev,
+                                              generator=torch.Generator(dev).manual_seed(SEED + 5)))
+    log_z = torch.full((BATCH, L, K), -torch.inf, device=dev)
+    log_z[..., -1] = 0.0
+    boundary = tok_rows = off_nucleus = tied = 0
+    with torch.no_grad():
+        for i, (t, tp) in enumerate(zip(ts, t_post)):
+            x_t = dd.log_onehot_to_index(log_z)
+            t_vec = torch.full((BATCH,), t, dtype=torch.long, device=dev)
+            log_x0 = diff.predict_start(x_t, cond_emb, t_vec)
+            if r:
+                keep_sort = truncate_top_r(log_x0, r) > dd.MIN_LOGP
+                keep_bisect = fs._truncate_rows(log_x0, r) > dd.MIN_LOGP
+                extra = keep_sort & ~keep_bisect
+                hi = torch.where(extra, log_x0, -torch.inf).amax(dim=-1)
+                lo = torch.where(extra, log_x0, torch.inf).amin(dim=-1)
+                one_value = ~extra.any(dim=-1) | (hi == lo)
+                off_nucleus += int(((keep_bisect & ~keep_sort).any(dim=-1) | ~one_value).sum())
+                tied += int((extra.sum(dim=-1) > 1).sum())
+                log_x0 = filter_fn(log_x0)
+            post = dd.q_posterior(sched, log_x0, log_z,
+                                  torch.full((BATCH,), tp, dtype=torch.long, device=dev))
+            log_z = dd.log_sample_categorical(None, post, noise[i])
+            logits = diff.backbone_logits(x_t, cond_emb, t_vec)
+            k1_tok, k1_post = fs.fused_p_sample(logits, x_t, coeffs[i], 0, i, truncation_r=r,
+                                                gumbel=noise[i], return_log_probs=True)
+            err = (k1_post - post).abs().amax(dim=-1).flatten()
+            boundary += int((err > POST_ATOL).sum())
+            tok_rows += int((k1_tok != dd.log_onehot_to_index(log_z)).sum())
+        onehot = sample_tokens(diff, cond_emb, skip_step=49, filter_fn=filter_fn,
+                               draws=OneHotDraws(gumbel=noise))
+        fused = sample_tokens_fused(diff, cond_emb, generator=torch.Generator(dev).manual_seed(SEED),
+                                    truncation_r=r, skip_step=49, noise=noise)
+    check(torch.equal(onehot, dd.log_onehot_to_index(log_z)),
+          "one-hot: sample_tokens is not its three steps")
+    return (boundary, tok_rows, off_nucleus, tied, int((onehot != fused).sum()),
+            len(ts) * BATCH * L)
+
+
+def phase_onehot(model, fs, vocoder, cond_tokens, cfg, dev):
+    """Phase 5b: the one-hot reference sampler and the rest of the inference
+    API on the bf16 flagship (module docstring). Returns the bench-scope
+    seconds of the f32 one-hot reference and of the bf16 fused path, each
+    in the order they ran."""
+    import copy
+    import tempfile
+
+    from text_to_sound_synthesis_torch.models import build_model
+    from text_to_sound_synthesis_torch.models.melgan import load_vocoder
+
+    with torch.no_grad():
+        cond_emb = model.embed_condition(cond_tokens)
+    # (a) the one-hot steps against K1, per step and end to end. K1's nucleus
+    # (bisection: keep p > tau, the largest set summing below r) leaves out
+    # the class that crosses r, which the reference's rule (sort: keep while
+    # the sum before a class is below r) keeps, with the classes tied with it
+    # (bf16 logits tie often); so at r > 0 K1 is held to the one-hot step
+    # under its own rule, and the reference rule to K1's nucleus plus the
+    # classes of that one value.
+    for r, rule in ((0.0, "sort"), (0.85, "bisect"), (0.85, "sort")):
+        boundary, tok_rows, off_nucleus, tied, e2e, rows = _onehot_steps_vs_k1(
+            model, fs, cond_emb, r, rule, dev)
+        allowed = int(BOUNDARY_ROWS * rows)
+        print(f"  (a) one-hot step ({'no filter' if not r else rule + ' rule'}) vs K1, r={r}, 3 "
+              f"steps (fast49) from the one-hot chain's tokens: posterior rows beyond {POST_ATOL} "
+              f"{boundary}/{rows}, token rows {tok_rows}/{rows}"
+              + (f", rows whose sort nucleus is not K1's plus the crossing value's classes "
+                 f"{off_nucleus}/{rows} (of which tied, more than one class: {tied})" if r else "")
+              + f"; the two samplers end to end: {e2e}/{rows // 3} tokens differ")
+        if rule == "sort" and r:
+            check(off_nucleus <= allowed, f"one-hot vs K1 at r={r}: {off_nucleus} rows whose "
+                  "nuclei differ by more than the crossing value's classes")
+            continue
+        check(boundary <= (allowed if r > 0 else 0),
+              f"one-hot vs K1 at r={r}: {boundary} posterior rows beyond {POST_ATOL}")
+        check(tok_rows <= allowed, f"one-hot vs K1 at r={r}: {tok_rows} token rows differ")
+        check(e2e <= 0.01 * rows / 3, f"one-hot vs fused sampler at r={r}: {e2e} tokens differ")
+
+    # (b) one-hot requests: no kernel of the port runs
+    reqs = [("top100p", None), ("top0.85r,q0.5", None), ("top0.85r", False)]
+    times = {}
+    for i, (st, use_fused) in enumerate(reqs):
+        gen = lambda g, st=st, use_fused=use_fused: model.generate(
+            g, cond_tokens, sample_type=st, use_fused=use_fused, return_tokens=True)
+        reset_counts()
+        times[st] = request(gen, vocoder, SEED + 20 + i, dev)
+        counts = read_counts()
+        check(counts == expected_counts(), f"one-hot {st}: launches {counts}, expected none")
+    print(f"  (b) one-hot requests, batch {BATCH} x {N_STEPS} steps, caption ids -> wav, no kernel "
+          "launched: "
+          + ", ".join(f"{st}{' use_fused=False' if uf is False else ''} {times[st]:.3f} s"
+                      for st, uf in reqs))
+
+    # (c) the codec round trip and the sample grid
+    mel_in = (torch.rand((BATCH, *MEL, 1), generator=torch.Generator(dev).manual_seed(SEED + 6),
+                         device=dev) * 2 - 1).to(model.dtype)
+    rec = model.reconstruct(mel_in)
+    check(tuple(rec.shape) == (BATCH, *MEL, 1) and bool(torch.isfinite(rec).all()),
+          f"reconstruct: shape {tuple(rec.shape)} or not finite")
+    grid = model.sample_grid(torch.Generator(dev).manual_seed(SEED + 7), mel_in[:2],
+                             cond_tokens[:2], filter_ratios=(0.0, 0.5))
+    names = ["input_image", "reconstruction_image", "cond1_cont1.0_fr0.0_image",
+             "cond1_cont1.0_fr0.5_image"]
+    check(list(grid) == names, f"sample_grid: keys {list(grid)}")
+    for k, v in grid.items():
+        check(tuple(v.shape) == (2, *MEL, 1) and bool(torch.isfinite(v).all()),
+              f"sample_grid {k}: shape {tuple(v.shape)} or not finite")
+    print(f"  (c) reconstruct {(BATCH, *MEL, 1)} and sample_grid (batch 2, filter ratios 0, "
+          f"0.5): shapes and finite values as expected")
+
+    # (d) the loaders: write the flagship codec and the vocoder in the
+    # reference's layouts, load them on the card, compare with the sources
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = {k: v.cpu() for k, v in model.codec.state_dict().items()}
+        sd["loss.discriminator.main.0.weight"] = torch.zeros(64, 1, 4, 4)
+        ckpt = os.path.join(tmp, "codec.ckpt")
+        torch.save({"state_dict": sd, "epoch": 1}, ckpt)
+        cfg2 = copy.deepcopy(cfg)
+        cfg2["model"]["params"]["content_codec_config"]["params"]["ckpt_path"] = ckpt
+        loaded = build_model(cfg2, device=dev, seed=SEED + 8)
+        code = torch.randint(0, model.diffusion.num_classes - 1, (BATCH, *model.token_hw), device=dev,
+                             generator=torch.Generator(dev).manual_seed(SEED + 9))
+        with torch.no_grad():
+            same = torch.equal(loaded.codec.decode_code(code), model.codec.decode_code(code))
+        del loaded
+        check(same, "codec .ckpt: decode_code differs from the source model's")
+
+        voc_dir = os.path.join(tmp, "vocoder")
+        os.makedirs(voc_dir)
+        with open(os.path.join(voc_dir, "args.yml"), "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in VOC_ARGS.items()))
+        wn = {}
+        for k, w in vocoder.gen.state_dict().items():   # weight norm: v = 2 w, g = |w|
+            w = w.cpu()
+            if k.endswith(".weight"):
+                wn[k + "_g"] = w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
+                wn[k + "_v"] = 2 * w
+            else:
+                wn[k] = w
+        torch.save(wn, os.path.join(voc_dir, "best_netG.pt"))
+        voc2 = load_vocoder(voc_dir, device=dev)
+        spec = ((rec[:2, ..., 0].float() + 1) / 2).clamp(0, 1)
+        voc_err = float((voc2(spec) - vocoder(spec)).abs().max())
+    print(f"  (d) codec .ckpt (Lightning layout, a loss.* entry) built and loaded on the card: "
+          f"decode_code bit for bit the source's; vocoder args.yml + weight-normed best_netG.pt: "
+          f"wav max|d| {voc_err:.3e} against the in-memory vocoder (gate {VOC_TOL})")
+    check(voc_err <= VOC_TOL, f"vocoder loaded from best_netG.pt: wav off by {voc_err}")
+
+    # (e) the reference sampler's time in bench.py's scope, the f32 copy under
+    # PyTorch's default precision
+    ref = reference_copy(model)
+    ref_s, fused_s = [], []
+    with pytorch_default_precision():
+        with torch.no_grad():
+            ref_emb = ref.embed_condition(cond_tokens)
+        for i, fused in enumerate((True, False, False, True)):   # in turns
+            m, emb = (model, cond_emb) if fused else (ref, ref_emb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel, _ = bench_scope(m, emb, fused, torch.Generator(dev).manual_seed(SEED + 30 + i))
+            torch.cuda.synchronize()
+            (fused_s if fused else ref_s).append(time.perf_counter() - t0)
+            check(tuple(mel.shape) == (BATCH, *MEL, 1) and bool(torch.isfinite(mel).all()),
+                  "bench scope: mel shape or not finite")
+    del ref
+    print(f"  (e) bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps, top0.85r; "
+          f"no CLIP, no MelGAN) on {card_line()}: the f32 one-hot reference sampler "
+          f"{ref_s[0]:.3f} / {ref_s[1]:.3f} s a request = {BATCH / min(ref_s):.3f} clips/s; the bf16 "
+          f"fused path (K1) {fused_s[0]:.3f} / {fused_s[1]:.3f} s = {BATCH / min(fused_s):.3f} "
+          f"clips/s (run fused, reference, reference, fused)")
+    return ref_s, fused_s
 
 
 def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op, attn: str = "bf16"):
@@ -1830,7 +2095,8 @@ def main() -> int:
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=SEED)
     with torch.device(dev):
-        gen = MelGANGenerator(input_size=80, ngf=32, n_residual_layers=3)
+        gen = MelGANGenerator(input_size=VOC_ARGS["n_mel_channels"], ngf=VOC_ARGS["ngf"],
+                              n_residual_layers=VOC_ARGS["n_residual_layers"])
     vocoder = Vocoder(init_random_(gen, torch.Generator(dev).manual_seed(SEED + 1)))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -1851,6 +2117,9 @@ def main() -> int:
           f"launches {bf16_counts}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(bf16_counts == expected_counts(K1=2 * N_STEPS),
           f"bf16 path: launches {bf16_counts}, expected {expected_counts(K1=2 * N_STEPS)}")
+
+    print("[5b one-hot sampler, reconstruction, loaders]")
+    ref_s, bench_fused_s = phase_onehot(model, fs, vocoder, cond_tokens, cfg, dev)
 
     print("[6 serving]")
     t0 = time.perf_counter()
@@ -1899,6 +2168,10 @@ def main() -> int:
 
     print(f"[10 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
+    print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
+          f"one-hot reference sampler {min(ref_s):.3f} s = {BATCH / min(ref_s):.3f} clips/s, the bf16 "
+          f"fused path {min(bench_fused_s):.3f} s = {BATCH / min(bench_fused_s):.3f} clips/s "
+          f"(faster of two each)")
     print(f"  bf16 path, second request (caption ids -> wav, batch {BATCH}, {N_STEPS} steps): "
           f"{times[1]:.3f} s = {BATCH / times[1]:.3f} clips/s")
     print(f"  W4A8 static path, second request (caption ids -> wav, batch {BATCH}, {N_STEPS} "

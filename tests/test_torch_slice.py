@@ -35,6 +35,7 @@ from text_to_sound_synthesis_tpu.ops import fused_sampler as jfs
 from text_to_sound_synthesis_tpu.ops import permuter as jperm
 from text_to_sound_synthesis_torch.convert import from_jax
 from text_to_sound_synthesis_torch.models import Diffsound, build_model, parse_sample_type
+from text_to_sound_synthesis_torch.models.diffusion.process import OneHotDraws
 from text_to_sound_synthesis_torch.models.diffusion.process import _timestep_plan as port_plan
 from text_to_sound_synthesis_torch.models.melgan import MelGANGenerator, Vocoder
 from text_to_sound_synthesis_torch.ops import permuter as tperm
@@ -190,12 +191,55 @@ def test_generate_from_partly_noised_content():
                        filter_ratio=0.5, content_tokens=content + 20)
 
 
+def _jdiffsound():
+    """A JAX Diffsound over the slice's modules, for its inference methods."""
+    jclip, jdiff, jds, params, _ = _jax_slice()
+    j = object.__new__(JDiffsound)
+    j.codec, j.permuter, j.token_hw = jds.codec, jds.permuter, jds.token_hw
+    j.cond, j.diffusion = jclip, jdiff
+    return j, params
+
+
+def jax_draws(key, n_steps: int, start: str = "mask") -> OneHotDraws:
+    """The draws the JAX one-hot ``sample_tokens`` makes from ``key``, in its
+    order: a start key split off first (``uniform`` tokens or the
+    ``q_sample`` start's Gumbel noise), then ``split(key, 4)`` a step for the
+    step's Gumbel noise, the q-resample's coin and the resample's noise."""
+    t = lambda a: torch.from_numpy(np.array(a))
+    first = None
+    if start == "uniform":
+        key, k = jax.random.split(key)
+        first = t(jax.random.randint(k, (B, 16), 0, 11 - 2))
+    elif start == "q_sample":
+        key, k = jax.random.split(key)
+        first = t(jax.random.gumbel(k, (B, 16, 11)))
+    g, coin, g2 = [], [], []
+    for _ in range(n_steps):
+        key, k_samp, k_q, k_samp2 = jax.random.split(key, 4)
+        g.append(np.asarray(jax.random.gumbel(k_samp, (B, 16, 11))))
+        coin.append(np.asarray(jax.random.uniform(k_q)))
+        g2.append(np.asarray(jax.random.gumbel(k_samp2, (B, 16, 11))))
+    return OneHotDraws(gumbel=t(np.stack(g)), coin=t(np.stack(coin)), gumbel2=t(np.stack(g2)),
+                       start=first)
+
+
 @pytest.mark.parametrize("sample_type", ["top100p", "top0.85r,q0.5"])
-def test_uncovered_sample_types_raise(sample_type):
-    model, _ = _port_slice()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(torch.Generator().manual_seed(0), torch.from_numpy(_cond_tokens()),
-                       sample_type=sample_type)
+def test_onehot_sample_types_match_jax(sample_type):
+    """Top-k and the q-resample wrapper go to the one-hot sampler by default;
+    under JAX's draws the tokens are JAX's one-hot sampler's (k 100 beyond
+    the 10 codes keeps every class, as JAX's clamped index does)."""
+    jds, params = _jdiffsound()
+    model, vocoder = _port_slice()
+    key = jax.random.PRNGKey(2)
+    want_mel, want_tok = jds.generate(params, key, jnp.asarray(_cond_tokens()),
+                                      sample_type=sample_type, use_fused=False,
+                                      return_tokens=True)
+    mel, tokens = model.generate(torch.Generator().manual_seed(0),
+                                 torch.from_numpy(_cond_tokens()), sample_type=sample_type,
+                                 noise=jax_draws(key, T_STEPS), return_tokens=True)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want_tok))
+    np.testing.assert_allclose(mel.numpy(), np.asarray(want_mel), atol=ATOL)
+    assert vocoder((mel[..., 0] + 1.0) / 2.0).shape == (B, 16 * 256)
 
 
 def test_parse_sample_type():
@@ -274,8 +318,13 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.ops.quant", "text_to_sound_synthesis_torch.ops.attention",
             "text_to_sound_synthesis_torch.ops.int8_block",
             "text_to_sound_synthesis_torch.ops.fused_sampler",
-            "text_to_sound_synthesis_torch.convert.from_jax"]
+            "text_to_sound_synthesis_torch.convert.from_jax",
+            "text_to_sound_synthesis_torch.convert.checkpoint",
+            "text_to_sound_synthesis_torch.ops.sampling", "text_to_sound_synthesis_torch.ops.signal",
+            "text_to_sound_synthesis_torch.utils.io", "text_to_sound_synthesis_torch.utils.artifacts",
+            "text_to_sound_synthesis_torch.models.melgan.interface"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
-            "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
+            "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu') "
+            "if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

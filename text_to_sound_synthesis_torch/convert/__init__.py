@@ -1,1 +1,1 @@
-from . import from_jax  # noqa: F401
+from . import checkpoint, from_jax  # noqa: F401

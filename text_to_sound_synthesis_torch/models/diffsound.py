@@ -2,11 +2,14 @@
 
 Port of ``text_to_sound_synthesis_tpu/models/diffsound.py`` (reference
 ``DALLE``, ``Diffsound/sound_synthesis/modeling/models/dalle_spec.py``) for the
-bf16 generation path: caption BPE ids -> CLIP text tower -> index-carrying
-reverse sampler (fused sampler kernel per step) -> VQGAN ``decode_code``; and
-for the int8 serving path: ``quantize_for_serving`` -> ``calibrate_serving_engine``
--> ``generate_int8`` (``models/diffusion/int8_runtime.py``); and long-form
-generation on either, ``generate_long``.
+generation path: caption BPE ids -> CLIP text tower -> reverse sampler (the
+index-carrying one with the fused sampler kernel per step, or the one-hot
+reference sampler for top-k and ``q<rate>``) -> VQGAN ``decode_code``; the
+int8 serving path: ``quantize_for_serving`` -> ``calibrate_serving_engine``
+-> ``generate_int8`` (``models/diffusion/int8_runtime.py``); long-form
+generation on either, ``generate_long``; the codec round trip
+``reconstruct`` and the training-time ``sample_grid``. ``build_model``
+loads the stage-1 codec checkpoint a config names (``ckpt_path``).
 
 Unlike the JAX package's plain object over three parameter trees, this is one
 ``nn.Module`` laid out as the reference's ``DALLE``: ``content_codec`` (VQModel),
@@ -18,17 +21,22 @@ and ``transformer`` = the denoiser). The JAX package's names ``codec``,
 from __future__ import annotations
 
 import math
+import os
+from functools import partial
 from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..convert.checkpoint import load_torch_state_dict
 from ..ops import permuter as permuter_ops
+from ..ops.sampling import truncate_top_k, truncate_top_r
 from ..utils.config import instantiate_from_config, register
 from ..utils.init import init_random_
 from .clip.text_model import CLIPTextEmbedding
 from .clip.tokenize import Tokenize
-from .diffusion.process import DiscreteDiffusion, sample_tokens_fused
+from .diffusion.process import (DiscreteDiffusion, OneHotDraws, sample_tokens,
+                                sample_tokens_fused)
 from .vqgan.model import VQModel
 
 __all__ = ["Diffsound", "build_model", "crossfade", "parse_sample_type"]
@@ -82,10 +90,9 @@ class Diffsound(nn.Module):
         self.dtype = dtype
         self.content_info = dict(content_info)
         self.condition_info = dict(condition_info)
-        if (content_codec_config.get("params") or {}).get("ckpt_path"):
-            raise NotImplementedError(
-                "loading the stage-1 codec checkpoint waits for the checkpoint "
-                "loaders (ROADMAP, port queue); load weights with convert.from_jax")
+        # trained stage-1 weights for the frozen codec (dalle_spec.py:45-49),
+        # loaded by build_model after the random init
+        self.codec_ckpt_path = (content_codec_config.get("params") or {}).get("ckpt_path")
         self.content_codec: VQModel = instantiate_from_config(content_codec_config)
         self.condition_codec: Tokenize = instantiate_from_config(condition_codec_config)
         self.transformer: DiscreteDiffusion = instantiate_from_config(diffusion_config)
@@ -117,6 +124,21 @@ class Diffsound(nn.Module):
         init_random_(self, generator)
         return self
 
+    def _load_codec_params(self) -> None:
+        """Replace the codec's weights with the trained stage-1 weights at
+        ``content_codec_config.params.ckpt_path``: a torch ``.ckpt``, ``.pth``
+        or ``.pt`` holding the reference's ``VQModel`` state dict, bare or
+        under ``state_dict``. The training wrapper's ``loss.*`` entries are
+        dropped; any other missing or unexpected key raises."""
+        path = str(self.codec_ckpt_path)
+        if os.path.isdir(path) or not path.endswith((".ckpt", ".pth", ".pt")):
+            raise ValueError(
+                f"codec checkpoint {path!r}: the port reads a torch .ckpt, .pth or .pt; an "
+                "orbax tree (the JAX trainers' layout) needs JAX to read and waits for the "
+                "training port (ROADMAP, port queue)")
+        sd = {k: v for k, v in load_torch_state_dict(path).items() if not k.startswith("loss.")}
+        self.content_codec.load_state_dict(sd)
+
     # -- tokenization and the three stages ----------------------------------
 
     def text_to_tokens(self, texts: Sequence[str]) -> dict:
@@ -143,6 +165,12 @@ class Diffsound(nn.Module):
         return self.content_codec.decode_code(grid)
 
     @torch.no_grad()
+    def reconstruct(self, mel: torch.Tensor) -> torch.Tensor:
+        """Codec round trip, mel -> tokens -> mel (DALLE.reconstruct,
+        dalle_spec.py:249-261)."""
+        return self.decode_tokens(self.encode_content(mel))
+
+    @torch.no_grad()
     def generate(
         self,
         generator: torch.Generator,
@@ -152,32 +180,72 @@ class Diffsound(nn.Module):
         filter_ratio: float = 0.0,
         content_tokens: Optional[torch.Tensor] = None,
         return_tokens: bool = False,
-        noise: Optional[torch.Tensor] = None,
+        noise=None,
+        use_fused: Optional[bool] = None,
     ):
         """BPE ids (B, 77) -> mel (B, H, W, 1) in [-1, 1] (DALLE.generate_content).
 
-        Always the index-carrying sampler with the fused step kernel; covers
-        'top<r>r' and no-truncation heads with optional ',fast<k>'. ``noise``
-        (n_steps, B, L, K) supplies the Gumbel noise in place of the kernel's
-        Philox draws (tests and checks)."""
-        truncation_r, top_k, skip_step, resample_q = parse_sample_type(sample_type)
-        if top_k:
-            raise NotImplementedError(
-                "top-k ('top<k>p') sampling waits for the one-hot sample_tokens "
-                "port (ROADMAP, port queue)")
-        if resample_q:
-            raise NotImplementedError(
-                "the 'q<rate>' resample wrapper waits for the one-hot sample_tokens "
-                "port (ROADMAP, port queue)")
+        ``sample_type`` is the reference's string, 'top<r>r' or 'top<k>p' or
+        no truncation, then ',fast<k>' and ',q<rate>'. Two samplers run it,
+        by the JAX package's rule: the index-carrying sampler with the fused
+        step kernel (K1) takes no-truncation and 'top<r>r' heads without
+        ',q'; everything else, and anything with ``use_fused=False``, goes to
+        the one-hot ``sample_tokens`` (plain PyTorch, no kernel).
+        ``use_fused=True`` on a sample type the fused sampler does not cover
+        takes the one-hot one too, as in the JAX package. The default
+        (``None``) is fused wherever it covers, as the JAX package's default
+        on its accelerator; the JAX package's default on the CPU is one-hot,
+        so a comparison with it there passes ``use_fused=False``.
+
+        ``noise`` supplies the draws (tests and checks): for the fused
+        sampler the Gumbel noise (n_steps, B, L, K) in place of the kernel's
+        Philox draws; for the one-hot one a ``OneHotDraws``."""
+        truncation_r, _, skip_step, resample_q = parse_sample_type(sample_type)
+        head = sample_type.split(",")[0] if sample_type else ""
+        fused_ok = resample_q == 0.0 and (not head.startswith("top") or head.endswith("r"))
         cond_emb = self.embed_condition(cond_tokens)
-        tokens = sample_tokens_fused(
-            self.transformer, cond_emb, generator=generator, truncation_r=truncation_r,
-            skip_step=skip_step, content_tokens=content_tokens, filter_ratio=filter_ratio,
-            noise=noise)
+        if (fused_ok if use_fused is None else use_fused and fused_ok):
+            if isinstance(noise, OneHotDraws):
+                raise TypeError("the fused sampler takes its noise as one tensor")
+            tokens = sample_tokens_fused(
+                self.transformer, cond_emb, generator=generator, truncation_r=truncation_r,
+                skip_step=skip_step, content_tokens=content_tokens, filter_ratio=filter_ratio,
+                noise=noise)
+        else:
+            filter_fn = None
+            if head.startswith("top"):
+                filter_fn = (partial(truncate_top_r, r=float(head[3:-1])) if head.endswith("r")
+                             else partial(truncate_top_k, k=int(head[3:-1])))
+            if noise is not None and not isinstance(noise, OneHotDraws):
+                raise TypeError("the one-hot sampler takes its draws as a OneHotDraws")
+            tokens = sample_tokens(
+                self.transformer, cond_emb, generator=generator, content_tokens=content_tokens,
+                filter_ratio=filter_ratio, skip_step=skip_step, filter_fn=filter_fn,
+                resample_q=resample_q, draws=noise)
         mel = self.decode_tokens(tokens)
         if return_tokens:
             return mel, tokens
         return mel
+
+    @torch.no_grad()
+    def sample_grid(self, generator: torch.Generator, mel: torch.Tensor,
+                    cond_tokens: torch.Tensor, *,
+                    filter_ratios: Sequence[float] = (0.0, 0.5, 1.0),
+                    sample_type: str = "top0.85r", use_fused: Optional[bool] = None,
+                    noises: Optional[Sequence] = None) -> dict:
+        """Training-time visualization grid (DALLE.sample, dalle_spec.py:263-338):
+        the input, its codec reconstruction, and generations started from
+        increasingly corrupted encodings of the input (filter_ratio 0 = pure
+        text-to-sound), under the JAX package's keys. ``noises``, one per
+        filter ratio, is ``generate``'s ``noise`` for each."""
+        out = {"input_image": mel, "reconstruction_image": self.reconstruct(mel)}
+        content = self.encode_content(mel)
+        for i, fr in enumerate(filter_ratios):
+            out[f"cond1_cont1.0_fr{fr}_image"] = self.generate(
+                generator, cond_tokens, sample_type=sample_type, filter_ratio=fr,
+                content_tokens=content if fr > 0 else None, use_fused=use_fused,
+                noise=None if noises is None else noises[i])
+        return out
 
     # -- int8 serving mode ----------------------------------------------------
 
@@ -253,7 +321,8 @@ class Diffsound(nn.Module):
     @torch.no_grad()
     def generate_long(self, generator: torch.Generator, cond_tokens: torch.Tensor, *,
                       duration_frames: int, overlap_frames: int = 160,
-                      sample_type: str = "top0.85r", qp=None, impl: Optional[str] = None):
+                      sample_type: str = "top0.85r", use_fused: Optional[bool] = None,
+                      qp=None, impl: Optional[str] = None):
         """Long-form generation beyond the 848-frame window: BPE ids (B, 77) ->
         mel (B, n_mels, duration_frames, 1), each frame a weighted mean of
         the codec's mels for it (in [-1, 1] only as far as the codec's are:
@@ -261,8 +330,8 @@ class Diffsound(nn.Module):
 
         Each caption is repeated ``n`` times, so the ``n`` overlapping
         full-length segments of every caption come from ONE sampler call of
-        B * n rows (``generate``, or with ``qp`` the int8 engine's
-        ``generate_int8`` on the ``impl`` path); their mels are cross-faded:
+        B * n rows (``generate`` with ``use_fused``, or with ``qp`` the int8
+        engine's ``generate_int8`` on the ``impl`` path); their mels are cross-faded:
         each segment is weighted by linear ramps over its overlaps (the two
         ramps multiply where they meet, when the overlap passes half a
         segment), and the sum is divided by the summed weight."""
@@ -273,7 +342,8 @@ class Diffsound(nn.Module):
             gen = lambda c: self.generate_int8(qp, generator, c, sample_type=sample_type,
                                                impl=impl)
         else:
-            gen = lambda c: self.generate(generator, c, sample_type=sample_type)
+            gen = lambda c: self.generate(generator, c, sample_type=sample_type,
+                                          use_fused=use_fused)
         if duration_frames <= seg:
             return gen(cond_tokens)[:, :, :duration_frames]
         B = cond_tokens.shape[0]
@@ -309,16 +379,22 @@ def crossfade(mels: torch.Tensor, overlap_frames: int) -> torch.Tensor:
     return out / wsum[None, None, :, None]
 
 
-def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 0) -> Diffsound:
+def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 0,
+                load_codec: bool = True) -> Diffsound:
     """``build_model(config['model'])`` of the reference
     (``sound_synthesis/modeling/build.py:4-5``). The modules are made without
     storage, then materialised on ``device`` (the card unless the caller asks
     for another) and initialised there at random from a generator seeded with
-    ``seed``. ``device="meta"`` leaves them without storage (shape
-    inspection)."""
+    ``seed``; then, when the config names a codec ``ckpt_path`` and
+    ``load_codec`` is set, the codec's trained weights replace its random ones
+    (the JAX package's ``init_params(load_codec=True)``; callers that load
+    the whole model from elsewhere pass False). ``device="meta"`` leaves the
+    modules without storage (shape inspection) and loads nothing."""
     with torch.device("meta"):
         model = instantiate_from_config(config.get("model", config))
     model = model.to_empty(device=device)
     if torch.device(device).type != "meta":
         model.init_params(torch.Generator(device).manual_seed(seed))
+        if load_codec and model.codec_ckpt_path:
+            model._load_codec_params()
     return model

@@ -2,20 +2,25 @@
 
 Port of ``text_to_sound_synthesis_tpu/models/diffusion/process.py``: the
 denoiser plus its schedule (``DiscreteDiffusion``), the timestep plan of the
-full and the strided (``fast<k>``) sampler, and ``sample_tokens_fused``, whose
+full and the strided (``fast<k>``) sampler, ``sample_tokens_fused``, whose
 per-step work outside the transformer is the fused sampler kernel
-(``ops/fused_sampler.py``).
+(``ops/fused_sampler.py``), and ``sample_tokens``, the one-hot reference
+sampler (plain PyTorch: ``predict_start`` -> a truncation filter ->
+``q_posterior`` -> Gumbel argmax, on a (B, L, K) log one-hot state).
 
-The step loop is a Python loop (the JAX package's ``lax.scan``). As there,
-the AdaLN tables and the cross-attention K/V are computed once before it, and
-all steps' coefficients sit in one ``(n_steps, 10)`` device tensor, so the
-loop makes no host round trip. The training loss waits for the training port.
+The step loops are Python loops (the JAX package's ``lax.scan``). In the
+fused one, as there, the AdaLN tables and the cross-attention K/V are
+computed once before it, and all steps' coefficients sit in one
+``(n_steps, 10)`` device tensor, so the loop makes no host round trip. The
+one-hot loop is the reference's algorithm as the JAX package runs it: the
+whole denoiser every step, nothing hoisted. The training loss waits for the
+training port.
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, List, Mapping, Optional, Tuple
+from typing import Any, Callable, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,7 +30,7 @@ from ...ops import fused_sampler as fs
 from ...utils.config import instantiate_from_config, register
 from .backbone import Text2SpecTransformer
 
-__all__ = ["DiscreteDiffusion", "sample_tokens_fused"]
+__all__ = ["DiscreteDiffusion", "OneHotDraws", "sample_tokens", "sample_tokens_fused"]
 
 
 @register(
@@ -89,6 +94,20 @@ class DiscreteDiffusion(nn.Module):
         """Raw denoiser logits (B, L, K-1) — the sampler hook."""
         return self.transformer(tokens, cond_emb, t, mods=mods, cond_kvs=cond_kvs)
 
+    def predict_start(self, tokens, cond_emb, t, *, mods=None, cond_kvs=None):
+        """Token ids (B, L) -> log p(x0 | x_t) over K classes (B, L, K), f32:
+        log_softmax over the K-1 real classes (the reference does it in f64,
+        diffusion_transformer.py:285), the MASK column at -70, clamped to
+        [-70, 0]."""
+        logits = self.backbone_logits(tokens, cond_emb, t, mods=mods, cond_kvs=cond_kvs)
+        log_pred = torch.log_softmax(logits.float(), dim=-1)
+        log_pred = torch.cat([log_pred, torch.full_like(log_pred[..., :1], dd.MIN_LOGP)], dim=-1)
+        return log_pred.clamp(dd.MIN_LOGP, 0.0)
+
+    def forward(self, tokens, cond_emb, t):
+        """= ``predict_start``, as the JAX module's ``__call__``."""
+        return self.predict_start(tokens, cond_emb, t)
+
 
 def _timestep_plan(num_timesteps: int, start_step: int, skip_step: int
                    ) -> Tuple[List[int], List[int]]:
@@ -105,6 +124,116 @@ def _timestep_plan(num_timesteps: int, start_step: int, skip_step: int
     if ts[-1] != 0:
         ts.append(0)
     return ts, [t - skip_step if t > skip_step else t for t in ts]
+
+
+class OneHotDraws(NamedTuple):
+    """Every random draw of ``sample_tokens``, supplied in place of the
+    generator's (``n_steps`` = the steps of the timestep plan)."""
+
+    gumbel: torch.Tensor                     # (n_steps, B, L, K): each step's p_sample
+    coin: Optional[torch.Tensor] = None      # (n_steps,) uniforms: the q-resample's coin
+    gumbel2: Optional[torch.Tensor] = None   # (n_steps, B, L, K): the resample's p_sample
+    # the start: (B, L) token ids for ``uniform_start``, or (B, L, K) Gumbel
+    # noise of the q_sample of ``content_tokens`` when ``filter_ratio`` > 0
+    start: Optional[torch.Tensor] = None
+
+
+@torch.no_grad()
+def sample_tokens(
+    model: DiscreteDiffusion,
+    cond_emb: torch.Tensor,             # (B, S, Dc)
+    *,
+    generator: Optional[torch.Generator] = None,
+    content_tokens: Optional[torch.Tensor] = None,
+    filter_ratio: float = 0.0,
+    skip_step: int = 0,
+    filter_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    resample_q: float = 0.0,
+    return_logits: bool = False,
+    uniform_start: bool = False,
+    draws: Optional[OneHotDraws] = None,
+):
+    """The one-hot reverse sampler (the JAX package's ``sample_tokens``);
+    returns (B, L) int32 tokens, and with ``return_logits`` also the final
+    state's probabilities (B, L, K).
+
+    ``filter_ratio`` > 0 starts from a q_sample corruption of
+    ``content_tokens`` at t = filter_ratio*T - 1 (the reference ``sample``'s
+    partial mode, diffusion_transformer.py:643-651); 0 starts from all-MASK,
+    or with ``uniform_start`` from uniformly random tokens (the reference's
+    ``sample_uniform_only``, diffusion_transformer.py:661-744, the x_T of a
+    ``uniform_only`` schedule), whose randint upper bound K-2 (exclusive,
+    ``:704``: the last real class is never drawn) is kept as it is.
+    ``filter_fn`` truncates log p(x0|x_t) each step (e.g.
+    ``partial(truncate_top_r, r=0.85)``). ``resample_q`` > 0 re-applies the
+    step to its own output with probability q (the reference's ``q<rate>``
+    wrapper, dalle_spec.py:135-143). Draws come from ``generator`` (on the
+    device of ``cond_emb``) unless ``draws`` supplies them all.
+    """
+    device = cond_emb.device
+    sched = model.schedule(device)
+    K = model.num_classes
+    T = model.diffusion_step
+    L = model.content_seq_len
+    B = cond_emb.shape[0]
+    if draws is None and generator is None:
+        raise ValueError("sample_tokens needs a generator or the draws")
+
+    start_step = int(T * filter_ratio)
+    if draws is not None and draws.start is None and (uniform_start or start_step > 0):
+        raise ValueError("this start needs draws.start")
+    if start_step == 0:
+        if uniform_start:
+            x_init = (draws.start if draws is not None else
+                      torch.randint(0, K - 2, (B, L), generator=generator, device=device))
+            log_z = dd.index_to_log_onehot(x_init.to(device), K)
+        else:
+            log_z = torch.full((B, L, K), -torch.inf, device=device)   # all-MASK
+            log_z[..., -1] = 0.0
+        plan_start = T
+    else:
+        if content_tokens is None:
+            raise ValueError("filter_ratio > 0 requires content_tokens")
+        t0 = torch.full((B,), start_step - 1, dtype=torch.long, device=device)
+        log_z = dd.q_sample(sched, generator, dd.index_to_log_onehot(content_tokens, K), t0,
+                            gumbel=None if draws is None else draws.start)
+        plan_start = start_step
+
+    ts, t_post = _timestep_plan(T, plan_start, skip_step)
+    coins = None
+    if draws is not None:
+        want = (len(ts), B, L, K)
+        if tuple(draws.gumbel.shape) != want:
+            raise ValueError(f"draws.gumbel has shape {tuple(draws.gumbel.shape)}, expected {want}")
+        if resample_q > 0.0:
+            if draws.coin is None or draws.gumbel2 is None:
+                raise ValueError("resample_q > 0 needs draws.coin and draws.gumbel2")
+            coins = draws.coin.tolist()
+    elif resample_q > 0.0:   # one host read for all the coins, not one a step
+        coins = torch.rand((len(ts),), generator=generator, device=device).tolist()
+
+    def noise(i: int, resample: bool) -> torch.Tensor:
+        if draws is not None:
+            return (draws.gumbel2 if resample else draws.gumbel)[i]
+        return dd.gumbel_from_uniform(torch.rand((B, L, K), generator=generator, device=device))
+
+    def p_sample(log_z, t, tp, gumbel):
+        t_vec = torch.full((B,), t, dtype=torch.long, device=device)
+        log_x_recon = model.predict_start(dd.log_onehot_to_index(log_z), cond_emb, t_vec)
+        if filter_fn is not None:
+            log_x_recon = filter_fn(log_x_recon)
+        tp_vec = torch.full((B,), tp, dtype=torch.long, device=device)
+        log_model_prob = dd.q_posterior(sched, log_x_recon, log_z, tp_vec)
+        return dd.log_sample_categorical(None, log_model_prob, gumbel)
+
+    for i, (t, tp) in enumerate(zip(ts, t_post)):
+        log_z = p_sample(log_z, t, tp, noise(i, False))
+        if coins is not None and coins[i] < resample_q:
+            log_z = p_sample(log_z, t, tp, noise(i, True))
+    tokens = dd.log_onehot_to_index(log_z)
+    if return_logits:
+        return tokens, torch.exp(log_z)
+    return tokens
 
 
 @torch.no_grad()

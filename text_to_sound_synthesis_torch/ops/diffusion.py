@@ -27,6 +27,8 @@ __all__ = [
     "log_onehot_to_index",
     "log_add_exp",
     "q_pred",
+    "q_pred_one_timestep",
+    "q_posterior",
     "log_sample_categorical",
     "q_sample",
     "gumbel_from_uniform",
@@ -135,19 +137,57 @@ def log_onehot_to_index(log_x: torch.Tensor) -> torch.Tensor:
     return log_x.argmax(dim=-1).to(torch.int32)
 
 
+def _gather_t(coef: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Per-batch coefficient lookup -> (B, 1, 1), broadcast over (B, L, K)."""
+    return coef[t.long()][:, None, None]
+
+
 def q_pred(sched: DiffusionSchedule, log_x_start: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """log q(x_t | x_0) for ``t`` (B,) in [-1, T-1]; t=-1 is the identity."""
     T = sched.num_timesteps
-    t = ((t + (T + 1)) % (T + 1)).long()
-
-    def gather(coef):
-        return coef[t][:, None, None]
-
-    tok = log_add_exp(log_x_start[..., :-1] + gather(sched.log_cumprod_at),
-                      gather(sched.log_cumprod_bt))
-    msk = log_add_exp(log_x_start[..., -1:] + gather(sched.log_1_min_cumprod_ct),
-                      gather(sched.log_cumprod_ct))
+    t = (t.long() + (T + 1)) % (T + 1)
+    tok = log_add_exp(log_x_start[..., :-1] + _gather_t(sched.log_cumprod_at, t),
+                      _gather_t(sched.log_cumprod_bt, t))
+    msk = log_add_exp(log_x_start[..., -1:] + _gather_t(sched.log_1_min_cumprod_ct, t),
+                      _gather_t(sched.log_cumprod_ct, t))
     return torch.cat([tok, msk], dim=-1)
+
+
+def q_pred_one_timestep(sched: DiffusionSchedule, log_x_t: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """log q(x_t | x_{t-1}) applied to the distribution at x_t (one forward step)."""
+    tok = log_add_exp(log_x_t[..., :-1] + _gather_t(sched.log_at, t), _gather_t(sched.log_bt, t))
+    msk = log_add_exp(log_x_t[..., -1:] + _gather_t(sched.log_1_min_ct, t),
+                      _gather_t(sched.log_ct, t))
+    return torch.cat([tok, msk], dim=-1)
+
+
+def q_posterior(sched: DiffusionSchedule, log_x_start: torch.Tensor, log_x_t: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+    """log p(x_{t-1} | x_t) given a (possibly soft) x0 prediction, (B, L, K).
+
+    The mask-aware factorization (diffusion_transformer.py:293-339):
+    log q(x_{t-1}|x_t, x0) = log p(x0|x_t) + log q(x_t|x_{t-1}) + log q(x_{t-1}|x0)
+    - log q(x_t|x0), where positions that hold MASK take the closed-form ``ctt``
+    column. Off MASK, the MASK column of both x_t factors is the placeholder
+    LOG_EPS, not log 0, and the mass it leaks is kept, as in the reference.
+    ``log_x_t`` must be a log one-hot. Clamped to [-70, 0]."""
+    K = log_x_start.shape[-1]
+    is_mask = (log_onehot_to_index(log_x_t) == K - 1)[..., None]     # (B, L, 1)
+    is_tok = torch.arange(K, device=log_x_t.device) < K - 1
+
+    def at_x_t(log_q, log_c):
+        # the factor as a function of the class; MASK rows take (c, ..., c, 0)
+        log_q = torch.where(is_tok, log_q, LOG_EPS)
+        return torch.where(is_mask, torch.where(is_tok, log_c, 0.0), log_q)
+
+    log_qt = at_x_t(q_pred(sched, log_x_t, t), _gather_t(sched.log_cumprod_ct, t))
+    log_qt1 = at_x_t(q_pred_one_timestep(sched, log_x_t, t), _gather_t(sched.log_ct, t))
+    q = log_x_start - log_qt
+    q_norm = torch.logsumexp(q, dim=-1, keepdim=True)
+    q = q - q_norm
+    out = q_pred(sched, q, t.long() - 1) + log_qt1 + q_norm
+    return out.clamp(MIN_LOGP, 0.0)
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
@@ -156,14 +196,21 @@ def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u + 1e-30) + 1e-30)
 
 
-def log_sample_categorical(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
-    """Gumbel-argmax sample from per-position log-probs; returns a log one-hot."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    sample = (gumbel_from_uniform(u) + logits).argmax(dim=-1)
+def log_sample_categorical(generator: Optional[torch.Generator], logits: torch.Tensor,
+                           gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gumbel-argmax sample from per-position log-probs; returns a log one-hot.
+    ``gumbel`` (the logits' shape) supplies the noise in place of draws from
+    ``generator``."""
+    if gumbel is None:
+        gumbel = gumbel_from_uniform(
+            torch.rand(logits.shape, generator=generator, device=logits.device))
+    sample = (gumbel + logits).argmax(dim=-1)
     return index_to_log_onehot(sample, logits.shape[-1])
 
 
-def q_sample(sched: DiffusionSchedule, generator: torch.Generator,
-             log_x_start: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Sample x_t ~ q(x_t | x_0) as a log one-hot (forward corruption)."""
-    return log_sample_categorical(generator, q_pred(sched, log_x_start, t))
+def q_sample(sched: DiffusionSchedule, generator: Optional[torch.Generator],
+             log_x_start: torch.Tensor, t: torch.Tensor,
+             gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample x_t ~ q(x_t | x_0) as a log one-hot (forward corruption);
+    ``gumbel`` as in ``log_sample_categorical``."""
+    return log_sample_categorical(generator, q_pred(sched, log_x_start, t), gumbel)
