@@ -16,7 +16,10 @@ T2S_MLP_IMPL=chunked`` (K8, K9), the W4A8 engine with the int8 MHA
 long-form request (``generate_long``, 2120 frames, 24 sampler rows;
 ``long``), the f32 one-hot reference sampler in ``bench.py``'s scope
 (sampler + ``decode_code`` on an f32 copy, PyTorch's default precision;
-``ref``), then K11 (``k11``): all of them, or the paths named. One warm-up request,
+``ref``), then K11 (``k11``), then one Stage-2 train step of the flagship in
+f32 at batch 20 (``chip_smoke.FlagshipTrainer``: its config's solver block,
+PyTorch's default precision; ``train``): all of them, or the paths named. One
+warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
 runs, the same way: five ``gn_swish_conv`` calls at each of the flagship
@@ -66,7 +69,7 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
 
 # a request's sampling, and its tokens returned beside the mel
 REQ = dict(sample_type="top0.85r", return_tokens=True)
-PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11")
+PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11", "train")
 
 
 def main(argv=None) -> int:
@@ -121,18 +124,24 @@ def main(argv=None) -> int:
             profile("f32 one-hot reference, bench.py's scope",
                     lambda: cs.bench_scope(ref, emb, False, gen()), what="sampler + decode_code")
         del ref
-    if "k11" not in paths:
-        return 0
+    if "k11" in paths:
+        from text_to_sound_synthesis_torch.ops.fused_gn_conv import gn_swish_conv
+        from text_to_sound_synthesis_torch.tools import bench_gn_conv as gnt
 
-    from text_to_sound_synthesis_torch.ops.fused_gn_conv import gn_swish_conv
-    from text_to_sound_synthesis_torch.tools import bench_gn_conv as gnt
-
-    with torch.no_grad():
-        for H, W, C in gnt.SHAPES:
-            args = gnt.stage_inputs(H, W, C, dev)
-            profile(f"K11 gn_swish_conv at ({gnt.B}, {H}, {W}, {C})",
-                    lambda: [gn_swish_conv(*args, groups=gnt.GROUPS) for _ in range(5)],
-                    what="five calls")
+        with torch.no_grad():
+            for H, W, C in gnt.SHAPES:
+                args = gnt.stage_inputs(H, W, C, dev)
+                profile(f"K11 gn_swish_conv at ({gnt.B}, {H}, {W}, {C})",
+                        lambda: [gn_swish_conv(*args, groups=gnt.GROUPS) for _ in range(5)],
+                        what="five calls")
+    if "train" in paths:
+        del model
+        torch.cuda.empty_cache()
+        tr = cs.FlagshipTrainer(dev)
+        with cs.pytorch_default_precision():
+            tr.step()       # the optimizer's moments are made at the first step
+            profile(f"Stage-2 train step, flagship f32, batch {cs.TRAIN_BATCH}",
+                    lambda: tr.step() and None, what="one step")   # no tokens to digest
     return 0
 
 

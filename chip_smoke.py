@@ -132,9 +132,34 @@ Phases (any failed check exits nonzero, and no result line is printed):
              100, the pair MHA 2 x 19 x 100), a finite (8, 80, 2120, 1) mel
              whose cross-fade agrees with its segments, then the wav in [-1,
              1].
-10. times  — each path's request time and clips/s, and phase 5b's
-             reference and fused times in bench.py's scope, beside the card's
-             name and power limit. Every request phase counts K11 and T1-T3 at 0.
+10. train  — Stage-2 training. (a) the flagship from the YAML in f32
+             (19 layers, d1024, 16 heads, 265 tokens; seeded random weights,
+             the codec and CLIP frozen), its solver block (AdamW (0.9, 0.96),
+             wd 4.5e-2 on the Linear weights, the plateau warmup scheduler, the
+             clip at 0.5, EMA 0.99 every 25 steps), 30 steps at batch 20 on one
+             batch (mels in [-1, 1], caption BPE ids), PyTorch's default
+             precision (f32 matmuls, TF32 cuDNN convs): every loss and grad
+             norm finite, the loss under step 1's draws lower at step 30 than
+             at step 1, every parameter tensor moved, the EMA changed at step
+             25 and at no other step, Lt_count summing to 600; the median
+             step time, samples/s and peak memory. On a small config
+             (``small_train_config``): (b) three steps on the card against
+             the same steps on the CPU in full f32 on supplied draws, within
+             TRAIN_RTOL / TRAIN_ATOL / TRAIN_SHARE; (c) 10 steps, a checkpoint,
+             a fresh model restored from it, 5 more steps from each: bit for
+             bit; (d) a one-rank NCCL group: three steps under DDP bit for bit
+             the steps without; (e) the ``Solver`` over an in-memory dataset of
+             BPE ids, two epochs with validation and in-training sampling (K1),
+             then a fresh ``Solver`` resumed. (f) on phase 5's bf16 model and
+             phase 6's W4A8 engine: ``sample_tokens_fused_sharded`` and
+             ``sample_tokens_int8_sharded`` with two shards of batch 4 on the
+             one card, 10 steps, each bit for bit its per-shard runs with the
+             folded seeds, with exact launch counts (K1 = 20; K2 = 20, K3 = K4
+             = K5 = 19 x 20, the pair MHA 2 x 19 x 20).
+11. times  — each path's request time and clips/s, phase 5b's reference and
+             fused times in bench.py's scope, and the train step's time,
+             beside the card's name and power limit. Every request phase
+             counts K11 and T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -1297,10 +1322,10 @@ def phase_ablate(dev):
     return ((err2, *d2), launches[0]), ((err3, *d3), launches[1]), int_mm_ms
 
 
-def caption_ids(rng) -> torch.Tensor:
+def caption_ids(rng, n: int = BATCH) -> torch.Tensor:
     """BPE ids of the form the tokenizer emits: SOT, word ids, EOT, zero padding."""
-    ids = np.zeros((BATCH, CTX), np.int32)
-    for b in range(BATCH):
+    ids = np.zeros((n, CTX), np.int32)
+    for b in range(n):
         n = int(rng.integers(3, 12))
         ids[b, 0], ids[b, n + 1] = SOT, EOT
         ids[b, 1:n + 1] = rng.integers(256, 49000, n)
@@ -1929,6 +1954,511 @@ def phase_long(model, qp, vocoder, cond_tokens, dev):
     return seconds
 
 
+# -- phase 10: Stage-2 training --------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_STEPS, EMA_INTERVAL = 20, 30, 25    # the flagship config's solver block
+SMALL_BATCH = 4
+SHARD_BATCH, SHARD_SKIP = 4, 10         # (f): batch 4 a shard, fast10 = 10 steps
+# (b) the card's step against the CPU's, both in full f32 (TF32 off for the
+# matmuls and cuDNN's convs): the loss and the grad norm within TRAIN_RTOL; the
+# weights within TRAIN_ATOL but for at most TRAIN_SHARE of a tensor's values,
+# none beyond 2 lr. AdamW's first steps move a weight by lr g / (|g| + eps): a
+# gradient rounded another way moves that by a relative 1e-4 or less, except
+# near or below eps = 1e-8, where a rounding of 1e-10 moves it by 1e-5; the
+# attention keys' biases have a zero gradient in exact arithmetic (the softmax
+# does not see a shift all keys share), so each side steps them by its own
+# rounding and they are held to 2 lr alone (tests/test_torch_train.py).
+TRAIN_RTOL, TRAIN_ATOL, TRAIN_SHARE = 1e-4, 2e-6, 1e-3
+
+
+def small_train_config() -> dict:
+    """The small composite of phase 10 (b)-(e): the flagship's structure at
+    toy widths (mel 8 x 32 -> a 4 x 16 grid of 64 codes; 2 denoiser layers of
+    d128, 4 heads; a 2-layer CLIP of width 64 over the full vocabulary, 77
+    ids) and 100 diffusion steps; its solver block is the flagship's but for
+    a larger rate, two epochs and EMA every 2 steps."""
+    dd_cfg = dict(double_z=False, z_channels=32, resolution=32, in_channels=1, out_ch=1, ch=16,
+                  ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[16], dropout=0.0)
+    model = {"target": "text_to_sound_synthesis_tpu.models.Diffsound", "params": {
+        "content_codec_config": {"target": "text_to_sound_synthesis_tpu.models.vqgan.VQModel",
+                                 "params": {"embed_dim": 32, "n_embed": 64, "ddconfig": dd_cfg}},
+        "first_stage_permuter_config": {
+            "target": "text_to_sound_synthesis_tpu.ops.permuter.ColumnMajor",
+            "params": {"H": 4, "W": 16}},
+        "condition_codec_config": {"target": "text_to_sound_synthesis_tpu.models.clip.Tokenize",
+                                   "params": {"context_length": CTX}},
+        "diffusion_config": {
+            "target": "text_to_sound_synthesis_tpu.models.diffusion.DiscreteDiffusion",
+            "params": {
+                "diffusion_step": N_STEPS,
+                "transformer_config": {
+                    "target": "text_to_sound_synthesis_tpu.models.diffusion.Text2SpecTransformer",
+                    "params": dict(n_layer=2, n_embd=128, n_head=4, content_seq_len=64,
+                                   condition_dim=64, content_spatial_size=(4, 16))},
+                "condition_emb_config": {
+                    "target": "text_to_sound_synthesis_tpu.models.clip.CLIPTextEmbedding",
+                    "params": dict(embed_dim=64, width=64, layers=2, heads=2,
+                                   context_length=CTX)},
+                "content_emb_config": {
+                    "target": "text_to_sound_synthesis_tpu.models.diffusion.ContentEmbedding",
+                    "params": dict(num_embed=64, embed_dim=128, spatial_size=(4, 16))}}}}}
+    solver = {
+        "base_lr": 1e-3, "adjust_lr": "none", "max_epochs": 2, "save_epochs": 1,
+        "validation_epochs": 1, "sample_iterations": 2,
+        "ema": {"decay": 0.9, "update_interval": 2},
+        "clip_grad_norm": {"target": "text_to_sound_synthesis_tpu.engine.ClipGradNorm",
+                           "params": {"start_iteration": 0, "end_iteration": 5000,
+                                      "max_norm": 0.5}},
+        "optimizers_and_schedulers": [{
+            "name": "none",
+            "optimizer": {"target": "adamw",
+                          "params": {"betas": (0.9, 0.96), "weight_decay": 4.5e-2}},
+            "scheduler": {"step_iteration": 1,
+                          "target": "text_to_sound_synthesis_tpu.engine.ReduceLROnPlateauWithWarmup",
+                          "params": {"factor": 0.5, "patience": 25000, "min_lr": 1e-6,
+                                     "threshold": 0.1, "warmup_lr": 2e-3, "warmup": 4}}}]}
+    return {"model": model, "solver": solver, "dataloader": {"batch_size": SMALL_BATCH}}
+
+
+SMALL_MEL = (8, 32)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Matmuls and cuDNN's convs in full f32 (no TF32) for the block, restored after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _train_draws(gen, B: int, T: int, L: int, K: int):
+    """One step's draws (the timesteps', q_sample's noise) from ``gen``, to supply."""
+    from text_to_sound_synthesis_torch.engine.train_state import TrainDraws
+    from text_to_sound_synthesis_torch.models.diffusion.process import TimestepDraws
+    from text_to_sound_synthesis_torch.ops.diffusion import gumbel_from_uniform
+
+    dev = gen.device
+    return TrainDraws(
+        TimestepDraws(gumbel_from_uniform(torch.rand((B, T), generator=gen, device=dev)),
+                      torch.randint(0, T, (B,), generator=gen, device=dev)),
+        gumbel_from_uniform(torch.rand((B, L, K), generator=gen, device=dev)))
+
+
+def _small_state(model, cfg):
+    """(train state, step) of the small config's solver block."""
+    from text_to_sound_synthesis_torch.engine import (ClipGradNorm, DiffusionTrainState,
+                                                      build_optimizer, make_train_step)
+
+    sv = cfg["solver"]
+    den = model.diffusion.transformer
+    opt = build_optimizer(sv["optimizers_and_schedulers"][0]["optimizer"], den, sv["base_lr"])
+    state = DiffusionTrainState.create(den, opt, model.diffusion.diffusion_step)
+    return state, lambda ddp=None: make_train_step(
+        model, ClipGradNorm(**sv["clip_grad_norm"]["params"]), sv["ema"]["decay"],
+        sv["ema"]["update_interval"], ddp=ddp)
+
+
+def _small_batch(rng, dev, n=SMALL_BATCH):
+    mel = rng.uniform(-1, 1, (n, *SMALL_MEL, 1)).astype(np.float32)
+    return {"image": torch.from_numpy(mel).to(dev), "condition_token": caption_ids(rng, n).to(dev)}
+
+
+def _weights_close(got, want, what: str, lr: float) -> int:
+    """The (b) gate on one tensor (TRAIN_ATOL / TRAIN_SHARE); -> values beyond TRAIN_ATOL."""
+    d = (got.detach().cpu() - want.detach().cpu()).abs()
+    check(float(d.max()) <= 2 * lr, f"train (b): {what} off by {float(d.max()):.3e} > 2 lr")
+    n = int((d > TRAIN_ATOL).sum())
+    if not what.endswith("key.bias"):
+        check(n <= TRAIN_SHARE * d.numel(), f"train (b): {what}: {n} of {d.numel()} values "
+              f"more than {TRAIN_ATOL} off")
+    return n
+
+
+def _snapshot(model, state):
+    return ([p.detach().clone() for _, p in state.named_params()],
+            [e.clone() for e in state.ema_params], state.lt.Lt_history.clone(),
+            state.lt.Lt_count.clone(),
+            [v.clone() for s in state.optimizer.state.values() for v in s.values()
+             if torch.is_tensor(v)])
+
+
+def _snapshots_equal(a, b) -> bool:
+    flat = lambda s: [*s[0], *s[1], s[2], s[3], *s[4]]
+    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+class FlagshipTrainer:
+    """The flagship from the YAML in f32 on the card with its config's solver
+    block: the train state, the step, the scheduler and one seeded batch of
+    TRAIN_BATCH (also ``chip_profile.py train``'s)."""
+
+    def __init__(self, dev):
+        from text_to_sound_synthesis_torch.engine import (DiffusionTrainState, build_optimizer,
+                                                          make_train_step)
+        from text_to_sound_synthesis_torch.models import build_model
+        from text_to_sound_synthesis_torch.utils.config import (instantiate_from_config,
+                                                                load_yaml_config)
+
+        cfg = load_yaml_config(CONFIG)
+        self.solver_cfg = sv = cfg["solver"]
+        oas = sv["optimizers_and_schedulers"][0]
+        check(int(cfg["dataloader"]["batch_size"]) == TRAIN_BATCH
+              and int(sv["ema"]["update_interval"]) == EMA_INTERVAL,
+              "train: the config's solver block moved")
+        t0 = time.perf_counter()
+        self.model = build_model(cfg, device=dev, seed=SEED + 10)
+        self.denoiser = den = self.model.diffusion.transformer
+        self.base_lr = float(sv["base_lr"])
+        self.sched = instantiate_from_config(oas["scheduler"], base_lr=self.base_lr)
+        self.clip = instantiate_from_config(sv["clip_grad_norm"])
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        self.state = DiffusionTrainState.create(
+            den, build_optimizer(oas["optimizer"], den, self.base_lr),
+            self.model.diffusion.diffusion_step)
+        self.step_fn = make_train_step(self.model, self.clip, float(sv["ema"]["decay"]),
+                                       EMA_INTERVAL)
+        self.gen = torch.Generator(dev).manual_seed(SEED + 10)
+        rng = np.random.default_rng(SEED + 10)
+        self.batch = {
+            "image": torch.rand((TRAIN_BATCH, *MEL, 1), generator=self.gen, device=dev) * 2 - 1,
+            "condition_token": caption_ids(rng, TRAIN_BATCH).to(dev)}
+
+    def step(self, draws=None):
+        """One step at the scheduler's rate; the scheduler then takes its loss."""
+        self.state, m = self.step_fn(self.state, self.batch, self.sched.lr, generator=self.gen,
+                                     draws=draws)
+        self.sched.step(float(m.loss))
+        return m
+
+
+def _train_flagship(dev):
+    """(a): the flagship in f32, the config's solver block, TRAIN_STEPS steps on
+    one batch. -> (median step s, samples/s, peak GiB, trainable params)."""
+    tr = FlagshipTrainer(dev)
+    model, den, sv, clip, base_lr = tr.model, tr.denoiser, tr.solver_cfg, tr.clip, tr.base_lr
+    n_train = sum(p.numel() for p in den.parameters())
+    print(f"  (a) flagship in {model.dtype}: {n_train / 1e6:.1f} M trainable parameters "
+          f"({len(den.blocks)} layers), codec and CLIP frozen; built in {tr.build_s:.1f} s")
+    gen = tr.gen
+    K, L, T = model.diffusion.num_classes, model.diffusion.content_seq_len, N_STEPS
+    first = _train_draws(gen, TRAIN_BATCH, T, L, K)
+    start = [p.detach().clone() for p in den.parameters()]
+    watch = lambda: [tr.state.ema_params[0].clone(), tr.state.ema_params[-1].clone()]
+    losses, norms, secs = [], [], []
+    with pytorch_default_precision():
+        for i in range(TRAIN_STEPS):
+            before = watch()
+            t1 = time.perf_counter()
+            m = tr.step(first if i in (0, TRAIN_STEPS - 1) else None)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(float(m.loss))
+            norms.append(float(m.grad_norm))
+            state = tr.state
+            changed = any(not torch.equal(a, b) for a, b in zip(before, watch()))
+            check(changed == (state.step % EMA_INTERVAL == 0),
+                  f"train (a): the EMA {'changed' if changed else 'held'} at step {state.step}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"train (a): a loss is not finite: {losses}")
+    check(all(np.isfinite(norms)), f"train (a): a grad norm is not finite: {norms}")
+    check(losses[-1] < losses[0], f"train (a): the loss under step 1's draws went from "
+          f"{losses[0]:.5f} to {losses[-1]:.5f} at step {TRAIN_STEPS}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, den.parameters()))
+    check(moved == len(start), f"train (a): {len(start) - moved} parameter tensors did not move")
+    check(int(state.lt.Lt_count.sum()) == TRAIN_STEPS * TRAIN_BATCH,
+          f"train (a): Lt_count sums to {float(state.lt.Lt_count.sum())}")
+    med = float(np.median(secs[1:]))
+    print(f"  (a) {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (AdamW (0.9, 0.96), wd 4.5e-2, "
+          f"plateau warmup from {base_lr:g}, clip {clip.max_norm} at every step, EMA "
+          f"{sv['ema']['decay']} every {EMA_INTERVAL}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"under step 1's draws, range [{min(losses):.4f}, {max(losses):.4f}]; grad norm "
+          f"{norms[0]:.3f} -> {norms[-1]:.3f}; the EMA moved at step {EMA_INTERVAL} only; "
+          f"Lt_count {int(state.lt.Lt_count.sum())}")
+    print(f"  (a) step time: first {secs[0]:.3f} s, median of the rest {med:.4f} s "
+          f"(min {min(secs[1:]):.4f}, max {max(secs[1:]):.4f}) = {TRAIN_BATCH / med:.2f} "
+          f"samples/s; peak memory {peak:.2f} GiB (matmuls f32, cuDNN convs TF32)")
+    del tr, model, den, state, start
+    torch.cuda.empty_cache()
+    return med, TRAIN_BATCH / med, peak, n_train
+
+
+def _train_card_vs_cpu(dev):
+    """(b): three steps of the small config on the card against the same steps
+    on the CPU, the draws supplied, in full f32."""
+    import copy
+
+    from text_to_sound_synthesis_torch.models import build_model
+
+    cfg = small_train_config()
+    cpu = build_model(cfg["model"], device="cpu", seed=SEED + 20)
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(SEED + 20)
+    batch = _small_batch(rng, "cpu")
+    cbatch = {k: v.to(dev) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(SEED + 20)
+    diff = cpu.diffusion
+    draws = [_train_draws(gen, SMALL_BATCH, diff.diffusion_step, diff.content_seq_len,
+                          diff.num_classes) for _ in range(3)]
+    lr = cfg["solver"]["base_lr"]
+    with full_f32():
+        tok_cpu = cpu.encode_content(batch["image"])
+        tok_card = card.encode_content(cbatch["image"]).cpu()
+        check(torch.equal(tok_cpu, tok_card), f"train (b): the codec's tokens differ in "
+              f"{int((tok_cpu != tok_card).sum())} of {tok_cpu.numel()}")
+        s_cpu, step_cpu = _small_state(cpu, cfg)
+        s_card, step_card = _small_state(card, cfg)
+        f_cpu, f_card = step_cpu(), step_card()
+        worst = 0.0
+        for i, d in enumerate(draws):
+            s_cpu, m_cpu = f_cpu(s_cpu, batch, lr, draws=d)
+            s_card, m_card = f_card(s_card, cbatch, lr, draws=d)
+            check(torch.equal(m_cpu.t, m_card.t.cpu()), f"train (b): step {i + 1}'s t differ")
+            for what, a, b in (("loss", m_card.loss, m_cpu.loss),
+                               ("grad norm", m_card.grad_norm, m_cpu.grad_norm)):
+                rel = abs(float(a) - float(b)) / abs(float(b))
+                worst = max(worst, rel)
+                check(rel <= TRAIN_RTOL, f"train (b): step {i + 1}'s {what} {float(a):.6f} on "
+                      f"the card, {float(b):.6f} on the CPU")
+    beyond = 0
+    for (n, p), (_, q) in zip(s_card.named_params(), s_cpu.named_params()):
+        beyond += _weights_close(p, q, n, lr)
+    for (n, _), e, f in zip(s_card.named_params(), s_card.ema_params, s_cpu.ema_params):
+        beyond += _weights_close(e, f, "EMA " + n, lr)
+    check(torch.equal(s_card.lt.Lt_count.cpu(), s_cpu.lt.Lt_count), "train (b): Lt_count differ")
+    hist = (s_card.lt.Lt_history.cpu() - s_cpu.lt.Lt_history).abs().max()
+    check(float(hist) <= TRAIN_RTOL * float(s_cpu.lt.Lt_history.abs().max()),
+          f"train (b): Lt_history off by {float(hist):.3e}")
+    n_vals = sum(p.numel() for _, p in s_cpu.named_params())
+    print(f"  (b) small config ({n_vals / 1e6:.2f} M trainable), 3 steps in full f32, card vs "
+          f"CPU on the same draws: the codec's tokens equal, loss and grad norm within "
+          f"{worst:.2e} (gate {TRAIN_RTOL}), {beyond} of {2 * n_vals} weights and EMA values "
+          f"more than {TRAIN_ATOL} off (gate {TRAIN_SHARE} of each tensor), timestep state equal")
+
+
+def _train_resume(dev):
+    """(c): 10 steps, save, restore into a fresh state, 5 more steps from each:
+    bit for bit equal."""
+    import tempfile
+
+    from text_to_sound_synthesis_torch.engine import checkpoint as ck
+    from text_to_sound_synthesis_torch.models import build_model
+    from text_to_sound_synthesis_torch.utils.config import instantiate_from_config
+
+    cfg = small_train_config()
+    sched_cfg = cfg["solver"]["optimizers_and_schedulers"][0]["scheduler"]
+    batch = _small_batch(np.random.default_rng(SEED + 30), dev)
+
+    def run(model, state, step, gen, sched, n):
+        losses = []
+        for _ in range(n):
+            state, m = step(state, batch, sched.lr, generator=gen)
+            losses.append(float(m.loss))
+            sched.step(losses[-1])
+        return losses
+
+    model = build_model(cfg["model"], device=dev, seed=SEED + 30)
+    state, make = _small_state(model, cfg)
+    step = make()
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    sched = instantiate_from_config(sched_cfg, base_lr=cfg["solver"]["base_lr"])
+    run(model, state, step, gen, sched, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ck.save_checkpoint(os.path.join(tmp, "last.pth"), ck.train_payload(
+            model, state, last_epoch=0, scheduler=sched, generator_states=[gen.get_state()]))
+        size = os.path.getsize(path)
+        want_losses = run(model, state, step, gen, sched, 5)
+        want = _snapshot(model, state)
+        model2 = build_model(cfg["model"], device=dev, seed=SEED + 31)
+        state2, make2 = _small_state(model2, cfg)
+        sched2 = instantiate_from_config(sched_cfg, base_lr=cfg["solver"]["base_lr"])
+        host = ck.restore_train_state(ck.load_checkpoint(path), model2, state2, scheduler=sched2)
+    gen2 = torch.Generator(dev)
+    gen2.set_state(host["generator_states"][0])
+    got_losses = run(model2, state2, make2(), gen2, sched2, 5)
+    check(host["last_iter"] == 10, f"train (c): restored at step {host['last_iter']}")
+    check(got_losses == want_losses and _snapshots_equal(_snapshot(model2, state2), want)
+          and sched2.state_dict() == sched.state_dict(),
+          "train (c): the resumed run differs from the uninterrupted one")
+    print(f"  (c) checkpoint round trip ({size / 2**20:.1f} MiB, the reference's layout): "
+          f"10 steps, save, restore into a fresh model, 5 more steps: params, EMA, Adam moments, "
+          f"timestep state, scheduler and losses bit for bit those of 15 steps uninterrupted")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _train_ddp(dev):
+    """(d): a one-rank NCCL group: the step under DDP against the step
+    without, three steps on the same draws: bit for bit."""
+    import copy
+
+    import torch.distributed as dist
+
+    from text_to_sound_synthesis_torch.models import build_model
+    from text_to_sound_synthesis_torch.parallel import init_distributed, wrap_ddp
+
+    cfg = small_train_config()
+    plain = build_model(cfg["model"], device=dev, seed=SEED + 40)
+    under = copy.deepcopy(plain)
+    batch = _small_batch(np.random.default_rng(SEED + 40), dev)
+    diff = plain.diffusion
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    draws = [_train_draws(gen, SMALL_BATCH, diff.diffusion_step, diff.content_seq_len,
+                          diff.num_classes) for _ in range(3)]
+    lr = cfg["solver"]["base_lr"]
+    t0 = time.perf_counter()
+    init_distributed(dev, init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        s_plain, make_plain = _small_state(plain, cfg)
+        s_ddp, make_ddp = _small_state(under, cfg)
+        ddp = wrap_ddp(under.diffusion.transformer, dev)
+        check(isinstance(ddp, torch.nn.parallel.DistributedDataParallel), "train (d): no DDP")
+        f_plain, f_ddp = make_plain(), make_ddp(ddp)
+        same = True
+        for d in draws:
+            s_plain, m_plain = f_plain(s_plain, batch, lr, draws=d)
+            s_ddp, m_ddp = f_ddp(s_ddp, batch, lr, draws=d)
+            same &= all(torch.equal(a, b) for a, b in zip(m_plain, m_ddp))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    same &= _snapshots_equal(_snapshot(plain, s_plain), _snapshot(under, s_ddp))
+    check(same, "train (d): the step under DDP (one rank) differs from the step without")
+    print(f"  (d) one-rank {backend} group: 3 steps under DDP bit for bit the steps without "
+          f"(params, EMA, Adam moments, timestep state, metrics); group up and down in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+class _TokenDataset:
+    """In-memory items carrying BPE ids (``condition_token``): no BPE table."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.image = rng.uniform(-1, 1, (n, 1, *SMALL_MEL)).astype(np.float32)
+        self.token = caption_ids(rng, n).numpy()
+
+    def __len__(self):
+        return len(self.image)
+
+    def __getitem__(self, i):
+        return {"image": self.image[i], "condition_token": self.token[i]}
+
+
+def _train_solver(dev):
+    """(e): the Solver on the small config: two epochs of two iterations on an
+    in-memory dataset (checkpoints, validation, in-training sampling on K1),
+    then a fresh Solver resumed from them."""
+    import tempfile
+
+    from text_to_sound_synthesis_torch.data.loader import ShardedLoader
+    from text_to_sound_synthesis_torch.engine import Solver
+    from text_to_sound_synthesis_torch.engine.logger import Logger
+    from text_to_sound_synthesis_torch.models import build_model
+
+    cfg = small_train_config()
+    ds = _TokenDataset(2 * SMALL_BATCH, SEED + 50)
+    loaders = lambda: {"train_loader": ShardedLoader(ds, SMALL_BATCH, seed=0),
+                       "train_iterations": 2,
+                       "validation_loader": ShardedLoader(ds, SMALL_BATCH, seed=0, shuffle=False)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        solver = Solver(cfg, build_model(cfg["model"], device=dev, seed=SEED + 50), loaders(),
+                        Logger(tmp, "run"), seed=SEED)
+        solver.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        names = sorted(os.listdir(solver.logger.ckpt_dir))
+        samples = os.listdir(os.path.join(solver.logger.run_dir, "samples"))
+        resumed = Solver(cfg, build_model(cfg["model"], device=dev, seed=SEED + 51), loaders(),
+                         Logger(tmp, "run"), seed=SEED)
+        ok = resumed.resume()
+    check(solver.state.step == 4, f"train (e): {solver.state.step} steps, expected 4")
+    check({"last.pth", "auto_a.pth", "auto_b.pth"} <= set(names), f"train (e): saved {names}")
+    check(any(n.endswith(".npy") for n in samples), "train (e): no in-training samples")
+    check(ok and resumed.state.step == 4 and resumed.last_epoch == 1,
+          f"train (e): resumed at step {resumed.state.step}, epoch {resumed.last_epoch}")
+    check(all(torch.equal(a, b) for a, b in zip(resumed.model.parameters(),
+                                                solver.model.parameters()))
+          and all(torch.equal(a, b) for a, b in zip(resumed.state.ema_params,
+                                                    solver.state.ema_params)),
+          "train (e): the resumed weights differ from the saved ones")
+    print(f"  (e) Solver: 2 epochs x 2 iterations at batch {SMALL_BATCH} with validation and "
+          f"in-training sampling in {secs:.1f} s; saved {', '.join(names)}; a fresh Solver "
+          f"resumed 'last' (step 4, epoch 1), weights and EMA bit for bit")
+
+
+def _sharded_samplers(model, qp, cond_tokens, dev):
+    """(f): the bf16 fused and the W4A8 int8 sampler, two shards of batch
+    SHARD_BATCH on the one card, against per-shard runs with the folded
+    seeds, with their launches."""
+    from text_to_sound_synthesis_torch.models.diffusion import int8_runtime as rt
+    from text_to_sound_synthesis_torch.models.diffusion.process import (
+        _timestep_plan, sample_tokens_fused, sample_tokens_fused_sharded)
+    from text_to_sound_synthesis_torch.parallel import fold_seed
+
+    n_steps = len(_timestep_plan(N_STEPS, N_STEPS, SHARD_SKIP)[0])
+    with torch.no_grad():
+        cond_emb = model.embed_condition(cond_tokens[:2 * SHARD_BATCH])
+    sched = model.diffusion.schedule(dev)
+    LN = N_LAYER * 2 * n_steps
+    runs = {
+        "bf16 fused": (lambda: sample_tokens_fused_sharded(
+            model.diffusion, cond_emb, seed=SEED, devices=[dev, dev], truncation_r=0.85,
+            skip_step=SHARD_SKIP),
+            lambda c, g: sample_tokens_fused(model.diffusion, c, generator=g, truncation_r=0.85,
+                                             skip_step=SHARD_SKIP),
+            expected_counts(K1=2 * n_steps)),
+        "W4A8 int8": (lambda: rt.sample_tokens_int8_sharded(
+            qp, sched, cond_emb, seed=SEED, devices=[dev, dev], truncation_r=0.85,
+            skip_step=SHARD_SKIP),
+            lambda c, g: rt.sample_tokens_int8(qp, sched, c, generator=g, truncation_r=0.85,
+                                               skip_step=SHARD_SKIP),
+            expected_counts(K2=2 * n_steps, K3=LN, K4=LN, K5=LN, Kp=2 * LN)),
+    }
+    launches = {}
+    for name, (sharded, one, want) in runs.items():
+        reset_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = torch.cat([one(cond_emb[i * SHARD_BATCH:(i + 1) * SHARD_BATCH],
+                             torch.Generator(dev).manual_seed(fold_seed(SEED, i)))
+                         for i in range(2)])
+        check(counts == want, f"train (f) {name}: launches {counts}, expected {want}")
+        check(tuple(got.shape) == (2 * SHARD_BATCH, L_TOK)
+              and bool(((got >= 0) & (got < 256)).all()), f"train (f) {name}: tokens {got.shape}")
+        check(torch.equal(got, ref), f"train (f) {name}: the sharded tokens differ from the "
+              f"per-shard runs in {int((got != ref).sum())} of {got.numel()}")
+        launches[name] = {k: v for k, v in counts.items() if v}
+    print(f"  (f) sharded samplers, two shards of batch {SHARD_BATCH} on the one card, "
+          f"{n_steps} steps (top0.85r,fast{SHARD_SKIP}): bf16 fused and W4A8 int8 each bit for "
+          f"bit their per-shard runs with the folded seeds; launches {launches}")
+
+
+def phase_train(model, qp, cond_tokens, dev):
+    """Phase 10 (module docstring). Returns (a)'s (median step s, samples/s,
+    peak GiB, trainable parameters)."""
+    res = _train_flagship(dev)
+    _train_card_vs_cpu(dev)
+    _train_resume(dev)
+    _train_ddp(dev)
+    _train_solver(dev)
+    _sharded_samplers(model, qp, cond_tokens, dev)
+    return res
+
+
 def _bound(nbytes, **ops):
     """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` operations
     by type. The tensor cores (int8 and bf16 dots, one after the other) and
@@ -2166,7 +2696,10 @@ def main() -> int:
     print("[9 long-form]")
     long_seconds = phase_long(model, qp, vocoder, cond_tokens, dev)
 
-    print(f"[10 times] on {card}:")
+    print("[10 train]")
+    step_s, samples_s, train_peak, n_train = phase_train(model, qp, cond_tokens, dev)
+
+    print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
           f"one-hot reference sampler {min(ref_s):.3f} s = {BATCH / min(ref_s):.3f} clips/s, the bf16 "
@@ -2192,6 +2725,9 @@ def main() -> int:
     print(f"  W4A8 generate_long, batch {BATCH}, {LONG_FRAMES} frames: {long_seconds:.3f} s = "
           f"{BATCH / long_seconds:.3f} long clips/s, {long_seconds / int8_times[1]:.3f} x the "
           f"W4A8 request")
+    print(f"  Stage-2 train step, flagship f32 ({n_train / 1e6:.1f} M trainable), batch "
+          f"{TRAIN_BATCH}: median {step_s:.4f} s = {samples_s:.2f} samples/s; peak memory "
+          f"{train_peak:.2f} GiB")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

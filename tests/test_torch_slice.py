@@ -310,7 +310,8 @@ def test_tokenizer_is_built_at_first_use():
 
 
 def test_import_does_not_load_jax():
-    """The package and every module of the port, the int8 serving engine's
+    """The package and every module of the port, the int8 serving engine's,
+    the training engine's, the data pipeline's and the data-parallel layer's
     included, import without JAX."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
@@ -322,7 +323,19 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.convert.checkpoint",
             "text_to_sound_synthesis_torch.ops.sampling", "text_to_sound_synthesis_torch.ops.signal",
             "text_to_sound_synthesis_torch.utils.io", "text_to_sound_synthesis_torch.utils.artifacts",
-            "text_to_sound_synthesis_torch.models.melgan.interface"]
+            "text_to_sound_synthesis_torch.models.melgan.interface",
+            "text_to_sound_synthesis_torch.engine", "text_to_sound_synthesis_torch.engine.solver",
+            "text_to_sound_synthesis_torch.engine.train_state",
+            "text_to_sound_synthesis_torch.engine.checkpoint",
+            "text_to_sound_synthesis_torch.engine.optimizers",
+            "text_to_sound_synthesis_torch.engine.schedulers",
+            "text_to_sound_synthesis_torch.engine.clip_grad",
+            "text_to_sound_synthesis_torch.engine.ema", "text_to_sound_synthesis_torch.engine.logger",
+            "text_to_sound_synthesis_torch.data.datasets", "text_to_sound_synthesis_torch.data.loader",
+            "text_to_sound_synthesis_torch.data.transforms",
+            "text_to_sound_synthesis_torch.native.npy_loader",
+            "text_to_sound_synthesis_torch.parallel.distributed",
+            "text_to_sound_synthesis_torch.tools.train_diffsound"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu') "
             "if m in sys.modules]; "

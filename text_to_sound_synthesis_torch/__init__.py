@@ -12,6 +12,12 @@ port imports ``torch`` and never ``jax`` or ``flax``.
   (plain PyTorch + the hand-written kernel ``csrc/fused_sampler.cu``);
 * ``convert/`` ``from_jax``: the JAX package's parameter trees (as numpy)
   into the port's modules;
+* ``engine/``  Stage-2 training: the train step, AdamW, the schedulers, the
+  EMA, the grad clip, checkpoints, the logger and the ``Solver``;
+* ``data/``    the mel datasets and the sharded loader (``native/``: the
+  batched .npy reader, C++ on the host);
+* ``parallel/`` DDP and the sharded samplers' runner on ``torch.distributed``;
+* ``tools/``   the training CLI and the kernels' A/B tools;
 * ``utils/``   the config registry, seeded init, and the nvcc build helper.
 """
 
@@ -19,4 +25,4 @@ __version__ = "0.1.0"
 
 # importing the package registers every config target, so the repo's YAML
 # configs resolve to the port's classes
-from . import convert, models, ops, utils  # noqa: E402,F401
+from . import convert, data, engine, models, ops, parallel, utils  # noqa: E402,F401

@@ -8,8 +8,10 @@ reference sampler for top-k and ``q<rate>``) -> VQGAN ``decode_code``; the
 int8 serving path: ``quantize_for_serving`` -> ``calibrate_serving_engine``
 -> ``generate_int8`` (``models/diffusion/int8_runtime.py``); long-form
 generation on either, ``generate_long``; the codec round trip
-``reconstruct`` and the training-time ``sample_grid``. ``build_model``
-loads the stage-1 codec checkpoint a config names (``ckpt_path``).
+``reconstruct`` and the training-time ``sample_grid``; the Stage-2 training
+loss ``loss`` (the frozen codec and text tower under ``no_grad``, the
+denoiser's VLB). ``build_model`` loads the stage-1 codec checkpoint a config
+names (``ckpt_path``).
 
 Unlike the JAX package's plain object over three parameter trees, this is one
 ``nn.Module`` laid out as the reference's ``DALLE``: ``content_codec`` (VQModel),
@@ -163,6 +165,23 @@ class Diffsound(nn.Module):
         H, W = self.token_hw
         grid = self.permuter(tokens, reverse=True).reshape(-1, H, W)
         return self.content_codec.decode_code(grid)
+
+    # -- training ------------------------------------------------------------
+
+    def loss(self, mel: torch.Tensor, cond_tokens: torch.Tensor, t: torch.Tensor,
+             pt: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+             gumbel: Optional[torch.Tensor] = None, is_train: bool = True,
+             denoiser: Optional[nn.Module] = None):
+        """The Stage-2 training loss (``DALLE.forward``): mel (B, H, W, 1) in
+        [-1, 1] -> tokens by the frozen codec, BPE ids (B, 77) -> features
+        by the frozen text tower, both under ``no_grad`` (they take no
+        gradient), then ``DiscreteDiffusion.train_loss`` (its ``generator``,
+        ``gumbel``, ``is_train`` and ``denoiser``). Returns its
+        ``DiffusionLossOutput``."""
+        tokens = self.encode_content(mel)
+        cond_emb = self.embed_condition(cond_tokens)
+        return self.diffusion.train_loss(tokens, cond_emb, t, pt, generator=generator,
+                                         gumbel=gumbel, is_train=is_train, denoiser=denoiser)
 
     @torch.no_grad()
     def reconstruct(self, mel: torch.Tensor) -> torch.Tensor:
@@ -389,7 +408,8 @@ def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 
     ``load_codec`` is set, the codec's trained weights replace its random ones
     (the JAX package's ``init_params(load_codec=True)``; callers that load
     the whole model from elsewhere pass False). ``device="meta"`` leaves the
-    modules without storage (shape inspection) and loads nothing."""
+    modules without storage (shape inspection) and loads nothing. The model
+    comes back in eval mode: dropout acts only in the training loss."""
     with torch.device("meta"):
         model = instantiate_from_config(config.get("model", config))
     model = model.to_empty(device=device)
@@ -397,4 +417,4 @@ def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 
         model.init_params(torch.Generator(device).manual_seed(seed))
         if load_codec and model.codec_ckpt_path:
             model._load_codec_params()
-    return model
+    return model.eval()

@@ -10,8 +10,11 @@ embeddings -> LN -> 4x GELU2 MLP), final LN + Linear to ``num_embed`` classes
 Parameter names are the reference's (``content_emb``, ``blocks.N.ln1.emb``,
 ``blocks.N.attn1.query``, ``blocks.N.mlp.0``, ``to_logits.0/1``). Activations
 are (B, L, D); attention is plain matmuls with the softmax in float32.
-LayerNorm eps is 1e-6, as in the JAX package. Dropout is not ported: this
-module serves inference, and the training loss waits for the training port.
+LayerNorm eps is 1e-6, as in the JAX package. Dropout (``attn_pdrop``,
+``resid_pdrop``; 0 in every config) sits where the JAX package and the
+reference put it and acts only in training mode: ``build_model`` returns the
+model in eval mode, and ``DiscreteDiffusion.train_loss`` sets the mode to its
+``is_train`` for its forward, as the JAX package passes ``deterministic``.
 """
 
 from __future__ import annotations
@@ -103,13 +106,16 @@ class MultiHeadAttention(nn.Module):
     """q from x; k, v from ``kv`` (self-attention when kv is x). Full softmax,
     no mask: the content sequence is bidirectional."""
 
-    def __init__(self, n_embd: int, n_head: int, kv_dim: Optional[int] = None):
+    def __init__(self, n_embd: int, n_head: int, kv_dim: Optional[int] = None,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
         super().__init__()
         self.n_head = n_head
         self.query = nn.Linear(n_embd, n_embd)
         self.key = nn.Linear(kv_dim or n_embd, n_embd)
         self.value = nn.Linear(kv_dim or n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
+        self.attn_drop = nn.Dropout(attn_pdrop)
+        self.resid_drop = nn.Dropout(resid_pdrop)
 
     def kv_proj(self, kv):
         """Keys/values (B, S, H, hd), projected once for a fixed condition."""
@@ -123,9 +129,9 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).reshape(B, L, self.n_head, hd).transpose(1, 2)
         k, v = kv_cache if kv_cache is not None else self.kv_proj(kv)
         att = (q @ k.permute(0, 2, 3, 1)) / math.sqrt(hd)
-        att = torch.softmax(att.float(), dim=-1).to(x.dtype)
+        att = self.attn_drop(torch.softmax(att.float(), dim=-1).to(x.dtype))
         y = (att @ v.transpose(1, 2)).transpose(1, 2).reshape(B, L, D)
-        return self.proj(y)
+        return self.resid_drop(self.proj(y))
 
 
 class SelfCrossBlock(nn.Module):
@@ -133,17 +139,19 @@ class SelfCrossBlock(nn.Module):
 
     def __init__(self, n_embd: int, n_head: int, diffusion_step: int,
                  condition_dim: int = 512, mlp_hidden_times: int = 4,
-                 activate: str = "GELU2", timestep_type: str = "adalayernorm"):
+                 activate: str = "GELU2", timestep_type: str = "adalayernorm",
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
         super().__init__()
         self.ln1 = AdaLayerNorm(n_embd, diffusion_step, timestep_type)
         self.ln1_1 = AdaLayerNorm(n_embd, diffusion_step, timestep_type)
-        self.attn1 = MultiHeadAttention(n_embd, n_head)
-        self.attn2 = MultiHeadAttention(n_embd, n_head, kv_dim=condition_dim)
+        self.attn1 = MultiHeadAttention(n_embd, n_head, None, attn_pdrop, resid_pdrop)
+        self.attn2 = MultiHeadAttention(n_embd, n_head, condition_dim, attn_pdrop, resid_pdrop)
         self.ln2 = nn.LayerNorm(n_embd, eps=LN_EPS)
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, mlp_hidden_times * n_embd),
             _ACT[activate](),
             nn.Linear(mlp_hidden_times * n_embd, n_embd),
+            nn.Dropout(resid_pdrop),
         )
 
     def ada_tables(self):
@@ -187,7 +195,8 @@ class Text2SpecTransformer(nn.Module):
         self.content_emb = ContentEmbedding(**emb_params)
         self.blocks = nn.ModuleList(
             SelfCrossBlock(n_embd, n_head, diffusion_step, condition_dim,
-                           mlp_hidden_times, block_activate, timestep_type)
+                           mlp_hidden_times, block_activate, timestep_type,
+                           attn_pdrop, resid_pdrop)
             for _ in range(n_layer))
         self.to_logits = nn.Sequential(
             nn.LayerNorm(n_embd, eps=LN_EPS),

@@ -65,9 +65,11 @@ from ...ops import fused_sampler as fs
 from ...ops import int8_block as ib
 from ...ops import quant
 from ...ops.quant import QuantizedWeight, quantize_weight, quantize_weight_w4, unpack_weight_w4
+from ...parallel.distributed import replica, run_sharded
 
 __all__ = ["Int8Dense", "Int8Layer", "Int8Denoiser", "quantize_denoiser", "unpack_denoiser",
-           "precompute_cond_kvs", "int8_backbone_logits", "sample_tokens_int8"]
+           "precompute_cond_kvs", "int8_backbone_logits", "sample_tokens_int8",
+           "sample_tokens_int8_sharded"]
 
 DENSE_FIELDS = ("q", "k", "v", "proj", "crossq", "crossproj", "fc1", "fc2")
 ActScales = Optional[Tuple[Tuple[float, ...], ...]]
@@ -388,3 +390,31 @@ def sample_tokens_int8(
                                       coeffs[idx], seed_base, idx,
                                       truncation_r=truncation_r, gumbel=g)
     return tokens.reshape(B, L)
+
+
+def sample_tokens_int8_sharded(
+    qp: Int8Denoiser,
+    sched,
+    cond_emb: torch.Tensor,               # (B, S, Dc); B a multiple of the shard count
+    *,
+    seed: int,
+    devices: Optional[Sequence] = None,
+    group=None,
+    truncation_r: float = 0.0,
+    skip_step: int = 0,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Data-parallel int8 serving: each shard runs ``sample_tokens_int8`` on
+    its slice of the batch with a generator seeded ``fold_seed(seed, i)``,
+    on ``devices`` in this process (a device may repeat) or on the ranks of
+    ``group`` with the tokens gathered (``parallel.run_sharded``); no other
+    collective, as the JAX package's ``shard_map``. The result equals the
+    per-shard runs bit for bit."""
+    replicas: dict = {}
+
+    def shard(cond: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        return sample_tokens_int8(replica(qp, cond.device, replicas), sched.to(cond.device), cond,
+                                  generator=generator, truncation_r=truncation_r,
+                                  skip_step=skip_step, impl=impl)
+
+    return run_sharded(shard, cond_emb, seed=seed, devices=devices, group=group)

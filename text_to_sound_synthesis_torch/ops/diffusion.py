@@ -32,6 +32,9 @@ __all__ = [
     "log_sample_categorical",
     "q_sample",
     "gumbel_from_uniform",
+    "multinomial_kl",
+    "log_categorical",
+    "clip",
 ]
 
 #: log(1e-30) — the "log zero" used when converting one-hots to log space.
@@ -112,6 +115,15 @@ def make_schedule(time_step: int, num_classes: int, kind: str = "mask_and_unifor
                                for a in arrays))
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x.clamp(lo, hi)``'s values with ``jnp.clip``'s gradient: at a bound
+    the gradient is halved (a tie of max / min), where ``clamp`` passes all of
+    it. The training loss's gradients then match the JAX package's wherever
+    a value lands on a bound exactly."""
+    bound = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)   # no host copy
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
 def log_add_exp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Stable log(exp(a) + exp(b)); tolerates -inf in either argument."""
     m = torch.maximum(a, b)
@@ -119,15 +131,18 @@ def log_add_exp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return m_safe + torch.log(torch.exp(a - m_safe) + torch.exp(b - m_safe))
 
 
-def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
+def index_to_log_onehot(x: torch.Tensor, num_classes: int, *, check: bool = True) -> torch.Tensor:
     """(B, L) int -> (B, L, K) float32 log one-hot, off-class value log(1e-30).
 
     The reference asserts ``x.max() < num_classes`` (diffusion_transformer.py:46-47);
     an out-of-range id would one-hot to an all-zeros row that the posterior
-    silently renormalizes, so the range is checked on the host first."""
-    mx = int(x.max())
-    if mx >= num_classes:
-        raise ValueError(f"token id {mx} out of range for {num_classes} classes")
+    silently renormalizes, so the range is checked on the host first.
+    ``check=False`` skips that check and its wait for the device, for ids in
+    range by construction (the codec's, in the training loss)."""
+    if check:
+        mx = int(x.max())
+        if mx >= num_classes:
+            raise ValueError(f"token id {mx} out of range for {num_classes} classes")
     onehot = torch.nn.functional.one_hot(x.long(), num_classes).float()
     return torch.log(onehot.clamp(min=1e-30))
 
@@ -187,7 +202,7 @@ def q_posterior(sched: DiffusionSchedule, log_x_start: torch.Tensor, log_x_t: to
     q_norm = torch.logsumexp(q, dim=-1, keepdim=True)
     q = q - q_norm
     out = q_pred(sched, q, t.long() - 1) + log_qt1 + q_norm
-    return out.clamp(MIN_LOGP, 0.0)
+    return clip(out, MIN_LOGP, 0.0)
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
@@ -214,3 +229,13 @@ def q_sample(sched: DiffusionSchedule, generator: Optional[torch.Generator],
     """Sample x_t ~ q(x_t | x_0) as a log one-hot (forward corruption);
     ``gumbel`` as in ``log_sample_categorical``."""
     return log_sample_categorical(generator, q_pred(sched, log_x_start, t), gumbel)
+
+
+def multinomial_kl(log_prob1: torch.Tensor, log_prob2: torch.Tensor) -> torch.Tensor:
+    """KL(p1 || p2) per position: (B, L, K) -> (B, L)."""
+    return (log_prob1.exp() * (log_prob1 - log_prob2)).sum(dim=-1)
+
+
+def log_categorical(log_x_start: torch.Tensor, log_prob: torch.Tensor) -> torch.Tensor:
+    """E_{x0}[log p(x0)] per position (the decoder NLL's numerator): (B, L, K) -> (B, L)."""
+    return (log_x_start.exp() * log_prob).sum(dim=-1)

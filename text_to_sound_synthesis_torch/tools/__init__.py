@@ -1,4 +1,9 @@
-"""The port's A/B tools, run on a CUDA card as modules:
+"""The port's tools, run as modules: the Stage-2 trainer
+
+    python -m text_to_sound_synthesis_torch.tools.train_diffsound --config_file CONFIG [...]
+
+(``torchrun --nproc_per_node N -m ...`` for N cards; ``--device cpu`` on a
+host without one), and the A/B tools, run on a CUDA card:
 
     python -m text_to_sound_synthesis_torch.tools.bench_gn_conv [repeats] [shape_idx...]
     python -m text_to_sound_synthesis_torch.tools.bench_kernel_dot [iters]
@@ -17,8 +22,8 @@ times the W8 engine's K6 sites and MLP blocks (K3, K9), ``bench_mha`` the
 MHAs (K7, the pair MHA, K10) alone and between K3's calls, ``bench_sampler``
 the sampler kernels (K1, K2) with K1's output digests, ``bench_quant`` the
 quantize passes (the row pass's six forms, the wide pass's four). Without a
-card they exit nonzero; they do not run on the CPU. Helpers they share live
-here.
+card the A/B tools exit nonzero; they do not run on the CPU. Helpers they
+share live here.
 """
 
 from __future__ import annotations
