@@ -18,7 +18,13 @@ long-form request (``generate_long``, 2120 frames, 24 sampler rows;
 (sampler + ``decode_code`` on an f32 copy, PyTorch's default precision;
 ``ref``), then K11 (``k11``), then one Stage-2 train step of the flagship in
 f32 at batch 20 (``chip_smoke.FlagshipTrainer``: its config's solver block,
-PyTorch's default precision; ``train``): all of them, or the paths named. One
+PyTorch's default precision; ``train``), the same with ``dtype: bfloat16``
+(f32 parameters; ``train_bf16``), then one Stage-1 SpecVQGAN step
+(``configs/vqgan_caps.yaml``'s codec, its PatchGAN, a seeded random LPAPS,
+batch 8 of 80 x 848 mels, both optimizers, ``bench_train_stage1``'s
+``vqgan_trainer``; ``stage1``) and one MelGAN step (batch 16 x 8192 samples,
+its ``melgan_trainer``; ``vocoder``), both in f32 under PyTorch's default
+precision: all of them, or the paths named. One
 warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
@@ -69,7 +75,8 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
 
 # a request's sampling, and its tokens returned beside the mel
 REQ = dict(sample_type="top0.85r", return_tokens=True)
-PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11", "train")
+PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11", "train", "train_bf16", "stage1",
+         "vocoder")
 
 
 def main(argv=None) -> int:
@@ -134,14 +141,34 @@ def main(argv=None) -> int:
                 profile(f"K11 gn_swish_conv at ({gnt.B}, {H}, {W}, {C})",
                         lambda: [gn_swish_conv(*args, groups=gnt.GROUPS) for _ in range(5)],
                         what="five calls")
-    if "train" in paths:
+    if paths & {"train", "train_bf16", "stage1", "vocoder"}:
         del model
         torch.cuda.empty_cache()
-        tr = cs.FlagshipTrainer(dev)
+    for path, dtype in (("train", "float32"), ("train_bf16", "bfloat16")):
+        if path in paths:
+            tr = cs.FlagshipTrainer(dev, dtype)
+            with cs.pytorch_default_precision():
+                tr.step()       # the optimizer's moments are made at the first step
+                profile(f"Stage-2 train step, flagship {dtype}, batch {cs.TRAIN_BATCH}",
+                        lambda: tr.step() and None, what="one step")   # no tokens to digest
+            del tr
+            torch.cuda.empty_cache()
+    from text_to_sound_synthesis_torch.tools import bench_train_stage1 as bt
+
+    if "stage1" in paths:
+        state, step, mel, lr = bt.vqgan_trainer(dev, cs.SEED)
         with cs.pytorch_default_precision():
-            tr.step()       # the optimizer's moments are made at the first step
-            profile(f"Stage-2 train step, flagship f32, batch {cs.TRAIN_BATCH}",
-                    lambda: tr.step() and None, what="one step")   # no tokens to digest
+            step(state, mel, lr)
+            profile(f"Stage-1 SpecVQGAN train step, vqgan_caps f32, batch {bt.VQGAN_BATCH}",
+                    lambda: step(state, mel, lr) and None, what="one step")
+        del state, step, mel
+        torch.cuda.empty_cache()
+    if "vocoder" in paths:
+        state, step, wav = bt.melgan_trainer(dev, cs.SEED)
+        with cs.pytorch_default_precision():
+            step(state, wav)
+            profile(f"MelGAN train step, f32, batch {bt.MELGAN_BATCH} x {bt.MELGAN_LEN}",
+                    lambda: step(state, wav) and None, what="one step")
     return 0
 
 

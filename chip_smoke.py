@@ -156,10 +156,38 @@ Phases (any failed check exits nonzero, and no result line is printed):
              one card, 10 steps, each bit for bit its per-shard runs with the
              folded seeds, with exact launch counts (K1 = 20; K2 = 20, K3 = K4
              = K5 = 19 x 20, the pair MHA 2 x 19 x 20).
+10b. stage-1 — Stage-1 and vocoder training, and the bf16 Stage-2 step; every
+             kernel count 0 in each part. (a) the flagship codec's adversarial
+             step: ``configs/vqgan_caps.yaml``'s codec (ch 128, 256 x 256
+             codebook), its PatchGAN (ndf 64, 3 layers, BatchNorm), a seeded
+             random LPAPS, batch 8 of 80 x 848 mels in [-1, 1], disc_start
+             0, both optimizers, PyTorch's default precision, S1_STEPS steps
+             on one batch: every metric finite, nll_loss lower at the last
+             step than at the first, every codec and PatchGAN tensor moved,
+             each BatchNorm updated exactly twice a step (the D phase's); the
+             median step time, samples/s and peak memory. (b) a small config
+             (codec ch 64, 16 x 64 mels, a 2-layer PatchGAN, LPAPS of 16 bins)
+             three steps on the card against the CPU in full f32, each from
+             the CPU's state, with a constant and with an adaptive
+             discriminator weight, disc_start 1, lr 1e-5: metrics, gradients,
+             weights and running statistics within S1_RTOL / S1_ATOL /
+             S1_GRAD / S1_STATS. (c) the MelGAN step
+             at ``bench_train_stage1``'s shape (batch 16 x 8192 samples, ngf
+             32, 3 scales), VOC_STEPS steps on one batch: finite metrics,
+             the mel reconstruction L1 (the diagnostic the reference keeps
+             its best generator by) lower at the last step, every G and D
+             tensor moved; its
+             time and peak memory. (d) (b)'s codec as a Lightning ``.ckpt``
+             into a Diffsound through ``build_model(load_codec=True)``:
+             ``decode_code`` bit for bit; (c)'s generator as ``args.yml`` +
+             ``best_netG.pt`` through ``load_vocoder``: the wav bit for bit.
+             (e) phase 10 (a) again with ``dtype: bfloat16``: the parameters,
+             AdamW's moments and the EMA f32, the loss under step 1's draws
+             lower at step 30; its time beside (a)'s f32 step.
 11. times  — each path's request time and clips/s, phase 5b's reference and
-             fused times in bench.py's scope, and the train step's time,
-             beside the card's name and power limit. Every request phase
-             counts K11 and T1-T3 at 0.
+             fused times in bench.py's scope, the train steps' times (Stage 2
+             in f32 and bf16, Stage 1, MelGAN), beside the card's name and
+             power limit. Every request phase counts K11 and T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -1344,7 +1372,7 @@ def check_plain_loop(model, fs, dd, cond_tokens, dev):
                                               generator=torch.Generator(dev).manual_seed(SEED)))
     _, got = model.generate(torch.Generator(dev).manual_seed(SEED), cond_tokens,
                             sample_type="top0.85r,fast49", noise=noise, return_tokens=True)
-    with torch.no_grad():
+    with torch.no_grad(), model.compute_weights():     # the bf16 weights generate() reads
         cond_emb = model.embed_condition(cond_tokens)
         tables, kvs = diff.ada_tables(), diff.cond_kvs(cond_emb)
         coeffs = fs.step_coeffs(diff.schedule(dev), t_post).as_array()
@@ -1387,7 +1415,7 @@ def bench_scope(model, cond_emb, fused: bool, generator):
         sample_tokens, sample_tokens_fused)
     from text_to_sound_synthesis_torch.ops.sampling import truncate_top_r
 
-    with torch.no_grad():
+    with torch.no_grad(), model.compute_weights(model.diffusion, model.codec):
         if fused:
             tokens = sample_tokens_fused(model.diffusion, cond_emb, generator=generator,
                                          truncation_r=0.85)
@@ -1450,7 +1478,7 @@ def _onehot_steps_vs_k1(model, fs, cond_emb, r, rule, dev):
     log_z = torch.full((BATCH, L, K), -torch.inf, device=dev)
     log_z[..., -1] = 0.0
     boundary = tok_rows = off_nucleus = tied = 0
-    with torch.no_grad():
+    with torch.no_grad(), model.compute_weights(diff):
         for i, (t, tp) in enumerate(zip(ts, t_post)):
             x_t = dd.log_onehot_to_index(log_z)
             t_vec = torch.full((BATCH,), t, dtype=torch.long, device=dev)
@@ -1567,7 +1595,7 @@ def phase_onehot(model, fs, vocoder, cond_tokens, cfg, dev):
         loaded = build_model(cfg2, device=dev, seed=SEED + 8)
         code = torch.randint(0, model.diffusion.num_classes - 1, (BATCH, *model.token_hw), device=dev,
                              generator=torch.Generator(dev).manual_seed(SEED + 9))
-        with torch.no_grad():
+        with torch.no_grad(), loaded.compute_weights(), model.compute_weights():
             same = torch.equal(loaded.codec.decode_code(code), model.codec.decode_code(code))
         del loaded
         check(same, "codec .ckpt: decode_code differs from the source model's")
@@ -2092,11 +2120,12 @@ def _snapshots_equal(a, b) -> bool:
 
 
 class FlagshipTrainer:
-    """The flagship from the YAML in f32 on the card with its config's solver
-    block: the train state, the step, the scheduler and one seeded batch of
-    TRAIN_BATCH (also ``chip_profile.py train``'s)."""
+    """The flagship from the YAML on the card with its config's solver block,
+    ``dtype`` its compute dtype (f32 parameters either way): the train state,
+    the step, the scheduler and one seeded batch of TRAIN_BATCH (also
+    ``chip_profile.py train``'s)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, dtype: str = "float32"):
         from text_to_sound_synthesis_torch.engine import (DiffusionTrainState, build_optimizer,
                                                           make_train_step)
         from text_to_sound_synthesis_torch.models import build_model
@@ -2104,6 +2133,7 @@ class FlagshipTrainer:
                                                                 load_yaml_config)
 
         cfg = load_yaml_config(CONFIG)
+        cfg["model"]["params"]["dtype"] = dtype
         self.solver_cfg = sv = cfg["solver"]
         oas = sv["optimizers_and_schedulers"][0]
         check(int(cfg["dataloader"]["batch_size"]) == TRAIN_BATCH
@@ -2137,13 +2167,14 @@ class FlagshipTrainer:
         return m
 
 
-def _train_flagship(dev):
-    """(a): the flagship in f32, the config's solver block, TRAIN_STEPS steps on
-    one batch. -> (median step s, samples/s, peak GiB, trainable params)."""
-    tr = FlagshipTrainer(dev)
+def _train_flagship(dev, dtype: str = "float32", label: str = "(a)"):
+    """(a): the flagship in f32 (or 10b (e) in ``dtype``), the config's solver
+    block, TRAIN_STEPS steps on one batch. -> (median step s, samples/s, peak
+    GiB, trainable params)."""
+    tr = FlagshipTrainer(dev, dtype)
     model, den, sv, clip, base_lr = tr.model, tr.denoiser, tr.solver_cfg, tr.clip, tr.base_lr
     n_train = sum(p.numel() for p in den.parameters())
-    print(f"  (a) flagship in {model.dtype}: {n_train / 1e6:.1f} M trainable parameters "
+    print(f"  {label} flagship in {model.dtype}: {n_train / 1e6:.1f} M trainable parameters "
           f"({len(den.blocks)} layers), codec and CLIP frozen; built in {tr.build_s:.1f} s")
     gen = tr.gen
     K, L, T = model.diffusion.num_classes, model.diffusion.content_seq_len, N_STEPS
@@ -2163,27 +2194,34 @@ def _train_flagship(dev):
             state = tr.state
             changed = any(not torch.equal(a, b) for a, b in zip(before, watch()))
             check(changed == (state.step % EMA_INTERVAL == 0),
-                  f"train (a): the EMA {'changed' if changed else 'held'} at step {state.step}")
+                  f"train {label}: the EMA {'changed' if changed else 'held'} at step {state.step}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(all(np.isfinite(losses)), f"train (a): a loss is not finite: {losses}")
-    check(all(np.isfinite(norms)), f"train (a): a grad norm is not finite: {norms}")
-    check(losses[-1] < losses[0], f"train (a): the loss under step 1's draws went from "
+    check(all(np.isfinite(losses)), f"train {label}: a loss is not finite: {losses}")
+    check(all(np.isfinite(norms)), f"train {label}: a grad norm is not finite: {norms}")
+    check(losses[-1] < losses[0], f"train {label}: the loss under step 1's draws went from "
           f"{losses[0]:.5f} to {losses[-1]:.5f} at step {TRAIN_STEPS}")
     moved = sum(not torch.equal(a, p) for a, p in zip(start, den.parameters()))
-    check(moved == len(start), f"train (a): {len(start) - moved} parameter tensors did not move")
+    check(moved == len(start), f"train {label}: {len(start) - moved} parameter tensors did not move")
     check(int(state.lt.Lt_count.sum()) == TRAIN_STEPS * TRAIN_BATCH,
-          f"train (a): Lt_count sums to {float(state.lt.Lt_count.sum())}")
+          f"train {label}: Lt_count sums to {float(state.lt.Lt_count.sum())}")
+    moments = [v for st in state.optimizer.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim() > 0]
+    kinds = {t.dtype for t in (*model.parameters(), *moments, *state.ema_params)}
+    check(kinds == {torch.float32} and len(moments) == 2 * len(start),
+          f"train {label}: parameters, moments and EMA in {kinds}, {len(moments)} moments")
     med = float(np.median(secs[1:]))
-    print(f"  (a) {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (AdamW (0.9, 0.96), wd 4.5e-2, "
+    print(f"  {label} {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (AdamW (0.9, 0.96), wd 4.5e-2, "
           f"plateau warmup from {base_lr:g}, clip {clip.max_norm} at every step, EMA "
           f"{sv['ema']['decay']} every {EMA_INTERVAL}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"under step 1's draws, range [{min(losses):.4f}, {max(losses):.4f}]; grad norm "
           f"{norms[0]:.3f} -> {norms[-1]:.3f}; the EMA moved at step {EMA_INTERVAL} only; "
           f"Lt_count {int(state.lt.Lt_count.sum())}")
-    print(f"  (a) step time: first {secs[0]:.3f} s, median of the rest {med:.4f} s "
+    print(f"  {label} step time: first {secs[0]:.3f} s, median of the rest {med:.4f} s "
           f"(min {min(secs[1:]):.4f}, max {max(secs[1:]):.4f}) = {TRAIN_BATCH / med:.2f} "
-          f"samples/s; peak memory {peak:.2f} GiB (matmuls f32, cuDNN convs TF32)")
-    del tr, model, den, state, start
+          f"samples/s; peak memory {peak:.2f} GiB ("
+          f"{'matmuls f32, cuDNN convs TF32' if dtype == 'float32' else dtype + ' compute'}; "
+          f"parameters, AdamW moments and EMA f32)")
+    del tr, model, den, state, start, moments
     torch.cuda.empty_cache()
     return med, TRAIN_BATCH / med, peak, n_train
 
@@ -2428,20 +2466,22 @@ def _sharded_samplers(model, qp, cond_tokens, dev):
             expected_counts(K2=2 * n_steps, K3=LN, K4=LN, K5=LN, Kp=2 * LN)),
     }
     launches = {}
-    for name, (sharded, one, want) in runs.items():
-        reset_counts()
-        got = sharded()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        ref = torch.cat([one(cond_emb[i * SHARD_BATCH:(i + 1) * SHARD_BATCH],
-                             torch.Generator(dev).manual_seed(fold_seed(SEED, i)))
-                         for i in range(2)])
-        check(counts == want, f"train (f) {name}: launches {counts}, expected {want}")
-        check(tuple(got.shape) == (2 * SHARD_BATCH, L_TOK)
-              and bool(((got >= 0) & (got < 256)).all()), f"train (f) {name}: tokens {got.shape}")
-        check(torch.equal(got, ref), f"train (f) {name}: the sharded tokens differ from the "
-              f"per-shard runs in {int((got != ref).sum())} of {got.numel()}")
-        launches[name] = {k: v for k, v in counts.items() if v}
+    with model.compute_weights(model.diffusion):     # the bf16 weights a request reads
+        for name, (sharded, one, want) in runs.items():
+            reset_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            ref = torch.cat([one(cond_emb[i * SHARD_BATCH:(i + 1) * SHARD_BATCH],
+                                 torch.Generator(dev).manual_seed(fold_seed(SEED, i)))
+                             for i in range(2)])
+            check(counts == want, f"train (f) {name}: launches {counts}, expected {want}")
+            check(tuple(got.shape) == (2 * SHARD_BATCH, L_TOK)
+                  and bool(((got >= 0) & (got < 256)).all()),
+                  f"train (f) {name}: tokens {got.shape}")
+            check(torch.equal(got, ref), f"train (f) {name}: the sharded tokens differ from the "
+                  f"per-shard runs in {int((got != ref).sum())} of {got.numel()}")
+            launches[name] = {k: v for k, v in counts.items() if v}
     print(f"  (f) sharded samplers, two shards of batch {SHARD_BATCH} on the one card, "
           f"{n_steps} steps (top0.85r,fast{SHARD_SKIP}): bf16 fused and W4A8 int8 each bit for "
           f"bit their per-shard runs with the folded seeds; launches {launches}")
@@ -2457,6 +2497,306 @@ def phase_train(model, qp, cond_tokens, dev):
     _train_solver(dev)
     _sharded_samplers(model, qp, cond_tokens, dev)
     return res
+
+
+# -- phase 10b: Stage-1 and vocoder training --------------------------------------------------
+
+S1_STEPS, VOC_STEPS = 12, 20          # steps on one batch: the flagship codec's, MelGAN's
+S1_SMALL_DD = dict(double_z=False, z_channels=16, resolution=64, in_channels=1, out_ch=1, ch=64,
+                   ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[32], dropout=0.0)
+S1_SMALL_MEL, S1_SMALL_BATCH, S1_SMALL_LR = (16, 64), 4, 1e-5
+# (b) the small Stage-1 step on the card against the CPU, both in full f32
+# (TF32 off), each of the three steps from the CPU's state (weights, Adam
+# moments, running statistics, step count), so that one step is compared
+# and no step's rounding is carried into the next: Adam's steps move a
+# weight by about lr sign(g) whatever g's size, so a gradient whose sign the
+# two sides' roundings set apart moves 2 lr apart, and every later forward
+# carries that on. Gates, with what the H100 read (PERF.md): the metrics
+# within S1_RTOL or S1_ATOL (tests/test_gan_step_parity.py's; 5.4e-5); the
+# weights after the step within 2 lr; the BatchNorm running statistics
+# within S1_STATS (2.1e-6); each gradient of the step within S1_GRAD[net] of
+# its network's largest. The codec's (2.0e-3): LPAPS's VGG is piecewise
+# linear (ReLU, max-pool), so its gradient jumps where an input crosses a
+# kink, and the two sides' f32 reconstructions, their convolutions summed
+# in other orders, cross different ones. The discriminator's (2.6e-2): the
+# hinge turns each patch's gradient on or off at a logit of +-1, and the D
+# phase reads the reconstruction of the updated codec, which the AE step's
+# sign flips move, so a patch that crosses the margin moves the gradient by
+# about 1 / (patches). lr 1e-5 (the flagship trains at 8 x 1e-6); the codec
+# at ch 64, two and four channels a GroupNorm group (at 16 each group is one
+# channel and gives every bias in front of it a zero gradient).
+S1_RTOL, S1_ATOL, S1_STATS = 2e-3, 2e-4, 1e-4
+S1_GRAD = {"codec": 5e-3, "disc": 1e-1}
+
+
+def _stage1_small(dev, adaptive: bool, seed: int):
+    """(state, step, mel) of the small Stage-1 config on ``dev``, its weights
+    made on the CPU from ``seed``: the codec above (8 codes of 16), a PatchGAN
+    of ndf 8 and 2 layers, a seeded random LPAPS of 16 bins, disc_start 1."""
+    from text_to_sound_synthesis_torch.engine.vqgan_solver import (
+        VQGANLossConfig, VQGANTrainState, make_vqgan_train_step)
+    from text_to_sound_synthesis_torch.models.discriminator import (NLayerDiscriminator,
+                                                                    init_discriminator_)
+    from text_to_sound_synthesis_torch.models.lpaps import LPAPS
+    from text_to_sound_synthesis_torch.models.vqgan.model import VQModel, init_codec_
+    from text_to_sound_synthesis_torch.utils.init import init_random_
+
+    gen = torch.Generator().manual_seed(seed)
+    codec = init_codec_(VQModel(S1_SMALL_DD, n_embed=8, embed_dim=16), gen).to(dev)
+    disc = init_discriminator_(NLayerDiscriminator(1, 8, 2), gen).to(dev)
+    lpaps = LPAPS(n_mels=S1_SMALL_MEL[0])
+    init_random_(lpaps.net, gen)
+    lpaps = lpaps.init_heads_().to(dev)
+    mel = (torch.rand((S1_SMALL_BATCH, *S1_SMALL_MEL, 1), generator=gen) * 2 - 1).to(dev)
+    cfg = VQGANLossConfig(disc_start=1, **({"min_adapt_weight": 0.0, "max_adapt_weight": 1e4}
+                                          if adaptive else {}))
+    return (VQGANTrainState.create(codec, disc, S1_SMALL_LR), make_vqgan_train_step(lpaps, cfg),
+            mel)
+
+
+def _stage1_card_vs_cpu(dev):
+    """10b (b): three small steps on the card against the CPU, each from the
+    CPU's state, with a constant and with an adaptive discriminator weight.
+    Returns the card's state of the adaptive run (for (d))."""
+    import copy
+
+    worst = {"metric": 0.0, "codec": 0.0, "disc": 0.0, "weight": 0.0, "stats": 0.0}
+    kept = None
+    for adaptive in (False, True):
+        s_cpu, step_cpu, mel_cpu = _stage1_small("cpu", adaptive, SEED + 60)
+        s_card, step_card, mel_card = _stage1_small(dev, adaptive, SEED + 60)
+        with full_f32():
+            for i in range(3):
+                for net, opt in (("codec", "ae_opt"), ("disc", "disc_opt")):
+                    getattr(s_card, net).load_state_dict(getattr(s_cpu, net).state_dict())
+                    getattr(s_card, opt).load_state_dict(    # a copy: no moment shared
+                        copy.deepcopy(getattr(s_cpu, opt).state_dict()))
+                s_card.step = s_cpu.step
+                s_cpu, m_cpu = step_cpu(s_cpu, mel_cpu, S1_SMALL_LR)
+                s_card, m_card = step_card(s_card, mel_card, S1_SMALL_LR)
+                what = f"stage-1 (b) adaptive={adaptive}, step {i + 1}"
+                for k, v in m_cpu.items():
+                    a = m_card[k].cpu()
+                    if k == "indices":
+                        check(torch.equal(v, a), f"{what}: {int((v != a).sum())} codes differ")
+                        continue
+                    d = abs(float(a) - float(v))
+                    check(d <= max(S1_RTOL * abs(float(v)), S1_ATOL),
+                          f"{what}: {k} {float(a):.6f} on the card, {float(v):.6f} on the CPU")
+                    worst["metric"] = max(worst["metric"], d / max(abs(float(v)), 1e-30))
+                for net in ("codec", "disc"):
+                    grads = {n: p.grad for n, p in getattr(s_cpu, net).named_parameters()}
+                    top = max(float(g.abs().max()) for g in grads.values())
+                    for n, p in getattr(s_card, net).named_parameters():
+                        d = float((p.grad.cpu() - grads[n]).abs().max())
+                        check(d <= S1_GRAD[net] * top, f"{what}: the gradient of {net}.{n} off "
+                              f"by {d:.3e} (gate {S1_GRAD[net] * top:.3e})")
+                        if top > 0:       # the D's gradients are 0 before disc_start
+                            worst[net] = max(worst[net], d / top)
+                    want = getattr(s_cpu, net).state_dict()
+                    for k, t in getattr(s_card, net).state_dict().items():
+                        d = float((t.cpu().double() - want[k].double()).abs().max())
+                        if "num_batches" in k:
+                            check(d == 0, f"{what}: {k}")
+                        elif "running" in k:
+                            check(d <= S1_STATS, f"{what}: {k} off by {d:.3e}")
+                            worst["stats"] = max(worst["stats"], d)
+                        else:
+                            check(d <= 2 * S1_SMALL_LR + 1e-7, f"{what}: {net}.{k} off by {d:.3e}")
+                            worst["weight"] = max(worst["weight"], d)
+        if adaptive:
+            kept, d_weight = s_card, float(m_card["d_weight"])
+    n_vals = sum(p.numel() for p in (*kept.codec.parameters(), *kept.disc.parameters()))
+    print(f"  (b) small config (codec ch 64, {n_vals / 1e6:.2f} M parameters with the PatchGAN; "
+          f"mels {S1_SMALL_MEL}, batch {S1_SMALL_BATCH}, lr {S1_SMALL_LR:g}), 3 steps each from "
+          f"the CPU's state, full f32, disc_start 1, constant and adaptive weight (d_weight "
+          f"{d_weight:.4f} at step 3): codes equal; metrics within {worst['metric']:.2e} "
+          f"relative (gate {S1_RTOL} or {S1_ATOL}); gradients within {worst['codec']:.2e} of "
+          f"the codec's largest (gate {S1_GRAD['codec']}), {worst['disc']:.2e} of the "
+          f"PatchGAN's (gate {S1_GRAD['disc']}); "
+          f"weights within {worst['weight']:.2e} (2 lr {2 * S1_SMALL_LR:g}); running "
+          f"statistics within {worst['stats']:.2e} (gate {S1_STATS})")
+    return kept
+
+
+def _grad_seen(nets, seen):
+    """Mark, per parameter, whether its gradient in this step was nonzero anywhere."""
+    for net, module in nets.items():
+        for n, p in module.named_parameters():
+            hit = p.grad is not None and bool((p.grad != 0).any())
+            seen[f"{net}.{n}"] = seen.get(f"{net}.{n}", False) or hit
+    return seen
+
+
+def _check_moved(what, before, nets, seen, logit_bias: str) -> str:
+    """Every parameter tensor of ``nets`` moved from ``before``, but a
+    discriminator's logit-layer bias (``logit_bias``, a name suffix) whose
+    gradient was exactly 0 at every step: with every logit inside the
+    hinge's margins, d loss_D / d b = frac(fake > -1) - frac(real < 1) = 0.
+    Returns what was exempted."""
+    still = [k for k, p in ((f"{net}.{n}", p) for net, m in nets.items()
+                            for n, p in m.named_parameters()) if torch.equal(before[k], p)]
+    bad = [k for k in still if seen[k] or not k.endswith(logit_bias)]
+    check(not bad, f"{what}: parameter tensors did not move: {bad}")
+    if not still:
+        return ""
+    return f" (not {', '.join(still)}: zero gradient, every logit inside the margins)"
+
+
+def _stage1_flagship(dev):
+    """10b (a): the flagship codec's adversarial step, S1_STEPS on one batch.
+    -> (median step s, samples/s, peak GiB)."""
+    from text_to_sound_synthesis_torch.models.discriminator import FlaxBatchNorm2d
+    from text_to_sound_synthesis_torch.tools import bench_train_stage1 as bt
+
+    t0 = time.perf_counter()
+    state, step, mel, lr = bt.vqgan_trainer(dev, SEED + 70)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_ae = sum(p.numel() for p in state.codec.parameters())
+    n_d = sum(p.numel() for p in state.disc.parameters())
+    nets = {"codec": state.codec, "disc": state.disc}
+    start = {f"{k}.{n}": p.detach().clone() for k, m in nets.items()
+             for n, p in m.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    rows, secs, seen = [], [], {}
+    with pytorch_default_precision():
+        for _ in range(S1_STEPS):
+            t1 = time.perf_counter()
+            state, m = step(state, mel, lr)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            rows.append({k: float(v) for k, v in m.items() if k != "indices"})
+            _grad_seen(nets, seen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(v) for r in rows for v in r.values()), f"stage-1 (a): a metric is not "
+          f"finite: {rows}")
+    check(rows[-1]["nll_loss"] < rows[0]["nll_loss"], f"stage-1 (a): nll_loss went from "
+          f"{rows[0]['nll_loss']:.5f} to {rows[-1]['nll_loss']:.5f}")
+    exempt = _check_moved("stage-1 (a)", start, nets, seen, f"main.{len(state.disc.main) - 1}.bias")
+    norms = [m for m in state.disc.modules() if isinstance(m, FlaxBatchNorm2d)]
+    check(len(norms) == 3 and all(int(n.num_batches_tracked) == 2 * S1_STEPS for n in norms),
+          f"stage-1 (a): BatchNorm updates {[int(n.num_batches_tracked) for n in norms]}, "
+          f"expected {2 * S1_STEPS} each (two a step, the D phase's)")
+    check(all(float(n.running_mean.abs().max()) > 0 and not bool((n.running_var == 1).all())
+              for n in norms), "stage-1 (a): the running statistics did not move")
+    med = float(np.median(secs[1:]))
+    print(f"  (a) flagship codec (configs/vqgan_caps.yaml: {n_ae / 1e6:.1f} M parameters, ch "
+          f"128, 256 x 256 codebook) + PatchGAN ({n_d / 1e6:.2f} M, ndf 64, 3 layers, BatchNorm) "
+          f"+ a seeded random LPAPS, batch {bt.VQGAN_BATCH} of {bt.MEL} mels, disc_start 0, lr {lr:g}, "
+          f"built in {build_s:.1f} s; {S1_STEPS} steps: "
+          f"nll {rows[0]['nll_loss']:.4f} -> {rows[-1]['nll_loss']:.4f}, p_loss "
+          f"{rows[0]['p_loss']:.4f} -> {rows[-1]['p_loss']:.4f}, disc_loss "
+          f"{rows[0]['disc_loss']:.4f} -> {rows[-1]['disc_loss']:.4f}, perplexity "
+          f"{rows[-1]['perplexity']:.1f}; every codec and PatchGAN tensor moved{exempt}; each "
+          f"BatchNorm updated {2 * S1_STEPS} times")
+    print(f"  (a) step time: first {secs[0]:.3f} s, median of the rest {med:.4f} s (min "
+          f"{min(secs[1:]):.4f}, max {max(secs[1:]):.4f}) = {bt.VQGAN_BATCH / med:.2f} samples/s; "
+          f"peak memory {peak:.2f} GiB (f32, cuDNN convs TF32)")
+    del state, step, mel, start
+    torch.cuda.empty_cache()
+    return med, bt.VQGAN_BATCH / med, peak
+
+
+def _vocoder_flagship(dev):
+    """10b (c): the MelGAN step at bench_train_stage1's shape, VOC_STEPS on
+    one batch. -> (state, (median step s, samples/s, peak GiB))."""
+    from text_to_sound_synthesis_torch.tools import bench_train_stage1 as bt
+
+    state, step, wav = bt.melgan_trainer(dev, SEED + 80)
+    n_g = sum(p.numel() for p in state.gen.parameters())
+    n_d = sum(p.numel() for p in state.disc.parameters())
+    nets = {"gen": state.gen, "disc": state.disc}
+    start = {f"{k}.{n}": p.detach().clone() for k, m in nets.items()
+             for n, p in m.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    rows, secs, seen = [], [], {}
+    with pytorch_default_precision():
+        for _ in range(VOC_STEPS):
+            t1 = time.perf_counter()
+            state, m = step(state, wav)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            rows.append({k: float(v) for k, v in m.items()})
+            _grad_seen(nets, seen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(v) for r in rows for v in r.values()), f"vocoder (c): a metric is not "
+          f"finite: {rows}")
+    check(rows[-1]["mel_reconstruction"] < rows[0]["mel_reconstruction"],
+          f"vocoder (c): mel_reconstruction went from {rows[0]['mel_reconstruction']:.5f} to "
+          f"{rows[-1]['mel_reconstruction']:.5f}")
+    top = len(state.disc.model["disc_0"].model) - 1
+    exempt = _check_moved("vocoder (c)", start, nets, seen, f"layer_{top}.bias")
+    med = float(np.median(secs[1:]))
+    print(f"  (c) MelGAN (generator {n_g / 1e6:.2f} M, ngf 32; discriminator {n_d / 1e6:.2f} M, 3 "
+          f"scales), batch {bt.MELGAN_BATCH} of {bt.MELGAN_LEN}-sample crops, Adam 1e-4 (0.5, 0.9); "
+          f"{VOC_STEPS} steps: loss_feat {rows[0]['loss_feat']:.4f} -> {rows[-1]['loss_feat']:.4f}"
+          f", loss_D {rows[0]['loss_D']:.4f} -> {rows[-1]['loss_D']:.4f}, mel_reconstruction "
+          f"{rows[0]['mel_reconstruction']:.4f} -> {rows[-1]['mel_reconstruction']:.4f}; every "
+          f"G and D tensor moved{exempt}")
+    print(f"  (c) step time: first {secs[0]:.3f} s, median of the rest {med:.4f} s (min "
+          f"{min(secs[1:]):.4f}, max {max(secs[1:]):.4f}) = {bt.MELGAN_BATCH / med:.2f} samples/s "
+          f"({bt.MELGAN_BATCH * bt.MELGAN_LEN / 22050 / med:.1f} s of audio a second); peak memory "
+          f"{peak:.2f} GiB (f32, cuDNN convs TF32)")
+    return state, (med, bt.MELGAN_BATCH / med, peak)
+
+
+def _stage1_round_trips(dev, s1_state, voc_state):
+    """10b (d): (b)'s codec through a Lightning .ckpt into a Diffsound
+    (``build_model(load_codec=True)``), (c)'s generator through ``args.yml`` +
+    ``best_netG.pt`` and ``load_vocoder``: bit for bit."""
+    import copy
+    import tempfile
+
+    from text_to_sound_synthesis_torch.engine.checkpoint import save_checkpoint
+    from text_to_sound_synthesis_torch.models import build_model
+    from text_to_sound_synthesis_torch.models.melgan import Vocoder, load_vocoder
+    from text_to_sound_synthesis_torch.tools.train_vqgan import checkpoint_payload
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(os.path.join(tmp, "last.ckpt"), checkpoint_payload(s1_state, 1))
+        cfg = copy.deepcopy(small_train_config()["model"])
+        cfg["params"]["content_codec_config"]["params"] = {
+            "embed_dim": 16, "n_embed": 8, "ddconfig": S1_SMALL_DD, "ckpt_path": ckpt}
+        loaded = build_model(cfg, device=dev, seed=SEED + 90)
+        code = torch.randint(0, 8, (S1_SMALL_BATCH, S1_SMALL_MEL[0] // 2, S1_SMALL_MEL[1] // 2),
+                             device=dev, generator=torch.Generator(dev).manual_seed(SEED + 90))
+        with torch.no_grad():
+            a, b = loaded.codec.decode_code(code), s1_state.codec.eval().decode_code(code)
+        check(torch.equal(a, b), "stage-1 (d): decode_code of the loaded codec differs")
+        voc_dir = os.path.join(tmp, "melgan")
+        os.makedirs(voc_dir)
+        with open(os.path.join(voc_dir, "args.yml"), "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in VOC_ARGS.items()))
+        torch.save(voc_state.gen.state_dict(), os.path.join(voc_dir, "best_netG.pt"))
+        voc = load_vocoder(voc_dir, device=dev)
+        spec = torch.rand((2, 80, 53), generator=torch.Generator(dev).manual_seed(SEED + 91),
+                          device=dev)
+        same = torch.equal(voc(spec), Vocoder(voc_state.gen.eval())(spec))
+        check(same, "vocoder (d): the wav of the loaded generator differs")
+    print(f"  (d) (b)'s codec as a Lightning .ckpt ({os.path.basename(ckpt)}: the codec and "
+          f"loss.discriminator.*, both Adams) into a Diffsound by build_model(load_codec=True): "
+          f"decode_code bit for bit; (c)'s generator as args.yml + best_netG.pt through "
+          f"load_vocoder: the wav bit for bit")
+
+
+def phase_stage1(dev):
+    """Phase 10b (module docstring): every kernel count stays 0. Returns the
+    times of (a), (c) and (e)."""
+    out = {}
+    parts = [("(a)", lambda: out.__setitem__("vqgan", _stage1_flagship(dev))),
+             ("(b)", lambda: out.__setitem__("small", _stage1_card_vs_cpu(dev))),
+             ("(c)", lambda: out.__setitem__("melgan", _vocoder_flagship(dev))),
+             ("(d)", lambda: _stage1_round_trips(dev, out["small"], out["melgan"][0])),
+             ("(e)", lambda: out.__setitem__("bf16", _train_flagship(dev, "bfloat16", "(e)")))]
+    for label, run in parts:
+        reset_counts()
+        run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == expected_counts(), f"stage-1 {label}: kernel launches {counts}")
+    print(f"  every kernel count 0 in (a)-(e): {expected_counts()}")
+    return out["vqgan"], out["melgan"][1], out["bf16"][:3]
 
 
 def _bound(nbytes, **ops):
@@ -2699,6 +3039,9 @@ def main() -> int:
     print("[10 train]")
     step_s, samples_s, train_peak, n_train = phase_train(model, qp, cond_tokens, dev)
 
+    print("[10b Stage-1 and vocoder training, the bf16 Stage-2 step]")
+    s1_times, voc_times, bf16_times = phase_stage1(dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -2728,6 +3071,13 @@ def main() -> int:
     print(f"  Stage-2 train step, flagship f32 ({n_train / 1e6:.1f} M trainable), batch "
           f"{TRAIN_BATCH}: median {step_s:.4f} s = {samples_s:.2f} samples/s; peak memory "
           f"{train_peak:.2f} GiB")
+    print(f"  Stage-2 train step, flagship bf16 compute (f32 parameters), batch {TRAIN_BATCH}: "
+          f"median {bf16_times[0]:.4f} s = {bf16_times[1]:.2f} samples/s, "
+          f"{bf16_times[0] / step_s:.3f} x the f32 step; peak memory {bf16_times[2]:.2f} GiB")
+    print(f"  Stage-1 SpecVQGAN step (vqgan_caps, LPAPS, both optimizers), batch 8: median "
+          f"{s1_times[0]:.4f} s = {s1_times[1]:.2f} samples/s; peak memory {s1_times[2]:.2f} GiB")
+    print(f"  MelGAN step, batch 16 x 8192 samples: median {voc_times[0]:.4f} s = "
+          f"{voc_times[1]:.2f} samples/s; peak memory {voc_times[2]:.2f} GiB")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

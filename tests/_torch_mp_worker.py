@@ -1,9 +1,12 @@
-"""Worker of tests/test_torch_parallel.py: one rank of a 2-process gloo group
-on the CPU, a fresh interpreter running the port alone (no JAX).
+"""Worker of the port's two-process gloo tests (tests/test_torch_parallel.py,
+tests/test_torch_stage1_tools.py): one rank of a 2-process gloo group on the
+CPU, a fresh interpreter running the port alone (no JAX).
 
-    python tests/_torch_mp_worker.py <port> <rank> <world> <out>
+    python tests/_torch_mp_worker.py <port> <rank> <world> <out> [stage1]
 
-Each rank joins ``tcp://localhost:<port>``, then:
+Each rank joins ``tcp://localhost:<port>``. With ``stage1`` it runs two
+adversarial SpecVQGAN steps on its half of each global batch, data parallel
+over the group (``main_stage1``); otherwise:
 1. the tiny model's training loss on its half of one global batch, with the
    draws supplied (the global draws, sliced), backward through the denoiser
    under DDP: the averaged gradients;
@@ -27,7 +30,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from tests._torch_tiny import B, OPT_CFG, T, TRAIN_CFG, batch, tbatch  # noqa: E402
+from tests._torch_tiny import (B, OPT_CFG, S1_B, T, TRAIN_CFG, batch, stage1_batches,  # noqa: E402
+                               stage1_state, tbatch)
 from text_to_sound_synthesis_torch.data.loader import ShardedLoader  # noqa: E402
 from text_to_sound_synthesis_torch.engine.clip_grad import ClipGradNorm  # noqa: E402
 from text_to_sound_synthesis_torch.engine.optimizers import build_optimizer  # noqa: E402
@@ -83,10 +87,37 @@ class IdDataset:
         return {"id": i}
 
 
+#: the Stage-1 steps' loss: the discriminator on from the first step, the adaptive weight on
+S1_LOSS = dict(disc_start=0, min_adapt_weight=0.0, max_adapt_weight=1e4, perceptual_weight=0.0)
+
+
+def main_stage1(rank, world, out):
+    """Two data-parallel Stage-1 steps: the weights, the BatchNorm running
+    statistics and the metrics after each."""
+    from text_to_sound_synthesis_torch.engine.vqgan_solver import (VQGANLossConfig,
+                                                                   make_vqgan_train_step)
+
+    state = stage1_state()
+    step = make_vqgan_train_step(None, VQGANLossConfig(**S1_LOSS), group=dist.group.WORLD)
+    n = S1_B // world
+    report = []
+    for mel in stage1_batches():
+        state, m = step(state, mel[rank * n:(rank + 1) * n], 1e-4)
+        report.append({"codec": {k: v.clone() for k, v in state.codec.state_dict().items()},
+                       "disc": {k: v.clone() for k, v in state.disc.state_dict().items()},
+                       "metrics": {k: v.clone() for k, v in m.items() if k != "indices"}})
+    torch.save(report, f"{out}.{rank}.pt")
+
+
 def main():
     port, rank, world, out = sys.argv[1:5]
     rank, world = int(rank), int(world)
     init_distributed("cpu", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    if sys.argv[5:] == ["stage1"]:
+        main_stage1(rank, world, out)
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     sl = slice(rank * B, (rank + 1) * B)
     gb = {k: v[sl] for k, v in global_batch().items()}
     g_imp, unif, gumbel = (x[sl] for x in global_draws())

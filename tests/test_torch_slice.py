@@ -311,8 +311,8 @@ def test_tokenizer_is_built_at_first_use():
 
 def test_import_does_not_load_jax():
     """The package and every module of the port, the int8 serving engine's,
-    the training engine's, the data pipeline's and the data-parallel layer's
-    included, import without JAX."""
+    the training engine's (Stage 1, the vocoder's and Stage 2), the data
+    pipeline's and the data-parallel layer's included, import without JAX."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
             "text_to_sound_synthesis_torch.models.diffusion.calibrate",
@@ -335,7 +335,23 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.data.transforms",
             "text_to_sound_synthesis_torch.native.npy_loader",
             "text_to_sound_synthesis_torch.parallel.distributed",
-            "text_to_sound_synthesis_torch.tools.train_diffsound"]
+            "text_to_sound_synthesis_torch.tools.train_diffsound",
+            "text_to_sound_synthesis_torch.ops.gan",
+            "text_to_sound_synthesis_torch.models.vqgan.quantize",
+            "text_to_sound_synthesis_torch.models.vqgan.model",
+            "text_to_sound_synthesis_torch.models.vqgan.modules1d",
+            "text_to_sound_synthesis_torch.models.discriminator",
+            "text_to_sound_synthesis_torch.models.lpaps.vggishish",
+            "text_to_sound_synthesis_torch.models.lpaps.lpaps",
+            "text_to_sound_synthesis_torch.models.melgan.discriminator",
+            "text_to_sound_synthesis_torch.engine.vqgan_solver",
+            "text_to_sound_synthesis_torch.engine.vocoder_solver",
+            "text_to_sound_synthesis_torch.tools.train_vqgan",
+            "text_to_sound_synthesis_torch.tools.train_vocoder",
+            "text_to_sound_synthesis_torch.tools.prepare_data",
+            "text_to_sound_synthesis_torch.tools.bench_train_stage1",
+            "text_to_sound_synthesis_torch.utils.dtype",
+            "text_to_sound_synthesis_torch.tools.bench_bf16_request"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu') "
             "if m in sys.modules]; "

@@ -62,7 +62,7 @@ from text_to_sound_synthesis_torch.models.diffusion import process as tproc
 from text_to_sound_synthesis_torch.ops import diffusion as tdd
 
 from tests._torch_tiny import (B, CLIP_CFG, CONTENT_EMB_CFG, CTX, K, L, OPT_CFG, T, TRAIN_CFG,
-                               TRANSFORMER_CFG, VQ_DD, batch, tbatch)
+                               TRANSFORMER_CFG, VOCAB, VQ_DD, batch, tbatch)
 
 torch.set_num_threads(1)
 
@@ -433,3 +433,320 @@ def test_clip_gradient_at_the_bounds_is_jax_clip():
     xt = torch.from_numpy(x).requires_grad_()
     tdd.clip(xt, -70.0, 0.0).sum().backward()
     np.testing.assert_array_equal(xt.grad.numpy(), want)
+
+
+# -- bf16: dtype is the compute dtype -------------------------------------------------
+#
+# ``Diffsound(dtype=bfloat16)`` keeps f32 parameters and runs its forward on
+# their bf16 copies, as flax's ``dtype`` does. Tolerances, bf16 on both sides:
+# the codec's argmin over bf16 distances tips on a near-tie now and then, so
+# the tokens agree on most, not all, positions; the loss and its gradients are
+# compared on JAX's tokens (the port's ``encode_content`` handed them): the
+# loss within rtol 1e-3 and each sample's kl within 5e-3 (bf16 products
+# summed in another order), each gradient within 5e-2 of its tensor's largest
+# magnitude or 1e-2 of the largest gradient of all (the attention keys'
+# biases: zero in exact arithmetic, rounding on both sides). After each of
+# three AdamW steps (lr 1e-3) every weight and EMA value lies within 2 lr a
+# step of JAX's (and an f32 rounding), and at most 2 values or 2 % of each
+# tensor's values, whichever is more, more than lr / 4 off: the first step
+# moves a weight by about lr sign(g), so only a gradient whose sign the bf16
+# rounding flips moves it by 2 lr; later steps differ by the bf16 noise of the
+# moments, about 1e-4. The attention keys' biases (zero gradient in exact
+# arithmetic: each side steps them by its own rounding) are held to the 2 lr
+# alone, as in the f32 steps.
+
+BF16_CFG = {**TRAIN_CFG, "params": {**TRAIN_CFG["params"], "dtype": "bfloat16"}}
+
+
+@lru_cache(maxsize=None)
+def jax_bf16_model():
+    """The JAX Diffsound of ``jax_model`` with bf16 as every module's dtype."""
+    _, params = jax_model()
+    bf = jnp.bfloat16
+    j = object.__new__(JDiffsound)
+    j.codec = JVQModel(ddconfig=VQ_DD, n_embed=K - 1, embed_dim=16, dtype=bf)
+    j.cond = JClip(**CLIP_CFG, dtype=bf)
+    j.diffusion = jproc.DiscreteDiffusion(transformer_config=TRANSFORMER_CFG,
+                                          content_emb_config=CONTENT_EMB_CFG, diffusion_step=T,
+                                          auxiliary_loss_weight=5e-4, dtype=bf)
+    j.permuter, j.token_hw = jperm.ColumnMajor(2, 8), (2, 8)
+    j.content_info, j.condition_info = {"key": "image"}, {"key": "text"}
+    return j, params
+
+
+def port_bf16_model(tokens=None):
+    """A port bf16 model holding the JAX parameters; ``tokens`` (B, L) replace
+    what its codec would give."""
+    _, params = jax_model()
+    model = from_jax.load_diffsound(build_model(BF16_CFG, device="cpu"), params)
+    if tokens is not None:
+        model.encode_content = lambda mel: tokens
+    return model
+
+
+def _jax_tokens(b, jit=False):
+    """JAX's bf16 codec tokens of ``b``, as its eager ops or as its jitted
+    step computes them (XLA fuses bf16 roundings away under ``jit``, which
+    tips a near-tie of the argmin now and then)."""
+    j, params = jax_bf16_model()
+    enc = lambda p, m: j.encode_content(p, m)
+    tok = (jax.jit(enc) if jit else enc)(params, jnp.asarray(b["image"]))
+    return torch.from_numpy(np.array(tok)).long()
+
+
+def test_bf16_model_keeps_f32_parameters_moments_and_ema():
+    """Parameters, gradients, AdamW's moments and the EMA are f32 after two
+    steps; the denoiser's products ran in bf16."""
+    model = port_bf16_model()
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    seen = []
+    hook = model.diffusion.transformer.blocks[0].mlp[0].register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0].dtype, mod.weight.dtype, out.dtype)))
+    den = model.diffusion.transformer
+    state = DiffusionTrainState.create(den, topt.build_optimizer(OPT_CFG, den, LR), T)
+    step = make_train_step(model, tclip.ClipGradNorm(0, 5000, 0.5), 0.9, 1)
+    for i in range(2):
+        state, m = step(state, tbatch(batch(2)), LR, draws=step_draws(jax.random.PRNGKey(20 + i)))
+        assert np.isfinite(m.loss.item())
+    hook.remove()
+    assert seen and all(s == (torch.bfloat16,) * 3 for s in seen)
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for _, p in state.named_params())
+    moments = [v for s in state.optimizer.state.values() for v in s.values()
+               if torch.is_tensor(v) and v.dim() > 0]
+    assert len(moments) == 2 * len(state.named_params())
+    assert all(v.dtype == torch.float32 for v in moments)
+    assert all(e.dtype == torch.float32 for e in state.ema_params)
+    assert all(p.dtype == torch.float32 for p in model.parameters())   # restored after each call
+
+
+def test_bf16_codec_and_text_tower_match_jax():
+    """The frozen parts in bf16: CLIP features within 2e-2 of their largest
+    magnitude; the codec's tokens equal on at least 90 % of 256 positions
+    (bf16 near-ties of the argmin); its decoded mels within 5e-2."""
+    j, params = jax_bf16_model()
+    model = port_bf16_model()
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, VOCAB, (B, CTX)).astype(np.int32)
+    want = np.asarray(j.embed_condition(params, jnp.asarray(ids)), np.float32)
+    got = model.embed_condition(torch.from_numpy(ids).long())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2e-2 * float(np.abs(want).max()))
+    mel = rng.uniform(-1, 1, (16, 4, 16, 1)).astype(np.float32)
+    jt = np.asarray(j.encode_content(params, jnp.asarray(mel)))
+    tt_ = model.encode_content(torch.from_numpy(mel)).numpy()
+    assert (jt == tt_).mean() >= 0.9, (jt == tt_).mean()
+    want_mel = np.asarray(j.decode_tokens(params, jnp.asarray(jt)), np.float32)
+    got_mel = model.decode_tokens(torch.from_numpy(jt).long()).float().numpy()
+    np.testing.assert_allclose(got_mel, want_mel, rtol=0, atol=5e-2 * float(np.abs(want_mel).max()))
+
+
+def test_bf16_loss_and_gradients_match_jax():
+    j, params = jax_bf16_model()
+    b = batch(1)
+    key = jax.random.PRNGKey(4)
+    frozen = {"codec": params["codec"], "cond": params["cond"]}
+
+    def loss_fn(dp):
+        return j.loss(dict(frozen, diffusion=dp), key, jnp.asarray(b["image"]),
+                      jnp.asarray(b["condition_token"]), jnp.asarray(T_FIXED),
+                      jnp.asarray(PT_FIXED))
+
+    want = loss_fn(params["diffusion"])
+    want_g = grads_by_name(_np(jax.grad(lambda dp: loss_fn(dp).loss)(params["diffusion"])))
+    model = port_bf16_model(_jax_tokens(b))
+    tb = tbatch(b)
+    out = model.loss(tb["image"], tb["condition_token"], torch.from_numpy(T_FIXED).long(),
+                     torch.from_numpy(PT_FIXED),
+                     gumbel=torch.from_numpy(np.array(jax.random.gumbel(key, (B, L, K)))))
+    np.testing.assert_allclose(out.loss.item(), float(want.loss), rtol=1e-3)
+    np.testing.assert_allclose(out.kl_loss.detach().numpy(), np.asarray(want.kl_loss), rtol=5e-3)
+    out.loss.backward()
+    got = {n: p.grad for n, p in model.diffusion.transformer.named_parameters()}
+    assert sorted(got) == sorted(want_g)
+    assert all(g.dtype == torch.float32 for g in got.values())
+    assert all(p.grad is None for p in model.codec.parameters())
+    top = max(float(np.abs(w).max()) for w in want_g.values())
+    for name, w in want_g.items():
+        atol = max(5e-2 * float(np.abs(w).max()), 1e-2 * top)
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=0, atol=atol, err_msg=name)
+
+
+def _close_bf16_weights(got, want, what, steps):
+    d = np.abs(got - want)
+    assert float(d.max()) <= 2 * LR * steps + 1e-6, (what, float(d.max()))   # + f32 rounding
+    if not what.endswith("key.bias"):
+        n = int((d > LR / 4).sum())
+        assert n <= max(2, 2e-2 * d.size), (what, n, d.size)
+
+
+def test_bf16_train_steps_match_jax():
+    """Three bf16 steps against JAX's jitted bf16 step (clip on, EMA every
+    step), on the tokens of JAX's jitted codec: the loss and grad norm within rtol 1e-2, the
+    weights and the EMA as the block comment says, all f32 on both sides."""
+    j, params = jax_bf16_model()
+    b = batch(2)
+    tx = jopt.build_optimizer(OPT_CFG, LR)
+    jstep = j_make_step(j, tx, jclip.ClipGradNorm(0, 5000, 0.5), ema_decay=0.9,
+                        ema_interval=1, donate=False)
+    jstate = JState.create(jax.tree_util.tree_map(jnp.asarray, params["diffusion"]), tx,
+                           num_timesteps=T)
+    frozen = jax.tree_util.tree_map(jnp.asarray, {"codec": params["codec"],
+                                                  "cond": params["cond"]})
+    jb = jax.tree_util.tree_map(jnp.asarray, b)
+    model = port_bf16_model(_jax_tokens(b, jit=True))
+    den = model.diffusion.transformer
+    state = DiffusionTrainState.create(den, topt.build_optimizer(OPT_CFG, den, LR), T)
+    step = make_train_step(model, tclip.ClipGradNorm(0, 5000, 0.5), 0.9, 1)
+    for i in range(3):
+        key = jax.random.PRNGKey(30 + i)
+        jstate, jm = jstep(jstate, frozen, jb, key, LR)
+        state, m = step(state, tbatch(b), LR, draws=step_draws(key))
+        np.testing.assert_array_equal(m.t.numpy(), np.asarray(jm.t))
+        np.testing.assert_allclose(m.loss.item(), float(jm.loss), rtol=1e-2)
+        np.testing.assert_allclose(m.grad_norm.item(), float(jm.grad_norm), rtol=1e-2)
+        want_p = grads_by_name(_np(jstate.params))
+        want_e = grads_by_name(_np(jstate.ema_params))
+        assert all(np.asarray(w).dtype == np.float32 for w in want_p.values())
+        for (n, p), e in zip(state.named_params(), state.ema_params):
+            _close_bf16_weights(p.detach().numpy(), want_p[n], f"step {i + 1} param {n}", i + 1)
+            _close_bf16_weights(e.numpy(), want_e[n], f"step {i + 1} ema {n}", i + 1)
+
+
+def test_bf16_serving_reads_the_rounded_weights_bit_for_bit():
+    """A bf16 request computes what a model stored in bf16 computes: the
+    fused and one-hot samplers' tokens and mels, ``reconstruct`` and the int8
+    engine ``quantize_for_serving`` builds are bit for bit those of the same
+    weights held as bf16 parameters (``.to(torch.bfloat16)``), and a seeded
+    model's weights are the bf16 draws: the digests below were recorded from
+    the port when its bf16 model stored bf16 parameters."""
+    import hashlib
+
+    model = build_model(BF16_CFG, device="cpu", seed=3)
+    stored = build_model(BF16_CFG, device="cpu", seed=0)
+    stored.load_state_dict(model.state_dict())
+    stored.to(torch.bfloat16)     # its parameters bf16: compute_weights has nothing to cast
+    assert all(torch.equal(p.bfloat16().float(), p) for p in model.parameters())
+
+    def digest(t):
+        return hashlib.sha256(t.detach().float().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, VOCAB, (3, CTX))).long()
+    mel_in = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1, (3, 4, 16, 1))
+                              .astype(np.float32))
+    got, ref = {}, {}
+    for out, m in ((got, model), (ref, stored)):
+        out["fused"] = m.generate(torch.Generator().manual_seed(5), ids, return_tokens=True)
+        out["onehot"] = m.generate(torch.Generator().manual_seed(6), ids, sample_type="top3p",
+                                   return_tokens=True)
+        out["qp"] = torch.cat([t.float().reshape(-1)
+                               for t in m.quantize_for_serving().state_dict().values()])
+        out["rec"] = m.reconstruct(mel_in)
+    for k in ("fused", "onehot"):
+        assert torch.equal(got[k][0], ref[k][0]) and torch.equal(got[k][1], ref[k][1]), k
+    assert torch.equal(got["qp"], ref["qp"]) and torch.equal(got["rec"], ref["rec"])
+    assert {k: [digest(t) for t in (v if isinstance(v, tuple) else (v,))]
+            for k, v in got.items()} == {
+        "fused": ["6cc22d05d6ae32df", "27435c8922c2fa42"],
+        "onehot": ["c55e2804f6351b8c", "433eac1dce08de48"],
+        "qp": ["eef4101184fe41cc"], "rec": ["b9b5e5255aa22319"]}
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def _bf16_pair(seed=3):
+    """A bf16 model (f32 weights) and a copy whose weights are stored in bf16."""
+    model = build_model(BF16_CFG, device="cpu", seed=seed)
+    stored = build_model(BF16_CFG, device="cpu", seed=0)
+    stored.load_state_dict(model.state_dict())
+    return model, stored.to(torch.bfloat16)
+
+
+def test_bf16_parts_refuse_their_f32_storage_and_shard_as_stored():
+    """A bf16 model's parts called on their own outside ``compute_weights``
+    (the sharded sampler on ``model.diffusion``, the codec, the text tower,
+    the int8 quantizer) raise rather than compute in f32; inside it, a
+    sharded request over two CPU shards is bit for bit the same request on
+    the model stored in bf16."""
+    from text_to_sound_synthesis_torch.models.diffusion.int8_runtime import quantize_denoiser
+
+    model, stored = _bf16_pair()
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, VOCAB, (4, CTX))).long()
+    cond = model.embed_condition(ids)
+    grid = torch.zeros((1, 2, 8), dtype=torch.long)
+    for call in (lambda: tproc.sample_tokens_fused_sharded(model.diffusion, cond, seed=11,
+                                                           devices=["cpu"] * 2),
+                 lambda: model.codec.decode_code(grid), lambda: model.cond(ids),
+                 lambda: quantize_denoiser(model.diffusion, n_head=2, seq_len=L, num_timesteps=T)):
+        with pytest.raises(TypeError, match="compute_weights"):
+            call()
+    with torch.no_grad(), model.compute_weights(model.diffusion):
+        got = tproc.sample_tokens_fused_sharded(model.diffusion, cond, seed=11,
+                                                devices=["cpu"] * 2, truncation_r=0.85)
+    want = tproc.sample_tokens_fused_sharded(stored.diffusion, stored.embed_condition(ids),
+                                             seed=11, devices=["cpu"] * 2, truncation_r=0.85)
+    assert torch.equal(got, want)
+    assert torch.equal(model.decode_tokens(got), stored.decode_tokens(want))
+
+
+def test_bf16_compute_copies_are_kept_until_a_weight_changes():
+    """A second request casts nothing: every floating tensor's bf16 copy is
+    the one the first request made. A train step reads the frozen codec's
+    and text tower's kept copies and casts the denoiser afresh; the
+    optimizer's writes then make the next request cast the denoiser anew,
+    and that request is bit for bit the one of the stepped weights stored
+    in bf16."""
+    model, _ = _bf16_pair()
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, VOCAB, (3, CTX))).long()
+
+    def request():
+        return model.generate(torch.Generator().manual_seed(5), ids, return_tokens=True)
+
+    first = request()
+    kept = {k: v[2] for k, v in model._compute_copies.items()}
+    floating = {id(t) for m in model.modules() for t in (*m._parameters.values(),
+                                                          *m._buffers.values())
+                if t is not None and t.is_floating_point()}
+    assert set(kept) == floating
+    second = request()
+    assert all(model._compute_copies[k][2] is v for k, v in kept.items())
+    assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+
+    den = model.diffusion.transformer
+    state = DiffusionTrainState.create(den, topt.build_optimizer(OPT_CFG, den, LR), T)
+    make_train_step(model)(state, tbatch(batch(2)), LR,
+                           draws=step_draws(jax.random.PRNGKey(20)))
+    frozen = {id(t) for part in (model.codec, model.cond) for t in part.parameters()}
+    assert all(model._compute_copies[k][2] is kept[k] for k in frozen)
+    after = request()
+    moved = {id(p) for p in den.parameters()}
+    assert all(model._compute_copies[k][2] is not kept[k] for k in moved)
+    stored = build_model(BF16_CFG, device="cpu", seed=0)
+    stored.load_state_dict(model.state_dict())
+    stored.to(torch.bfloat16)
+    want = stored.generate(torch.Generator().manual_seed(5), ids, return_tokens=True)
+    assert torch.equal(after[1], want[1]) and torch.equal(after[0], want[0])
+
+
+def test_bf16_model_set_to_f32_computes_in_f32():
+    """Setting a bf16 model's ``dtype`` to f32 (an f32 reference copy of it)
+    unmarks its parts and drops its kept copies: the copy runs on its f32
+    weights, bit for bit a model built in f32 with the same weights."""
+    import copy
+
+    model, _ = _bf16_pair()
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, VOCAB, (3, CTX))).long()
+    model.embed_condition(ids)
+    assert model._compute_copies
+    ref = copy.deepcopy(model)
+    ref.dtype = torch.float32
+    assert not ref._compute_copies
+    f32_cfg = {**BF16_CFG, "params": {**BF16_CFG["params"], "dtype": "float32"}}
+    want = build_model(f32_cfg, device="cpu", seed=0)
+    want.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got_emb, want_emb = ref.embed_condition(ids), want.embed_condition(ids)
+        assert got_emb.dtype == torch.float32 and torch.equal(got_emb, want_emb)
+        assert torch.equal(ref.codec.decode_code(torch.zeros((1, 2, 8), dtype=torch.long)),
+                           want.codec.decode_code(torch.zeros((1, 2, 8), dtype=torch.long)))

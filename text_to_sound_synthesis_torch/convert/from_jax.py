@@ -14,6 +14,8 @@ Layout rules (the inverse of ``convert/torch_to_jax.py``):
 * Conv1d:           flax WIO (k, I, O)    -> torch (O, I, k)
 * ConvTranspose1d:  JAX (k, Cout, Cin)    -> torch (Cin, Cout, k)
 * LayerNorm / GroupNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
+* BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``, its ``batch_stats``
+  ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from ..ops.quant import QuantizedWeight
 
 __all__ = [
     "clip_text_state_dict", "diffusion_state_dict", "vqgan_state_dict",
-    "melgan_generator_state_dict",
-    "load_clip_text", "load_diffusion", "load_vqgan", "load_melgan_generator",
+    "vqgan1d_state_dict", "melgan_generator_state_dict", "discriminator_state_dict",
+    "melgan_discriminator_state_dict", "vggishish_state_dict", "lpaps_state_dict",
+    "load_clip_text", "load_diffusion", "load_vqgan", "load_vqgan1d", "load_melgan_generator",
+    "load_discriminator", "load_melgan_discriminator", "load_vggishish", "load_lpaps",
     "load_diffsound", "load_int8_engine",
 ]
 
@@ -185,6 +189,147 @@ def vqgan_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 def load_vqgan(module: nn.Module, params: Mapping) -> nn.Module:
     return _load(module, vqgan_state_dict(params))
+
+
+def vqgan1d_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``VQModel1d`` tree -> the port's names (the 2-D codec's, 1-D kernels)."""
+    sd = {}
+    for path, w in _flatten(_params(params)).items():
+        if path[0] == "quantize":
+            sd["quantize.embedding.weight"] = w
+            continue
+        name, v = _leaf(path[-1], w, _conv1d)
+        sd[f"{_vqgan_name(path)}.{name}"] = v
+    return sd
+
+
+def load_vqgan1d(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, vqgan1d_state_dict(params))
+
+
+# -- PatchGAN discriminators -------------------------------------------------------
+
+def discriminator_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """``NLayerDiscriminator`` (2-D) or a 1-D variant's variables
+    (``params`` and, with BatchNorm, ``batch_stats``) -> the reference's
+    ``main.N`` names: conv_0 at 0, conv_i at 3 i - 1, norm_i at 3 i, conv_out
+    after the last LeakyReLU. ``num_batches_tracked``, which flax does not
+    keep, is 0; ActNorm's (C,) loc / scale become (1, C, 1, 1) and its
+    ``initialized`` flag 1."""
+    p = _flatten(variables["params"])
+    stats = _flatten(variables.get("batch_stats", {}))
+    n_mid = len({k[0] for k in p if k[0].startswith("conv_") and k[0] not in ("conv_0",
+                                                                             "conv_out")})
+    sd = {}
+    for (mod, leaf), w in p.items():
+        if mod.startswith("conv_"):
+            ends = {"conv_0": 0, "conv_out": 3 * n_mid + 2}
+            idx = ends[mod] if mod in ends else 3 * int(mod[5:]) - 1
+            name, v = _leaf(leaf, w, _conv2d if w.ndim == 4 else _conv1d)
+            sd[f"main.{idx}.{name}"] = v
+        else:
+            base = f"main.{3 * int(mod.split('_')[1])}"
+            if leaf in ("loc", "scale") and (mod, "bias") not in p:     # ActNorm
+                sd[f"{base}.{leaf}"] = w.reshape(1, -1, 1, 1)
+                sd[f"{base}.initialized"] = np.array(1, np.uint8)
+            else:
+                sd[f"{base}.{'weight' if leaf == 'scale' else 'bias'}"] = w
+    for (mod, leaf), w in stats.items():
+        base = f"main.{3 * int(mod.split('_')[1])}"
+        sd[f"{base}.running_{leaf}"] = w
+        sd[f"{base}.num_batches_tracked"] = np.array(0, np.int64)
+    return sd
+
+
+def load_discriminator(module: nn.Module, variables: Mapping) -> nn.Module:
+    return _load(module, discriminator_state_dict(variables))
+
+
+def melgan_discriminator_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``MelGANDiscriminator`` tree -> the reference's
+    ``model.disc_i.model.layer_k`` names (``layer_0.1``, ``layer_k.0``, a bare
+    last layer)."""
+    flat = _flatten(_params(params))
+    top = {}
+    for disc, layer, _ in flat:
+        top[disc] = max(top.get(disc, 0), int(layer[len("layer_"):]))
+    sd = {}
+    for (disc, layer, leaf), w in flat.items():
+        k = int(layer[len("layer_"):])
+        sub = "" if k == top[disc] else (".1" if k == 0 else ".0")
+        name, v = _leaf(leaf, w, _conv1d)
+        sd[f"model.{disc}.model.{layer}{sub}.{name}"] = v
+    return sd
+
+
+def load_melgan_discriminator(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, melgan_discriminator_state_dict(params))
+
+
+# -- VGGishish and LPAPS ------------------------------------------------------------
+
+def _vgg_feature_index(conv_layers) -> Dict[int, int]:
+    """conv i -> its index in the reference's ``features`` Sequential."""
+    out, conv_i, idx = {}, 0, 0
+    for v in conv_layers:
+        if v == "MP":
+            idx += 1
+        else:
+            out[conv_i] = idx
+            conv_i += 1
+            idx += 2
+    return out
+
+
+def vggishish_state_dict(params: Mapping, conv_layers=None) -> Dict[str, np.ndarray]:
+    """``VGGishish`` tree -> ``features.N`` / ``classifier.{0,2,4}``; fc1's
+    rows go from flax's (5, 10, C) flatten to torch's (C, 5, 10)."""
+    from ..models.lpaps.vggishish import VGG16_LAYERS
+
+    fi = _vgg_feature_index(conv_layers or VGG16_LAYERS)
+    sd = {}
+    for (mod, leaf), w in _flatten(_params(params)).items():
+        if mod.startswith("conv_"):
+            name, v = _leaf(leaf, w, _conv2d)
+            sd[f"features.{fi[int(mod[5:])]}.{name}"] = v
+        else:
+            ci = {"fc1": 0, "fc2": 2, "fc3": 4}[mod]
+            if leaf == "kernel" and mod == "fc1":
+                w = w.reshape(5, 10, -1, w.shape[-1]).transpose(3, 2, 0, 1).reshape(w.shape[-1], -1)
+            elif leaf == "kernel":
+                w = _dense(w)
+            sd[f"classifier.{ci}.{'weight' if leaf == 'kernel' else 'bias'}"] = w
+    return sd
+
+
+def load_vggishish(module: nn.Module, params: Mapping, conv_layers=None) -> nn.Module:
+    return _load(module, vggishish_state_dict(params, conv_layers))
+
+
+def lpaps_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``LPAPS`` tree -> ``scaling_layer.{shift,scale}``, ``net.sliceS.N`` (the
+    slice holding feature N) and ``lin{i}.model.1.weight`` (1, C, 1, 1)."""
+    from ..models.lpaps.vggishish import VGG16_LAYERS, tap_indices
+
+    fi = _vgg_feature_index(VGG16_LAYERS)
+    cuts = [i + 1 for i in tap_indices(VGG16_LAYERS)]
+    sd = {}
+    for path, w in _flatten(_params(params)).items():
+        head = path[0]
+        if head in ("shift", "scale"):
+            sd[f"scaling_layer.{head}"] = w
+        elif head.startswith("lin"):
+            sd[f"{head}.model.1.weight"] = w.reshape(1, -1, 1, 1)
+        else:                                   # net/conv_i/{kernel,bias}
+            idx = fi[int(path[1][5:])]
+            s = next(k for k, c in enumerate(cuts) if idx < c) + 1
+            name, v = _leaf(path[-1], w, _conv2d)
+            sd[f"net.slice{s}.{idx}.{name}"] = v
+    return sd
+
+
+def load_lpaps(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, lpaps_state_dict(params))
 
 
 # -- MelGAN generator --------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ...utils.config import register
+from ...utils.dtype import check_compute_dtype
 
 __all__ = ["ClipTextEncoder", "CLIPTextEmbedding", "quick_gelu"]
 
@@ -150,6 +151,7 @@ class CLIPTextEmbedding(ClipTextEncoder):
         self.embed_dim = embed_dim
 
     def forward(self, tokens: torch.Tensor):
+        check_compute_dtype(self, self.token_embedding.weight)
         tokens = tokens.clamp(min=0)  # negative pad ids -> 0
         feats = self.encode(tokens)
         if self.pick_last_embedding:

@@ -18,14 +18,29 @@ Unlike the JAX package's plain object over three parameter trees, this is one
 ``transformer`` (DiscreteDiffusion, holding ``condition_emb`` = the CLIP tower
 and ``transformer`` = the denoiser). The JAX package's names ``codec``,
 ``cond`` and ``diffusion`` are properties onto those children.
+
+``dtype`` is the compute dtype, as flax's ``dtype`` is in the JAX package:
+the parameters, their gradients, the optimizer's moments and the EMA stay
+f32, and each entry point runs its forward on ``dtype`` copies of the
+weights it reads (``compute_weights``). The copies are kept: a request
+casts only what changed since the last one, and the training loss casts the
+denoiser, the one part that takes a gradient, afresh each step, a cast that
+autograd carries back to the f32 parameters. With ``bfloat16`` a request
+computes what a model stored in bf16 computed before: the same rounded
+weights, the same ops. The parts refuse to run on their f32 storage outside
+``compute_weights`` (``utils/dtype.py``). A process that only serves may
+store the weights in the compute dtype once, ``model.to(model.dtype)``:
+then nothing is cast or kept.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import os
 from functools import partial
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -42,6 +57,18 @@ from .diffusion.process import (DiscreteDiffusion, OneHotDraws, sample_tokens,
 from .vqgan.model import VQModel
 
 __all__ = ["Diffsound", "build_model", "crossfade", "parse_sample_type"]
+
+
+def _computes(*parts: str):
+    """Run the method inside ``compute_weights`` over the named children
+    (all of the model when none is named)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(self, *args, **kwargs):
+            with self.compute_weights(*(getattr(self, p) for p in parts)):
+                return fn(self, *args, **kwargs)
+        return inner
+    return wrap
 
 
 def parse_sample_type(sample_type: str):
@@ -89,7 +116,6 @@ class Diffsound(nn.Module):
             dtype = getattr(torch, dtype)
         if not isinstance(dtype, torch.dtype):
             raise TypeError(f"dtype must name a torch dtype, got {dtype!r}")
-        self.dtype = dtype
         self.content_info = dict(content_info)
         self.condition_info = dict(condition_info)
         # trained stage-1 weights for the frozen codec (dalle_spec.py:45-49),
@@ -102,7 +128,24 @@ class Diffsound(nn.Module):
                          if first_stage_permuter_config else permuter_ops.Identity())
         H, W = self.transformer._emb_params().get("spatial_size", (5, 53))
         self.token_hw = (int(H), int(W))
-        self.to(dtype)
+        self.dtype = dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype."""
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, dtype: torch.dtype) -> None:
+        """Set the compute dtype: mark the parts with it, so that they refuse
+        to run on weights held in another (``utils/dtype.py``; unmarked in
+        f32), and drop the copies kept for the old one."""
+        self._dtype = dtype
+        self._compute_copies: dict = {}
+        for part in (self.content_codec, self.transformer, self.transformer.transformer,
+                     self.transformer.condition_emb):
+            if part is not None:
+                part.compute_dtype = None if dtype == torch.float32 else dtype
 
     # the JAX package's names for the three parts
     @property
@@ -122,9 +165,53 @@ class Diffsound(nn.Module):
         return self.condition_codec
 
     def init_params(self, generator: torch.Generator) -> "Diffsound":
-        """Seeded random init of every parameter, in place, on its device."""
-        init_random_(self, generator)
+        """Seeded random init of every parameter, in place, on its device. The
+        draws are made in the compute dtype, so a bf16 model holds (in f32)
+        the values a model stored in bf16 was given."""
+        init_random_(self, generator, draw_dtype=self.dtype)
         return self
+
+    @contextlib.contextmanager
+    def compute_weights(self, *parts: Optional[nn.Module]) -> Iterator["Diffsound"]:
+        """Within the block, every floating parameter and buffer of ``parts``
+        (the whole model when none is given) reads as its copy in the compute
+        dtype: the f32 weights rounded to ``dtype``. A tensor that takes a
+        gradient, under autograd, is cast afresh and the cast recorded, so
+        the gradient reaches the f32 parameter. Any other tensor reads a
+        copy kept from an earlier block, made anew only when the tensor
+        changed since (its version counter: an optimizer step, an in-place
+        write or a load; or its storage: ``.to``), so a request casts
+        nothing twice. A write through ``.data`` is not seen: set ``dtype``
+        again after one, which drops the copies. Tensors already in ``dtype`` are left
+        alone, so the blocks nest. A no-op in f32."""
+        swapped = []
+        if self.dtype != torch.float32:
+            grad, memo = torch.is_grad_enabled(), {}
+            for part in (parts or (self,)):
+                for m in (part.modules() if part is not None else ()):
+                    for store in (m._parameters, m._buffers):
+                        for k, t in store.items():
+                            if t is None or not t.is_floating_point() or t.dtype == self.dtype:
+                                continue
+                            if id(t) not in memo:
+                                memo[id(t)] = (t.to(self.dtype) if grad and t.requires_grad
+                                               else self._kept_copy(t))
+                            swapped.append((store, k, t))
+                            store[k] = memo[id(t)]
+        try:
+            yield self
+        finally:
+            for store, k, t in reversed(swapped):
+                store[k] = t
+
+    def _kept_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` in the compute dtype, cast again only when ``t`` changed."""
+        stamp = (t._version, t.data_ptr(), t.device)
+        kept = self._compute_copies.get(id(t))
+        if kept is None or kept[0] is not t or kept[1] != stamp:
+            kept = (t, stamp, t.detach().to(self.dtype))
+            self._compute_copies[id(t)] = kept
+        return kept[2]
 
     def _load_codec_params(self) -> None:
         """Replace the codec's weights with the trained stage-1 weights at
@@ -149,17 +236,20 @@ class Diffsound(nn.Module):
         return self.condition_codec.get_tokens(texts)
 
     @torch.no_grad()
+    @_computes("cond")
     def embed_condition(self, cond_tokens: torch.Tensor) -> torch.Tensor:
         """(B, 77) BPE ids -> frozen CLIP features (B, 77, 512)."""
         return self.cond(cond_tokens)
 
     @torch.no_grad()
+    @_computes("content_codec")
     def encode_content(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, H, W, 1) in [-1, 1] -> (B, L) permuted token ids."""
         grid = self.content_codec.encode_indices(mel.to(self.dtype))
         return self.permuter(grid.reshape(grid.shape[0], -1))
 
     @torch.no_grad()
+    @_computes("content_codec")
     def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, L) permuted token ids -> mel (B, H, W, 1) in [-1, 1]."""
         H, W = self.token_hw
@@ -180,8 +270,9 @@ class Diffsound(nn.Module):
         ``DiffusionLossOutput``."""
         tokens = self.encode_content(mel)
         cond_emb = self.embed_condition(cond_tokens)
-        return self.diffusion.train_loss(tokens, cond_emb, t, pt, generator=generator,
-                                         gumbel=gumbel, is_train=is_train, denoiser=denoiser)
+        with self.compute_weights(self.diffusion.transformer):
+            return self.diffusion.train_loss(tokens, cond_emb, t, pt, generator=generator,
+                                             gumbel=gumbel, is_train=is_train, denoiser=denoiser)
 
     @torch.no_grad()
     def reconstruct(self, mel: torch.Tensor) -> torch.Tensor:
@@ -190,6 +281,7 @@ class Diffsound(nn.Module):
         return self.decode_tokens(self.encode_content(mel))
 
     @torch.no_grad()
+    @_computes()
     def generate(
         self,
         generator: torch.Generator,
@@ -268,6 +360,8 @@ class Diffsound(nn.Module):
 
     # -- int8 serving mode ----------------------------------------------------
 
+    @torch.no_grad()
+    @_computes("transformer")
     def quantize_for_serving(self, *, weight_bits: int = 8):
         """The denoiser -> int8 serving engine (``weight_bits=4``: W4A8,
         nibble-packed weights), on the model's device. The codec and the

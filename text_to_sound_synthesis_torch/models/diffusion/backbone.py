@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ...utils.config import register
+from ...utils.dtype import check_compute_dtype
 from .embeddings import ContentEmbedding
 
 __all__ = ["Text2SpecTransformer", "SelfCrossBlock", "AdaLayerNorm", "MultiHeadAttention",
@@ -222,6 +223,7 @@ class Text2SpecTransformer(nn.Module):
         Returns logits (B, L, num_classes - 1), classes last. ``mods`` /
         ``cond_kvs``: optional per-block precomputed AdaLN modulations and
         cross-attention projections (see ada_tables / cond_kvs)."""
+        check_compute_dtype(self, self.to_logits[1].weight)
         x = self.content_emb(tokens)
         cond = cond_emb.to(x.dtype)
         for i, blk in enumerate(self.blocks):

@@ -66,6 +66,7 @@ from ...ops import int8_block as ib
 from ...ops import quant
 from ...ops.quant import QuantizedWeight, quantize_weight, quantize_weight_w4, unpack_weight_w4
 from ...parallel.distributed import replica, run_sharded
+from ...utils.dtype import check_compute_dtype
 
 __all__ = ["Int8Dense", "Int8Layer", "Int8Denoiser", "quantize_denoiser", "unpack_denoiser",
            "precompute_cond_kvs", "int8_backbone_logits", "sample_tokens_int8",
@@ -157,6 +158,7 @@ def quantize_denoiser(model: nn.Module, *, n_head: int, seq_len: int, num_timest
     if weight_bits not in (8, 4):
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     tr = model.transformer if hasattr(model, "diffusion_step") else model
+    check_compute_dtype(tr, tr.to_logits[1].weight)
     quant = quantize_weight if weight_bits == 8 else quantize_weight_w4
 
     def qw(lin: nn.Linear) -> QuantizedWeight:

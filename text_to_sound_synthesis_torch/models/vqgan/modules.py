@@ -41,21 +41,24 @@ def _conv3(cin: int, cout: int, stride: int = 1, padding: int = 1) -> nn.Conv2d:
 
 
 class ResnetBlock(nn.Module):
-    """norm-swish-conv x2 with a 1x1 projection shortcut (model.py:92-151)."""
+    """norm-swish-conv x2 with a 1x1 projection shortcut (model.py:92-151);
+    dropout before the second conv, acting in training mode."""
 
-    def __init__(self, in_channels: int, out_channels: Optional[int] = None):
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 dropout: float = 0.0):
         super().__init__()
         out_channels = out_channels or in_channels
         self.norm1 = GroupNorm32(in_channels)
         self.conv1 = _conv3(in_channels, out_channels)
         self.norm2 = GroupNorm32(out_channels)
+        self.dropout = nn.Dropout(dropout)
         self.conv2 = _conv3(out_channels, out_channels)
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x):
         h = self.conv1(swish(self.norm1(x)))
-        h = self.conv2(swish(self.norm2(h)))
+        h = self.conv2(self.dropout(swish(self.norm2(h))))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -118,11 +121,11 @@ class _Level(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dropout: float = 0.0):
         super().__init__()
-        self.block_1 = ResnetBlock(channels)
+        self.block_1 = ResnetBlock(channels, dropout=dropout)
         self.attn_1 = AttnBlock(channels)
-        self.block_2 = ResnetBlock(channels)
+        self.block_2 = ResnetBlock(channels, dropout=dropout)
 
     def forward(self, h):
         return self.block_2(self.attn_1(self.block_1(h)))
@@ -134,7 +137,8 @@ class Encoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (53,),
                  resamp_with_conv: bool = True, in_channels: int = 1,
-                 resolution: int = 848, z_channels: int = 256, double_z: bool = False):
+                 resolution: int = 848, z_channels: int = 256, double_z: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.conv_in = _conv3(in_channels, ch)
         curr_res, block_in = resolution, ch
@@ -143,7 +147,7 @@ class Encoder(nn.Module):
             block_out = ch * mult
             blocks, attns = [], []
             for _ in range(num_res_blocks):
-                blocks.append(ResnetBlock(block_in, block_out))
+                blocks.append(ResnetBlock(block_in, block_out, dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     attns.append(AttnBlock(block_in))
@@ -152,7 +156,7 @@ class Encoder(nn.Module):
                 level.downsample = Downsample(block_in, resamp_with_conv)
                 curr_res //= 2
             self.down.append(level)
-        self.mid = _Mid(block_in)
+        self.mid = _Mid(block_in, dropout)
         self.norm_out = GroupNorm32(block_in)
         self.conv_out = _conv3(block_in, 2 * z_channels if double_z else z_channels)
 
@@ -175,19 +179,19 @@ class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 1, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (53,),
                  resamp_with_conv: bool = True, resolution: int = 848,
-                 z_channels: int = 256, give_pre_end: bool = False):
+                 z_channels: int = 256, give_pre_end: bool = False, dropout: float = 0.0):
         super().__init__()
         self.give_pre_end = give_pre_end
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (len(ch_mult) - 1)
         self.conv_in = _conv3(z_channels, block_in)
-        self.mid = _Mid(block_in)
+        self.mid = _Mid(block_in, dropout)
         levels = [None] * len(ch_mult)
         for i_level in reversed(range(len(ch_mult))):
             block_out = ch * ch_mult[i_level]
             blocks, attns = [], []
             for _ in range(num_res_blocks + 1):
-                blocks.append(ResnetBlock(block_in, block_out))
+                blocks.append(ResnetBlock(block_in, block_out, dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     attns.append(AttnBlock(block_in))

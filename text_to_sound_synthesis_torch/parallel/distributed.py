@@ -27,7 +27,8 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = ["init_distributed", "get_rank", "get_world_size", "is_primary", "local_device",
-           "wrap_ddp", "all_gather_cat", "fold_seed", "replica", "run_sharded"]
+           "wrap_ddp", "all_gather_cat", "all_reduce_mean_", "fold_seed", "replica",
+           "run_sharded"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -98,6 +99,21 @@ def all_gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over ``group``'s ranks, in place, in
+    one all-reduce (the data-parallel average of gradients and metrics that
+    DDP's hooks would make; the Stage-1 steps call it themselves, between
+    their passes)."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= get_world_size(group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def fold_seed(seed: int, index: int) -> int:
