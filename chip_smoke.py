@@ -184,10 +184,32 @@ Phases (any failed check exits nonzero, and no result line is printed):
              (e) phase 10 (a) again with ``dtype: bfloat16``: the parameters,
              AdamW's moments and the EMA f32, the loss under step 1's draws
              lower at step 30; its time beside (a)'s f32 step.
+10c. eval  — evaluation, on phase 5's bf16 model: two of its requests give
+             16 decoded 80 x 848 mels (K1 = 2 x 100). (a) Melception (309
+             classes, all six taps, seeded random weights) at batch 16 on the
+             card in full f32 against the same module on the CPU, within
+             MELCEPTION_TOL per tap; its time a batch, GFLOP a mel, peak
+             memory, and its error under TF32 convs for the record. (b)
+             ``evaluate_folders`` over two directories of those mels (eight
+             of each seed): FID, ISc, KID and KL finite. (c) the default
+             ``ACTCaptioner`` (12-layer 768-wide encoder, 2-layer decoder,
+             4368 words), seeded: beam 3 over four mels on the card against
+             the CPU, the tokens equal or their first difference after a
+             near-tie within CAPTION_TIE; ``caption_scores``. (d)
+             ``griffin_lim``, 32 steps, on one mel's NNLS magnitudes, card
+             against CPU (GL_CORR, GL_RMS, GL_SC), and ``mel_to_wav_np`` on
+             the card. (a)-(d) launch no kernel. (e) ``eval_int8_drift
+             --train_steps 40 --clips 24 --static --w4`` on the flagship from
+             the YAML (weights drawn as flax's defaults, in full f32 whatever
+             the earlier phases set), with exact launch counts (K1 = 2 x 3 x 100, K2 = 3 x
+             100, K3 = K4 = K5 = 3 x 19 x 100, the pair MHA twice that); its
+             gate, the seed floor above 0 and drift_ratio <= 1.5 (the JAX
+             package's), is checked after phase 11's record.
 11. times  — each path's request time and clips/s, phase 5b's reference and
              fused times in bench.py's scope, the train steps' times (Stage 2
-             in f32 and bf16, Stage 1, MelGAN), beside the card's name and
-             power limit. Every request phase counts K11 and T1-T3 at 0.
+             in f32 and bf16, Stage 1, MelGAN), the evaluation's, beside the
+             card's name and power limit. Every request phase counts K11 and
+             T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -214,7 +236,6 @@ SEED = 1234
 BATCH, CTX, N_STEPS = 8, 77, 100
 MEL = (80, 848)                 # the flagship's mel: bins, frames
 VOC_ARGS = {"n_mel_channels": 80, "ngf": 32, "n_residual_layers": 3}   # MelGAN's args.yml
-SOT, EOT = 49406, 49407
 # K1 checks. Posterior log-probs agree to POST_ATOL (f32 log-space chains whose
 # exp/log and sums run in another order in the kernel). With truncation, the
 # bisection's comparisons (sum of p above tau < r, p > tau) are discontinuous:
@@ -1352,12 +1373,9 @@ def phase_ablate(dev):
 
 def caption_ids(rng, n: int = BATCH) -> torch.Tensor:
     """BPE ids of the form the tokenizer emits: SOT, word ids, EOT, zero padding."""
-    ids = np.zeros((n, CTX), np.int32)
-    for b in range(n):
-        n = int(rng.integers(3, 12))
-        ids[b, 0], ids[b, n + 1] = SOT, EOT
-        ids[b, 1:n + 1] = rng.integers(256, 49000, n)
-    return torch.from_numpy(ids)
+    from text_to_sound_synthesis_torch.tools.eval_int8_drift import caption_ids as ids
+
+    return ids(rng, n, CTX)
 
 
 def check_plain_loop(model, fs, dd, cond_tokens, dev):
@@ -2051,18 +2069,6 @@ def small_train_config() -> dict:
 SMALL_MEL = (8, 32)
 
 
-@contextlib.contextmanager
-def full_f32():
-    """Matmuls and cuDNN's convs in full f32 (no TF32) for the block, restored after."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
 def _train_draws(gen, B: int, T: int, L: int, K: int):
     """One step's draws (the timesteps', q_sample's noise) from ``gen``, to supply."""
     from text_to_sound_synthesis_torch.engine.train_state import TrainDraws
@@ -2230,6 +2236,8 @@ def _train_card_vs_cpu(dev):
     """(b): three steps of the small config on the card against the same steps
     on the CPU, the draws supplied, in full f32."""
     import copy
+
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
 
     from text_to_sound_synthesis_torch.models import build_model
 
@@ -2560,6 +2568,8 @@ def _stage1_card_vs_cpu(dev):
     Returns the card's state of the adaptive run (for (d))."""
     import copy
 
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
     worst = {"metric": 0.0, "codec": 0.0, "disc": 0.0, "weight": 0.0, "stats": 0.0}
     kept = None
     for adaptive in (False, True):
@@ -2797,6 +2807,270 @@ def phase_stage1(dev):
         check(counts == expected_counts(), f"stage-1 {label}: kernel launches {counts}")
     print(f"  every kernel count 0 in (a)-(e): {expected_counts()}")
     return out["vqgan"], out["melgan"][1], out["bf16"][:3]
+
+
+# -- phase 10c: evaluation ------------------------------------------------------------------
+
+EVAL_CLASSES = 309          # Melception's head (VGGSound)
+EVAL_MELS = 2 * BATCH       # two requests' decoded mels: Melception's batch of 16
+# Melception on the card against the CPU, both in full f32: per tap, the largest
+# difference over the CPU tap's largest magnitude. In f32 with another summation
+# order this is ~1e-6; TF32 convs (10-bit mantissas) give ~1e-3, which the gate
+# refuses: the features of two mels differ by ~1 % of their size at random weights.
+MELCEPTION_TOL = 1e-4
+# beam search on the card against the CPU: the tokens equal, or the first token
+# that differs follows a prefix whose two candidates' log-probs (on the CPU) lie
+# within this of each other, or the two captions' length-averaged scores do
+CAPTION_TIE = 1e-4
+CAPTION_BEAM, CAPTION_MELS = 3, 4
+# Griffin-Lim, 32 steps, on the card against the CPU: both f32, other FFTs. The
+# unit-phase normalisation turns rounding in near-zero bins into phase, which
+# the momentum carries on; f32 against f64 on the CPU on a 10 s mel gave a
+# waveform correlation of 0.99994, an rms difference of 1.1 % of the rms and
+# spectral convergences 2e-6 apart.
+GL_ITERS, GL_CORR, GL_RMS, GL_SC = 32, 0.999, 0.05, 1e-4
+# the JAX package's gate (tests/test_int8_drift_gate.py). The tool draws the
+# flagship's weights as the JAX package's flax modules do (truncated
+# lecun_normal): on the port's default untruncated draws the W4A8 engine read
+# 38.6 on an H100, its 4-bit grid set by each output channel's largest weight
+# (ROADMAP Queue 3).
+MAX_DRIFT_RATIO = 1.5
+DRIFT_ARGS = ["--config_file", CONFIG, "--train_steps", "40", "--clips", "24", "--static",
+              "--w4", "--device", "cuda"]
+DRIFT_CLIPS, DRIFT_BATCH = 24, 8
+
+
+def _eval_mels(model, cond_tokens, dev):
+    """Two bf16 requests of the flagship -> (16, 80, 848) decoded mels in [0, 1]."""
+    reset_counts()
+    mels = [(model.generate(torch.Generator(dev).manual_seed(SEED + 40 + i), cond_tokens,
+                            sample_type="top0.85r")[..., 0].float() + 1.0) / 2.0
+            for i in range(2)]
+    counts = read_counts()
+    check(counts == expected_counts(K1=2 * N_STEPS), f"eval: request launches {counts}")
+    mels = torch.cat(mels)
+    check(tuple(mels.shape) == (EVAL_MELS, *MEL) and bool(torch.isfinite(mels).all()),
+          f"eval: decoded mels {tuple(mels.shape)}")
+    return mels
+
+
+def _eval_melception(mels, dev):
+    """(a) Melception at full width on the card against itself on the CPU."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+    from text_to_sound_synthesis_torch.models.melception import Melception
+    from text_to_sound_synthesis_torch.models.melception.model import TAPS
+    from text_to_sound_synthesis_torch.utils.init import init_random_
+
+    cpu = init_random_(Melception(EVAL_CLASSES, features_list=TAPS),
+                       torch.Generator().manual_seed(SEED + 42))
+    card = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+        with full_f32():
+            got = card(mels)
+            ms = cuda_time_ms(lambda: card(mels), iters=5, warmup=1)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            card(mels)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            with FlopCounterMode(display=False) as fc:
+                card(mels[:1])
+        with pytorch_default_precision():           # TF32 convs, for the record
+            tf32 = card(mels)
+            tf32_ms = cuda_time_ms(lambda: card(mels), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        want = cpu(mels.cpu())
+        cpu_s = time.perf_counter() - t0
+    errs, tf32_errs = {}, {}
+    for k in TAPS:
+        scale = float(want[k].abs().max())
+        check(tuple(got[k].shape) == tuple(want[k].shape) and bool(torch.isfinite(got[k]).all()),
+              f"eval (a): tap {k} {tuple(got[k].shape)}")
+        errs[k] = float((got[k].cpu() - want[k]).abs().max()) / scale
+        tf32_errs[k] = float((tf32[k].cpu() - want[k]).abs().max()) / scale
+    gflop = fc.get_total_flops() / 1e9
+    bound_ms = _bound(0, f32=gflop * 1e9 * EVAL_MELS)[0]
+    print(f"  (a) Melception ({EVAL_CLASSES} classes, six taps) at batch {EVAL_MELS} of "
+          f"{MEL[0]} x {MEL[1]}, full f32 (no TF32): {ms:.2f} ms a batch = {ms / EVAL_MELS:.3f} ms "
+          f"a mel, {gflop:.1f} GFLOP a mel (flop_counter) = {gflop * EVAL_MELS / ms:.2f} TFLOP/s; "
+          f"peak memory {peak:.2f} GiB above the {held / 2**30:.2f} held; bound "
+          f"{bound_ms:.2f} ms (f32 peak); with TF32 convs {tf32_ms:.2f} ms; the CPU's batch "
+          f"{cpu_s:.1f} s")
+    print(f"      card vs CPU, max |diff| / max |CPU| per tap: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (gate {MELCEPTION_TOL:g}); "
+          f"with TF32 convs: {', '.join(f'{k} {v:.2e}' for k, v in tf32_errs.items())}")
+    check(max(errs.values()) <= MELCEPTION_TOL, f"eval (a): card vs CPU {errs}")
+    return card, ms
+
+
+def _eval_folders(card, mels):
+    """(b) evaluate_folders over two directories of the decoded mels."""
+    import tempfile
+
+    from text_to_sound_synthesis_torch.evaluation.features import evaluate_folders
+
+    n = EVAL_MELS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        gen, ref = os.path.join(tmp, "gen"), os.path.join(tmp, "ref")
+        os.makedirs(gen)
+        os.makedirs(ref)
+        for i in range(n):
+            np.save(os.path.join(gen, f"clip{i}_sample_0.npy"), mels[i].cpu().numpy())
+            np.save(os.path.join(ref, f"clip{i}_mel.npy"), mels[n + i].cpu().numpy())
+        t0 = time.perf_counter()
+        out = evaluate_folders(card, gen, ref, batch_size=EVAL_MELS)
+        secs = time.perf_counter() - t0
+    check(len(out) == 6 and all(np.isfinite(v) for v in out.values()), f"eval (b): {out}")
+    print(f"  (b) evaluate_folders, {n} mels of seed {SEED + 40} against {n} of seed {SEED + 41} "
+          f"(random Melception): {', '.join(f'{k} {v:.6g}' for k, v in out.items())}; {secs:.1f} s")
+
+
+def _eval_captioner(mels, dev):
+    """(c) the full-default ACT, seeded: beam search on the card against the CPU."""
+    import copy
+
+    from text_to_sound_synthesis_torch.evaluation import caption_metrics as cm
+    from text_to_sound_synthesis_torch.models.captioner import ACTCaptioner, beam_decode
+    from text_to_sound_synthesis_torch.utils.init import init_random_
+
+    cpu = init_random_(ACTCaptioner(), torch.Generator().manual_seed(SEED + 43))
+    card = copy.deepcopy(cpu).to(dev)
+    x = mels[:CAPTION_MELS].transpose(1, 2).contiguous()          # (4, 848, 80)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = beam_decode(card, x, beam_size=CAPTION_BEAM)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = beam_decode(cpu, x.cpu(), beam_size=CAPTION_BEAM)
+    cpu_s = time.perf_counter() - t0
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if np.array_equal(g, w):
+            continue
+        k = next((i for i in range(min(len(g), len(w))) if g[i] != w[i]), min(len(g), len(w)))
+        with torch.no_grad():
+            memory = cpu.encode(x[b:b + 1].cpu())
+            score = lambda seq: float(sum(torch.log_softmax(
+                cpu.decode(memory, torch.tensor([seq[:i].tolist()]))[0, -1], -1)[int(seq[i])]
+                for i in range(1, len(seq)))) / len(seq)
+            gap = abs(score(g) - score(w))
+            if k < min(len(g), len(w)):
+                lp = torch.log_softmax(cpu.decode(memory, torch.tensor([w[:k].tolist()]))[0, -1], -1)
+                gap = min(gap, abs(float(lp[int(g[k])] - lp[int(w[k])])))
+        ties.append((b, k, gap))
+        check(gap <= CAPTION_TIE, f"eval (c): mel {b}: card tokens {g.tolist()} against the "
+              f"CPU's {w.tolist()}, first difference at {k}, no near-tie ({gap:.3e})")
+    vocab = [f"w{i}" for i in range(cpu.dec_fc.out_features)]
+    words = lambda toks: " ".join(vocab[int(t)] for t in toks[1:] if int(t) != cpu.eos_id)
+    rng = np.random.default_rng(SEED + 44)
+    refs = [[" ".join(vocab[i] for i in rng.integers(10, len(vocab), 6)) for _ in range(2)]
+            for _ in got]
+    scores = cm.caption_scores([words(t) for t in got], refs)
+    check(all(np.isfinite(v) for v in scores.values()), f"eval (c): caption scores {scores}")
+    n_params = sum(p.numel() for p in card.parameters())
+    res = cm.resolution()
+    print(f"  (c) ACTCaptioner (default: {n_params / 1e6:.1f} M params, 12-layer 768-wide "
+          f"encoder, 2-layer decoder, {len(vocab)} words), beam {CAPTION_BEAM} over "
+          f"{CAPTION_MELS} mels: card {card_s:.2f} s, CPU {cpu_s:.2f} s; tokens "
+          f"{'equal' if not ties else f'differ after near-ties {ties}'}, lengths "
+          f"{[len(t) for t in got]}; caption_scores against random references (METEOR with "
+          f"stemmer {res['stemmer']}, synonyms {res['synonyms']}): "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in scores.items())}")
+    return card_s
+
+
+def _eval_griffin_lim(mels, dev):
+    """(d) Griffin-Lim on one decoded 80 x 848 mel, 32 steps, card against CPU."""
+    from text_to_sound_synthesis_torch.ops import signal as sg
+
+    t0 = time.perf_counter()
+    spec = sg._mel_to_stft_np(sg.denormalize_mel_np(mels[0].cpu().numpy()), sg.CANONICAL)
+    nnls_s = time.perf_counter() - t0
+    mag = torch.from_numpy(spec.astype(np.float32))
+    want = sg.griffin_lim(mag, n_iter=GL_ITERS).numpy()
+    mag_card = mag.to(dev)
+    sg.griffin_lim(mag_card, n_iter=GL_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sg.griffin_lim(mag_card, n_iter=GL_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = got.cpu().numpy()
+    wav = sg.mel_to_wav_np(mels[0].cpu().numpy(), n_iter=GL_ITERS, device=dev)
+
+    def convergence(y):
+        s = sg.stft_magnitude_complex(torch.from_numpy(y).double(), sg.CANONICAL).abs().numpy()
+        return float(np.linalg.norm(s - spec) / np.linalg.norm(spec))
+
+    corr = float(np.corrcoef(got, want)[0, 1])
+    rms = float(np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2)))
+    sc_card, sc_cpu = convergence(got), convergence(want)
+    print(f"  (d) griffin_lim, {GL_ITERS} steps on a {MEL[0]} x {MEL[1]} decoded mel "
+          f"({got.shape[0]} samples): card {1e3 * secs:.1f} ms (NNLS on the host {nnls_s:.2f} s); "
+          f"card vs CPU: correlation {corr:.6f}, rms difference {rms:.2e} of the rms, spectral "
+          f"convergence {sc_card:.6f} / {sc_cpu:.6f}")
+    check(got.shape == want.shape == wav.shape and np.isfinite(got).all() and np.isfinite(wav).all(),
+          f"eval (d): shapes {got.shape} {want.shape} {wav.shape}")
+    check(corr >= GL_CORR and rms <= GL_RMS and abs(sc_card - sc_cpu) <= GL_SC,
+          f"eval (d): card vs CPU corr {corr}, rms {rms}, convergence {sc_card} / {sc_cpu}")
+    return secs
+
+
+def _eval_drift(dev):
+    """(e) the drift gate on the flagship's W4A8 static engine (the JAX
+    package's test_w4a8_static_drift_within_reseed_floor protocol)."""
+    from text_to_sound_synthesis_torch.tools import eval_int8_drift
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eval_int8_drift.main(DRIFT_ARGS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    LN, requests = N_LAYER * N_STEPS, DRIFT_CLIPS // DRIFT_BATCH
+    want = expected_counts(K1=2 * requests * N_STEPS, K2=requests * N_STEPS, K3=requests * LN,
+                           K4=requests * LN, K5=requests * LN, Kp=2 * requests * LN)
+    check(counts == want, f"eval (e): launches {counts}, expected {want}")
+    print(f"  (e) eval_int8_drift {' '.join(DRIFT_ARGS[2:])} (flagship, flax's seeded draws, random "
+          f"Melception): fid_bf16_vs_int8 {out['fid_bf16_vs_int8']!r}, fid_bf16_seed_floor "
+          f"{out['fid_bf16_seed_floor']!r}, drift_ratio {out['drift_ratio']!r} (gate "
+          f"{MAX_DRIFT_RATIO}), isc_bf16 {out['isc_bf16']!r}, isc_int8 {out['isc_int8']!r}; "
+          f"{secs:.1f} s; launches {counts}")
+    torch.cuda.empty_cache()
+    return out, secs
+
+
+def check_drift_gate(out):
+    """(e)'s gate, checked after phase 11 so that a failing gate loses no
+    measurement: the floor above 0 and drift_ratio <= MAX_DRIFT_RATIO."""
+    check(out["fid_bf16_seed_floor"] > 0, f"eval (e): the seed floor is {out['fid_bf16_seed_floor']}")
+    check(out["drift_ratio"] <= MAX_DRIFT_RATIO,
+          f"eval (e): drift_ratio {out['drift_ratio']} > {MAX_DRIFT_RATIO}")
+
+
+def phase_eval(model, cond_tokens, dev):
+    """Phase 10c (module docstring). Returns the times and the drift gate's output."""
+    t0 = time.perf_counter()
+    mels = _eval_mels(model, cond_tokens, dev)
+    reset_counts()
+    card, mel_ms = _eval_melception(mels, dev)
+    _eval_folders(card, mels)
+    del card
+    cap_s = _eval_captioner(mels, dev)
+    gl_s = _eval_griffin_lim(mels, dev)
+    counts = read_counts()
+    check(counts == expected_counts(), f"eval (a)-(d): kernel launches {counts}")
+    drift, drift_s = _eval_drift(dev)
+    secs = time.perf_counter() - t0
+    print(f"  phase 10c: {secs:.1f} s ((a)-(d) launch no kernel: {expected_counts()})")
+    return {"melception_ms": mel_ms, "caption_s": cap_s, "gl_s": gl_s, "drift": drift,
+            "drift_s": drift_s, "seconds": secs}
 
 
 def _bound(nbytes, **ops):
@@ -3042,6 +3316,10 @@ def main() -> int:
     print("[10b Stage-1 and vocoder training, the bf16 Stage-2 step]")
     s1_times, voc_times, bf16_times = phase_stage1(dev)
 
+    print("[10c evaluation: Melception, evaluate_folders, the ACT captioner, Griffin-Lim, "
+          "the int8 drift gate]")
+    ev = phase_eval(model, cond_tokens, dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -3078,6 +3356,11 @@ def main() -> int:
           f"{s1_times[0]:.4f} s = {s1_times[1]:.2f} samples/s; peak memory {s1_times[2]:.2f} GiB")
     print(f"  MelGAN step, batch 16 x 8192 samples: median {voc_times[0]:.4f} s = "
           f"{voc_times[1]:.2f} samples/s; peak memory {voc_times[2]:.2f} GiB")
+    print(f"  evaluation: Melception at batch {EVAL_MELS} of {MEL[0]} x {MEL[1]} (full f32) "
+          f"{ev['melception_ms']:.2f} ms; ACT beam {CAPTION_BEAM} over {CAPTION_MELS} mels "
+          f"{ev['caption_s']:.2f} s; griffin_lim {GL_ITERS} steps {1e3 * ev['gl_s']:.1f} ms; the "
+          f"drift gate (40 train steps, 3 x {DRIFT_CLIPS} clips, W4A8 static) {ev['drift_s']:.1f} s, "
+          f"drift_ratio {ev['drift']['drift_ratio']!r}; phase 10c {ev['seconds']:.1f} s")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")
@@ -3131,6 +3414,7 @@ def main() -> int:
          "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": pms,
          "bound_ms": bounds[fn][0], "bound_by": bounds[fn][1], "library_ms": library.get(fn)}
         for fn, source, replaces, launches, (err, ms, pms) in rows]}))
+    check_drift_gate(ev["drift"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

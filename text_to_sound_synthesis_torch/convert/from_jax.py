@@ -34,7 +34,8 @@ __all__ = [
     "melgan_discriminator_state_dict", "vggishish_state_dict", "lpaps_state_dict",
     "load_clip_text", "load_diffusion", "load_vqgan", "load_vqgan1d", "load_melgan_generator",
     "load_discriminator", "load_melgan_discriminator", "load_vggishish", "load_lpaps",
-    "load_diffsound", "load_int8_engine",
+    "load_diffsound", "load_int8_engine", "melception_state_dict", "load_melception",
+    "captioner_state_dict", "load_captioner",
 ]
 
 
@@ -362,6 +363,63 @@ def melgan_generator_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 def load_melgan_generator(module: nn.Module, params: Mapping) -> nn.Module:
     return _load(module, melgan_generator_state_dict(params))
+
+
+# -- evaluation: Melception and the ACT captioner ----------------------------------
+
+#: the BatchNorm variance that makes the eval-mode affine exactly the folded one:
+#: in f32, 1 - 1e-3 plus BatchNorm2d's eps 1e-3 rounds to 1.0, whose 1 / sqrt is 1
+MELCEPTION_UNIT_VAR = np.float32(1.0 - 1e-3)
+
+
+def melception_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``Melception`` tree -> torchvision Inception3 names. The JAX tree holds
+    each BasicConv2d's BatchNorm folded (``bn_scale`` / ``bn_shift``); it goes
+    back as weight = bn_scale, bias = bn_shift, running_mean = 0 and
+    running_var = ``MELCEPTION_UNIT_VAR``, which makes the eval-mode
+    BatchNorm the folded affine exactly."""
+    sd = {}
+    for path, w in _flatten(_params(params)).items():
+        base, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "fc_kernel":
+            sd["fc.weight"] = _dense(w)
+        elif leaf == "fc_bias":
+            sd["fc.bias"] = w
+        elif leaf == "kernel":                       # <block>.conv.kernel
+            sd[f"{base}.weight"] = _conv2d(w)
+        elif leaf in ("bn_scale", "bn_shift"):
+            sd[f"{base}.bn.{'weight' if leaf == 'bn_scale' else 'bias'}"] = w
+            if leaf == "bn_scale":
+                sd[f"{base}.bn.running_mean"] = np.zeros_like(w)
+                sd[f"{base}.bn.running_var"] = np.full_like(w, MELCEPTION_UNIT_VAR)
+                sd[f"{base}.bn.num_batches_tracked"] = np.array(0, np.int64)
+        else:
+            raise KeyError(f"unmapped melception param {'/'.join(path)}")
+    return sd
+
+
+def load_melception(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, melception_state_dict(params))
+
+
+def captioner_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``ACTCaptioner`` tree -> the port's names, which are the JAX package's
+    module names (``encoder.block_0.qkv.weight``, ``dec_0.self_q.weight``,
+    ``word_emb.weight``, ...); the encoder's raw parameters (``bn0_scale``,
+    ``bn0_shift``, ``cls_token``, ``pos_embedding``) keep their names."""
+    sd = {}
+    for path, w in _flatten(_params(params)).items():
+        base, leaf = ".".join(path[:-1]), path[-1]
+        if leaf in ("kernel", "scale", "embedding", "bias"):
+            name, w = _leaf(leaf, w, _dense)
+            sd[f"{base}.{name}"] = w
+        else:
+            sd[".".join(path)] = w
+    return sd
+
+
+def load_captioner(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, captioner_state_dict(params))
 
 
 # -- the composite -------------------------------------------------------------------

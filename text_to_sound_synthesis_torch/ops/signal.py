@@ -1,14 +1,15 @@
-"""Signal processing layer (L0): wav -> mel-spectrogram, self-contained.
+"""Signal processing layer (L0): wav <-> mel-spectrogram, self-contained.
 
 Port of ``text_to_sound_synthesis_tpu/ops/signal.py``: the reference's
 canonical mel recipe
 (``Codebook/feature_extraction/extract_mel_spectrogram.py:141-163``) and the
 vocoder-training log-mel (``Diffsound/vocoder/modules.py:26-69``) without
 librosa. The numpy part (the Slaney mel filterbank, the host STFT and dB
-chain) is the JAX package's, copied unchanged; the batched device part
-(``stft_magnitude``, ``wav_to_mel``, ``audio_to_logmel``) is written on
-torch. Griffin-Lim and the mel -> wav inversion wait for the port's
-stage-1 and vocoder training.
+chain, the NNLS mel inversion ``_mel_to_stft_np``) is the JAX package's,
+copied unchanged; the batched device part (``stft_magnitude``,
+``wav_to_mel``, ``audio_to_logmel``, the inverse STFT and Griffin-Lim) is
+written on ``torch.fft``. Griffin-Lim is the evaluation's mel -> wav
+fallback where a run has no vocoder; MelGAN is the production vocoder.
 
 Canonical recipe (22 050 Hz, 10 s clips):
   ``|STFT(nfft=1024, hop=256, hann, center, reflect)|**1 -> mel(80, fmin=125,
@@ -18,6 +19,8 @@ Specs are stored in [0, 1]; models consume ``2*x - 1`` (caps_dataset.py:62).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -31,9 +34,12 @@ __all__ = [
     "stft_magnitude_np",
     "wav_to_mel_np",
     "denormalize_mel_np",
+    "mel_to_wav_np",
     "stft_magnitude",
     "wav_to_mel",
     "audio_to_logmel",
+    "griffin_lim",
+    "stft_magnitude_complex",
 ]
 
 
@@ -210,6 +216,36 @@ def denormalize_mel_np(mel01: np.ndarray, cfg: MelConfig = CANONICAL) -> np.ndar
     return 10.0 ** ((mel01 * 100.0 - 100.0 + 20.0) / 20.0)
 
 
+def _mel_to_stft_np(mel_power: np.ndarray, cfg: MelConfig, n_iter: int = 200) -> np.ndarray:
+    """Invert the mel projection with multiplicative-update NNLS.
+
+    The reference relies on ``librosa.feature.inverse.mel_to_stft`` (NNLS); we
+    solve min ||B s - m||^2 s.t. s >= 0 with Lee-Seung multiplicative updates,
+    which converges to the same least-squares fixed point.
+    """
+    basis = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, dtype=np.float64)
+    mel_power = np.asarray(mel_power, dtype=np.float64)
+    # Initialize from the transpose projection (librosa uses a similar warm start).
+    s = np.maximum(1e-10, basis.T @ mel_power)
+    btb = basis.T @ basis
+    btm = basis.T @ mel_power
+    for _ in range(n_iter):
+        s *= btm / np.maximum(btb @ s, 1e-12)
+    return np.power(np.maximum(s, 0.0), 1.0 / cfg.spec_power)
+
+
+def mel_to_wav_np(mel01: np.ndarray, cfg: MelConfig = CANONICAL, n_iter: int = 32,
+                  device="cuda") -> np.ndarray:
+    """Normalized mel -> waveform via NNLS (on the host, float64) + Griffin-Lim
+    on ``device`` (the ``inv_transforms`` fallback path,
+    extract_mel_spectrogram.py:154-163). MelGAN is the production vocoder;
+    this exists for parity/debugging."""
+    spec = _mel_to_stft_np(denormalize_mel_np(mel01, cfg), cfg)
+    wav = griffin_lim(torch.as_tensor(spec, dtype=torch.float32, device=device), cfg,
+                      n_iter=n_iter)
+    return wav.cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # Device-side (torch) pipeline — batched, on the input's device
 # ---------------------------------------------------------------------------
@@ -262,3 +298,51 @@ def audio_to_logmel(audio: torch.Tensor, cfg: MelConfig | None = None) -> torch.
     spec = stft_magnitude(audio, cfg, center=False)
     mel = torch.einsum("mf,...ft->...mt", _mel_basis(cfg, spec), spec)
     return torch.log10(torch.clamp(mel, min=1e-5))
+
+
+def _frame_index(cfg: MelConfig, n_frames: int, device) -> torch.Tensor:
+    """Sample index of each frame's taps, flat: frame f's n_fft taps from f * hop."""
+    taps = torch.arange(cfg.n_fft, device=device)
+    return (taps[None, :] + cfg.hop_length * torch.arange(n_frames, device=device)[:, None]).reshape(-1)
+
+
+def _istft(spec: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """Inverse STFT with hann-squared overlap-add normalization (center=True):
+    (..., n_bins, n_frames) complex -> (..., hop * (n_frames - 1)) real. The
+    JAX package's ``_istft``: the frames' window² sum divides the overlap-add
+    (floored at 1e-10), then n_fft // 2 samples are trimmed from each end."""
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=cfg.n_fft, dim=-1)
+    window = torch.from_numpy(_fft_window(cfg.win_length, cfg.n_fft)).to(frames)
+    frames = frames * window
+    lead, n_frames = frames.shape[:-2], frames.shape[-2]
+    out_len = cfg.n_fft + cfg.hop_length * (n_frames - 1)
+    idx = _frame_index(cfg, n_frames, frames.device)
+    y = frames.new_zeros(*lead, out_len).index_add_(-1, idx, frames.reshape(*lead, -1))
+    norm = frames.new_zeros(out_len).index_add_(0, idx, (window**2).repeat(n_frames))
+    y = y / torch.clamp(norm, min=1e-10)
+    return y[..., cfg.n_fft // 2: out_len - cfg.n_fft // 2]
+
+
+def griffin_lim(mag: torch.Tensor, cfg: MelConfig = CANONICAL, n_iter: int = 32,
+                momentum: float = 0.99) -> torch.Tensor:
+    """Griffin-Lim phase recovery (the JAX package's ``lax.scan`` of ``n_iter``
+    momentum steps, here a loop on ``mag``'s device): (..., n_bins, T)
+    magnitudes -> (..., samples). Zero-phase start; each step's update is
+    the rebuilt STFT less momentum / (1 + momentum) of the previous one."""
+    angles = torch.exp(2j * math.pi * torch.zeros_like(mag)).to(torch.complex64)
+    prev = torch.zeros_like(mag, dtype=torch.complex64)
+    for _ in range(n_iter):
+        rebuilt = stft_magnitude_complex(_istft(mag * angles, cfg), cfg)
+        update = rebuilt - (momentum / (1.0 + momentum)) * prev
+        angles = update / torch.clamp(update.abs(), min=1e-16)
+        prev = rebuilt
+    return _istft(mag * angles, cfg)
+
+
+def stft_magnitude_complex(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """Complex STFT used inside Griffin-Lim (center=True, reflect pad):
+    (..., samples) -> (..., n_bins, n_frames)."""
+    y = _pad_last(y, cfg.n_fft // 2, "reflect")
+    frames = _frame(y, cfg.n_fft, cfg.hop_length)
+    window = torch.from_numpy(_fft_window(cfg.win_length, cfg.n_fft)).to(y)
+    return torch.fft.rfft(frames * window, n=cfg.n_fft, dim=-1).transpose(-1, -2)
