@@ -24,7 +24,11 @@ PyTorch's default precision; ``train``), the same with ``dtype: bfloat16``
 batch 8 of 80 x 848 mels, both optimizers, ``bench_train_stage1``'s
 ``vqgan_trainer``; ``stage1``) and one MelGAN step (batch 16 x 8192 samples,
 its ``melgan_trainer``; ``vocoder``), both in f32 under PyTorch's default
-precision: all of them, or the paths named. One
+precision, then the AR baseline of ``configs/ar_audiocaps.yaml`` in full
+f32 as ``chip_smoke.py`` phase 10d builds it: one batch-8 request (265
+cached decodes at top-k 100, then ``decode_code``; ``ar``) and one
+``train_ar`` step at batch 8 of 80 x 848 mels (``ar_train``): all of them,
+or the paths named. One
 warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
@@ -76,7 +80,7 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
 # a request's sampling, and its tokens returned beside the mel
 REQ = dict(sample_type="top0.85r", return_tokens=True)
 PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11", "train", "train_bf16", "stage1",
-         "vocoder")
+         "vocoder", "ar", "ar_train")
 
 
 def main(argv=None) -> int:
@@ -141,7 +145,7 @@ def main(argv=None) -> int:
                 profile(f"K11 gn_swish_conv at ({gnt.B}, {H}, {W}, {C})",
                         lambda: [gn_swish_conv(*args, groups=gnt.GROUPS) for _ in range(5)],
                         what="five calls")
-    if paths & {"train", "train_bf16", "stage1", "vocoder"}:
+    if paths & {"train", "train_bf16", "stage1", "vocoder", "ar", "ar_train"}:
         del model
         torch.cuda.empty_cache()
     for path, dtype in (("train", "float32"), ("train_bf16", "bfloat16")):
@@ -169,6 +173,34 @@ def main(argv=None) -> int:
             step(state, wav)
             profile(f"MelGAN train step, f32, batch {bt.MELGAN_BATCH} x {bt.MELGAN_LEN}",
                     lambda: step(state, wav) and None, what="one step")
+        del state, step, wav
+        torch.cuda.empty_cache()
+    if paths & {"ar", "ar_train"}:
+        from text_to_sound_synthesis_torch.models.gpt import ar_sample
+        from text_to_sound_synthesis_torch.tools import train_ar
+        from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+        arcfg = load_yaml_config(cs.AR_CONFIG)
+        ar = train_ar.build_model(arcfg, dev, cs.SEED + 60)
+        feats = torch.randn((cs.BATCH, 512, 1), generator=gen(), device=dev)
+        feats = feats / feats.norm(dim=1, keepdim=True)
+        steps = cs.AR_HW[0] * cs.AR_HW[1]
+
+        def request():
+            tokens = ar_sample(ar.gpt, feats, steps=steps, top_k=cs.AR_TOP_K, generator=gen())
+            return ar.decode_to_img(tokens, cs.AR_HW), tokens
+
+        with full_f32():
+            if "ar" in paths:
+                profile(f"AR baseline request, ar_audiocaps f32, batch {cs.BATCH}, {steps} "
+                        f"tokens, top-k {cs.AR_TOP_K}", request, what="sampler + decode_code")
+            if "ar_train" in paths:
+                bs = int(arcfg["dataloader"]["batch_size"])
+                opt = train_ar.build_optimizer(ar, bs * float(arcfg["model"]["base_learning_rate"]))
+                mel = torch.rand((bs, *cs.MEL, 1), generator=gen(), device=dev) * 2 - 1
+                train_ar.train_step(ar, opt, mel, feats)
+                profile(f"AR train step, ar_audiocaps f32, batch {bs}",
+                        lambda: train_ar.train_step(ar, opt, mel, feats) and None, what="one step")
     return 0
 
 

@@ -101,7 +101,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
              ``quantize_for_serving(weight_bits=4)`` -> ``calibrate_serving_engine``
              on the smoke's captions -> three steps, kernels against the plain
              twins on one supplied noise (each block on the twins' input,
-             and the 19-layer outputs and tokens; K4 and K5 with the
+             and the 19-layer outputs; tokens may differ only at near-ties
+             within the score error of the rows that did not flip,
+             ``_tie_band``, a gate that the kernel path under another noise
+             and twice its drift must fail; K4 and K5 with the
              pair-packed MHA, the default at 16 heads of 64, also against
              the PAIR_LOOP_SHARE gate, which they fail with the bf16 MHA) -> four batch-8,
              100-step ``generate_int8`` requests to a wav, in turns with the
@@ -205,10 +208,32 @@ Phases (any failed check exits nonzero, and no result line is printed):
              100, K3 = K4 = K5 = 3 x 19 x 100, the pair MHA twice that); its
              gate, the seed floor above 0 and drift_ratio <= 1.5 (the JAX
              package's), is checked after phase 11's record.
+10d. AR   — in full f32 whatever earlier phases set; every kernel count 0
+             (the AR baseline and the denoisers reach no Pallas kernel in the
+             JAX package). (a) ``configs/ar_audiocaps.yaml``'s flagship
+             (``GPTFeats`` 19 x d1024 x 16 heads, block 266, vocab 256, a
+             Conv1d 512 -> 1024 embedder; the codec of (5, 53) tokens),
+             seeded through ``train_ar.build_model``: two batch-8 requests of
+             L2-normalised (8, 512, 1) features through ``sample`` (265
+             cached decodes, top-k 100) and MelGAN to a wav; ``ar_sample``'s
+             tokens from the same seed decode to the same mel; every token in
+             its step's top 100 of one full forward of the emitted sequence;
+             the cached decode, teacher-forced on it, equal to that forward
+             within AR_F32_TOL; on a 2-layer copy at full width, greedy
+             tokens on the card equal the CPU's or first differ at a near-tie.
+             (b) two ``train_ar`` steps at batch 8 of 80 x 848 mels: finite
+             losses, the codec unchanged, the decay group the decay mask,
+             zero-gradient entries unchanged where undecayed and p (1 - lr
+             wd)^2 where decayed, every tensor with a gradient moved; a
+             2-layer copy's first loss and gradient norm card against CPU.
+             (c) ``Condition2SpecTransformer`` and
+             ``UnCondition2SpecTransformer`` at the JAX defaults (DENOISERS),
+             one forward each, card against CPU within AR_F32_TOL.
 11. times  — each path's request time and clips/s, phase 5b's reference and
              fused times in bench.py's scope, the train steps' times (Stage 2
-             in f32 and bf16, Stage 1, MelGAN), the evaluation's, beside the
-             card's name and power limit. Every request phase counts K11 and
+             in f32 and bf16, Stage 1, MelGAN, the AR baseline), the
+             evaluation's, the AR request's, beside the card's name and power
+             limit. Every request phase counts K11 and
              T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
@@ -284,6 +309,15 @@ PAIR_BLOCK_ULPS, PAIR_BLOCK_SHARE, PAIR_LOOP_SHARE = 1, 2e-2, 2.5e-3
 # bound, on the H100; PERF.md). So up to PAIR_OUTLIERS of K8's outputs may lie
 # beyond PAIR_TOL there.
 PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
+# The int8 loops' token gate (``check_int8_loop``): a row may pick another
+# token than the plain path's only at a near-tie, where the plain margin lies
+# within the score error the kernel path shows on the rows that did not flip,
+# at its TIE_QUANTILE quantile (``_tie_band``, ``_flip_rows``). Two controls
+# must fail it: the kernel path's step under another noise, and the plain
+# backbone output plus DRIFT_CONTROL times the kernel path's drift from it,
+# judged against the kernel path's band. At 2x the drift stays within
+# STEP_REL, so this gate alone has to catch it.
+TIE_QUANTILE, DRIFT_CONTROL = 0.99, 2.0
 # The quantize pass on Gaussian rows with AdaLN: the f32 LayerNorm sums run
 # in another order than the twin's, so an ulp of the statistics can move a
 # value across a .5 step of the int8 grid: the H100 read 0-3 of 2170880;
@@ -1711,6 +1745,67 @@ def _plain_layer(schedule: str, qp, rt, xp, lyr, ck, cv, mods, ls, op, attn: str
               dict(static_s=rt._pair(ls[4:6]), **w4))
 
 
+def _step_tail(fs, qp, h, xt, coeffs, g):
+    """``head_sample_reference``'s top0.85r step on backbone output ``h``:
+    its tokens, its scores (the perturbed log-posterior it takes the argmax
+    over), the log-probs (M, K), the log of the top-r threshold (M,) and the
+    nucleus (M, K)."""
+    tokens, post = fs.head_sample_reference(h, xt, qp.norm_out, qp.head_w, qp.head_b, coeffs,
+                                            gumbel=g, truncation_r=0.85)
+    lp = torch.log_softmax(fs.head_logits(h, qp.norm_out, qp.head_w, qp.head_b), dim=-1)
+    lp = torch.cat([lp, torch.full_like(lp[:, :1], fs.MIN_LOGP)], dim=-1).clamp(fs.MIN_LOGP, 0.0)
+    tau = fs._bisect_threshold(lp.exp(), 0.85)
+    keep = (lp.exp() > tau) | (lp == lp.amax(dim=-1, keepdim=True))
+    return tokens, post + g, lp, tau.log()[:, 0], keep
+
+
+def _at(t, i):
+    return t.gather(1, i.long()[:, None])[:, 0]
+
+
+def _runner_up(plain):
+    tokens, s = plain[:2]
+    return s.scatter(1, tokens.long()[:, None], float("-inf")).argmax(dim=-1)
+
+
+def _tie_band(plain, kern):
+    """The score error of the kernel path against the plain path, taken on
+    the rows where the two pick the same token and neither nucleus edge
+    moves at it or at the plain runner-up: the TIE_QUANTILE quantile of
+    |d score| at the token plus at the runner-up, and of |d log p| at the
+    runner-up plus |d log threshold|. It is read off rows that did not flip,
+    so a flipped row's own error never widens it."""
+    (a, s_p, lp_p, lt_p, k_p), (b, s_k, lp_k, lt_k, k_k) = plain, kern
+    r = _runner_up(plain)
+    calm = (a == b) & (_at(k_p, a) == _at(k_k, a)) & (_at(k_p, r) == _at(k_k, r))
+    ds = (s_k - s_p).abs()
+    err = (_at(ds, a) + _at(ds, r))[calm]
+    err_lp = ((_at(lp_k, r) - _at(lp_p, r)).abs() + (lt_k - lt_p).abs())[calm]
+    return (float(torch.quantile(err, TIE_QUANTILE)), float(torch.quantile(err_lp, TIE_QUANTILE)))
+
+
+def _flip_rows(plain, path, band):
+    """Each row's token flip between the plain path (its token a) and
+    ``path`` (its token b), judged against ``band`` (``_tie_band``). A flip
+    is a near-tie when the plain margin score(a) - score(b) is at most the
+    band's score error; or, when a or b lies inside one path's nucleus and
+    outside the other's, when that class's distance from the plain
+    threshold in log p is at most the band's log p error. Returns the rows
+    that flipped, those of them that are not near-ties, and the near-tie
+    rows: those whose plain runner-up (or whose token or runner-up, by its
+    distance from the threshold) lies within the band, and the flips that
+    are near-ties."""
+    (a, s_p, lp_p, lt_p, k_p), (b, k_k), (eps, eps_lp) = plain, (path[0], path[4]), band
+    r = _runner_up(plain)
+    edge_close = lambda c: (_at(lp_p, c) - lt_p).abs() <= eps_lp
+    tie = _at(s_p, a) - _at(s_p, b) <= eps
+    for c in (a, b):
+        tie |= (_at(k_p, c) != _at(k_k, c)) & edge_close(c)
+    near = (_at(s_p, a) - _at(s_p, r) <= eps) | edge_close(a) | edge_close(r)
+    flipped = a != b
+    return int(flipped.sum()), int((flipped & ~tie).sum()), int((near | flipped & tie).sum())
+
+
 def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks",
                     impl: str = "pallas", attn: str = "bf16"):
     """Three int8 sampler steps (the top0.85r,fast49 plan), kernels against
@@ -1726,21 +1821,25 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
     the caller set). Composed over 19 layers, an int8 flip in one block
     moves the next block's input, and at a static scale a bf16 ulp of a block
     input can move an int8 value by one step, so the two paths drift apart:
-    their backbone outputs must agree to STEP_REL (relative, in norm), and at
-    most STEP_ROWS of the rows may pick another token per step (near-ties of
-    the Gumbel argmax and the nucleus boundary). With ``attn="pair"``, K4 and
+    their backbone outputs must agree to STEP_REL (relative, in norm), and
+    every row that picks another token must be a near-tie (``_flip_rows``):
+    the plain path's margin between the two tokens, or at the nucleus edge
+    to the threshold, no larger than the score error the kernel path shows
+    on the rows that did not flip (``_tie_band``). Both of the gate's
+    controls must fail it (TIE_QUANTILE). With ``attn="pair"``, K4 and
     K5 are also held, over the three steps together, to PAIR_LOOP_SHARE of
     their outputs more than PAIR_BLOCK_ULPS off, a gate that the same blocks
     with the bf16 MHA, on the same inputs, must fail."""
     from text_to_sound_synthesis_torch.models.diffusion import int8_runtime as rt
     from text_to_sound_synthesis_torch.models.diffusion.process import _timestep_plan
 
-    STEP_ROWS, STEP_REL = 2e-2, 5e-2
+    STEP_REL = 5e-2
     diff = model.diffusion
     L, K, T = diff.content_seq_len, diff.num_classes, diff.diffusion_step
     ts, t_post = _timestep_plan(T, T, 49)
-    noise = dd.gumbel_from_uniform(torch.rand((len(ts), BATCH, L, K), device=dev,
-                                              generator=torch.Generator(dev).manual_seed(SEED)))
+    noise, other = (dd.gumbel_from_uniform(torch.rand(
+        (len(ts), BATCH, L, K), device=dev, generator=torch.Generator(dev).manual_seed(s)))
+        for s in (SEED, SEED + 5))
     rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
     act_s = qp.act_scales or ((None,) * 6,) * len(qp.layers)
     stats = {"err": {}, "flips": 0, "n": 0, "beyond": 0, "pair": (0, 0, 0)}
@@ -1776,10 +1875,16 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
             xp = rt._embed(qp, tokens.reshape(BATCH, L))
             for lyr, (ck, cv), mods, ls in zip(qp.layers, kvs, rt._layer_mods(qp, t), act_s):
                 xp = _plain_layer(schedule, qp, rt, xp, lyr, ck, cv, mods, ls, op, attn)
-            want, _ = fs.head_sample_reference(xp, tokens, qp.norm_out, qp.head_w, qp.head_b,
-                                               coeffs[i], gumbel=g, truncation_r=0.85)
-            per_step.append((rel(x, xp), int((got != want).sum())))
-            tokens = want
+            plain = _step_tail(fs, qp, xp, tokens, coeffs[i], g)
+            kern = (got,) + _step_tail(fs, qp, x, tokens, coeffs[i], g)[1:]
+            band = _tie_band(plain, kern)
+            noisy = (kern[1] - g + other[i].reshape(BATCH * L, K)).argmax(dim=-1).int()
+            drift = (xp.float() + DRIFT_CONTROL * (x.float() - xp.float())).to(x.dtype)
+            drifted = _step_tail(fs, qp, drift, tokens, coeffs[i], g)
+            per_step.append((rel(x, xp), _flip_rows(plain, kern, band),
+                             _flip_rows(plain, (noisy,) + kern[1:], band),
+                             _flip_rows(plain, drifted, band), rel(drift, xp), band))
+            tokens = plain[0]
     rows = BATCH * L
     errs = {k: float(f"{v:.3e}") for k, v in stats["err"].items()}
     pair = f", K8 outputs beyond {PAIR_TOL} {stats['beyond']}" if "attn_pair_block" in errs else ""
@@ -1787,10 +1892,22 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
           f"tokens each step: each kernel call on the twins' input within its gate (max|d| "
           f"{errs}, elements off by > 1 bf16 ulp {stats['flips']}/{stats['n']}{pair}); after "
           f"{len(qp.layers)} layers backbone output "
-          f"relative error {[f'{a:.2e}' for a, _ in per_step]}, tokens differing "
-          f"{[b for _, b in per_step]} of {rows}")
-    check(all(a <= STEP_REL and b <= STEP_ROWS * rows for a, b in per_step),
-          f"serving ({schedule}): kernel steps disagree with the plain steps")
+          f"relative error {[f'{p[0]:.2e}' for p in per_step]}; of {rows} rows a step, "
+          f"band (score, log p) {[f'{p[5][0]:.3e}, {p[5][1]:.3e}' for p in per_step]}, "
+          f"near-ties {[p[1][2] for p in per_step]}, tokens differing "
+          f"{[p[1][0] for p in per_step]}, of those not near-ties "
+          f"{[p[1][1] for p in per_step]}; controls (differing, not near-ties): the kernel path "
+          f"under another noise {[p[2][:2] for p in per_step]}, the plain output plus "
+          f"{DRIFT_CONTROL}x the kernel path's drift (relative error "
+          f"{[f'{p[4]:.2e}' for p in per_step]}) {[p[3][:2] for p in per_step]}")
+    check(all(p[0] <= STEP_REL for p in per_step),
+          f"serving ({schedule}): kernel steps' backbone outputs disagree with the plain steps'")
+    check(all(p[1][1] == 0 for p in per_step),
+          f"serving ({schedule}): a token differs from the plain step's where no near-tie is")
+    check(all(p[2][1] > 0 for p in per_step),
+          f"serving ({schedule}): the near-tie gate passes the kernel path under another noise")
+    check(sum(p[3][1] for p in per_step) > 0,
+          f"serving ({schedule}): the near-tie gate passes {DRIFT_CONTROL}x the kernel path's drift")
     if attn == "pair":
         far, ctrl, n = stats["pair"]
         print(f"  K4 / K5 with the pair MHA over the 3 steps: elements more than {PAIR_BLOCK_ULPS} "
@@ -2830,10 +2947,10 @@ CAPTION_BEAM, CAPTION_MELS = 3, 4
 # spectral convergences 2e-6 apart.
 GL_ITERS, GL_CORR, GL_RMS, GL_SC = 32, 0.999, 0.05, 1e-4
 # the JAX package's gate (tests/test_int8_drift_gate.py). The tool draws the
-# flagship's weights as the JAX package's flax modules do (truncated
-# lecun_normal): on the port's default untruncated draws the W4A8 engine read
-# 38.6 on an H100, its 4-bit grid set by each output channel's largest weight
-# (ROADMAP Queue 3).
+# flagship's weights with the seeded init, which draws them as the JAX
+# package's flax modules do (truncated lecun_normal): on untruncated draws the
+# W4A8 engine read 38.6 on an H100, its 4-bit grid set by each output
+# channel's largest weight.
 MAX_DRIFT_RATIO = 1.5
 DRIFT_ARGS = ["--config_file", CONFIG, "--train_steps", "40", "--clips", "24", "--static",
               "--w4", "--device", "cuda"]
@@ -3071,6 +3188,242 @@ def phase_eval(model, cond_tokens, dev):
     print(f"  phase 10c: {secs:.1f} s ((a)-(d) launch no kernel: {expected_counts()})")
     return {"melception_ms": mel_ms, "caption_s": cap_s, "gl_s": gl_s, "drift": drift,
             "drift_s": drift_s, "seconds": secs}
+
+
+# -- phase 10d: the AR baseline and the class / unconditional denoisers ------------------
+
+AR_CONFIG = os.path.join(REPO, "configs", "ar_audiocaps.yaml")
+AR_HW, AR_TOP_K = (5, 53), 100
+# f32 on both sides of each comparison (TF32 off), the same ops summed in
+# another order: the cached decode (one query row against the 266-slot cache)
+# against the full forward of the same sequence, the card against the CPU.
+# Each gate is the largest |difference| over the largest |value| of the
+# reference; 19 to 24 f32 layers at d1024 sum to ~1e-6 of it on either side.
+AR_F32_TOL = 1e-4
+# the train step's loss card against CPU, relative: a mean of 2120 cross
+# entropies, each within ~1e-6 of its value on the other side
+AR_LOSS_RTOL = 1e-5
+# (c)'s denoisers at the JAX package's defaults (24 x d1024 x 1000 classes on
+# 5 x 53 tokens; 24 x d512 on 16 x 16), the unconditional one's content
+# embedding at its width: the JAX default embedding is 1024 wide and does not fit
+DENOISERS = {"Condition2SpecTransformer": {},
+             "UnCondition2SpecTransformer": {"content_emb_config": {"params": {"embed_dim": 512}}}}
+
+
+def _ar_checks(model, feats, tokens):
+    """(a)'s checks on the emitted tokens: each inside the top AR_TOP_K of
+    its step's logits from one full forward of the emitted sequence; the
+    cached decode, teacher-forced on that sequence, equal to the full forward
+    within AR_F32_TOL; the full forward's logits finite."""
+    gpt = model.gpt
+    with torch.no_grad():
+        full = gpt(tokens[:, :-1], feats)                     # (B, 1 + 264, 256)
+        scale = float(full.abs().max())
+        kth = full.sort(dim=-1, descending=True).values[..., AR_TOP_K - 1]
+        outside = int((full.gather(-1, tokens[..., None])[..., 0] < kth - AR_F32_TOL * scale).sum())
+        cache = gpt.init_cache(tokens.shape[0])
+        logits, cache = gpt.decode_prefix(gpt.embed_feats(feats), cache)
+        steps = [logits]
+        for t in range(tokens.shape[1] - 1):
+            logits, cache = gpt.decode_token(tokens[:, t], cache, 1 + t)
+            steps.append(logits)
+        err = float((torch.stack(steps, 1) - full).abs().max()) / scale
+    check(bool(torch.isfinite(full).all()), "AR (a): non-finite logits")
+    check(outside == 0, f"AR (a): {outside} tokens outside their step's top {AR_TOP_K}")
+    check(err <= AR_F32_TOL, f"AR (a): cached decode vs full forward {err:.2e}")
+    return err
+
+
+def _ar_greedy_card_vs_cpu(cfg, feats, dev):
+    """(a) on a 2-layer copy at full width: greedy tokens on the card equal
+    the CPU's, or each row's first difference follows a near-tie (the CPU's
+    two logits within AR_F32_TOL of its largest |logit|)."""
+    import copy
+
+    from text_to_sound_synthesis_torch.models.gpt import ar_sample
+    from text_to_sound_synthesis_torch.tools.train_ar import build_model
+
+    small = copy.deepcopy(cfg)
+    small["model"]["params"]["transformer_config"]["params"]["GPT_config"]["n_layer"] = 2
+    cpu = build_model(small, torch.device("cpu"), SEED + 61)
+    card = copy.deepcopy(cpu).to(dev)
+    steps = AR_HW[0] * AR_HW[1]
+    with torch.no_grad():
+        got = ar_sample(card.gpt, feats, steps=steps, top_k=1).cpu()
+        want = ar_sample(cpu.gpt, feats.cpu(), steps=steps, top_k=1)
+        logits = cpu.gpt(want[:, :-1], feats.cpu())
+    scale = float(logits.abs().max())
+    far, ties = 0, []
+    for b in range(want.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if len(diff):
+            t = int(diff[0])
+            margin = float(logits[b, t, want[b, t]] - logits[b, t, got[b, t]])
+            ties.append((b, t, margin / scale))
+            far += margin > AR_F32_TOL * scale
+    print(f"  (a) 2-layer copy at full width, greedy {steps} tokens, card vs CPU: rows equal "
+          f"{want.shape[0] - len(ties)}/{want.shape[0]}; first differences (row, step, margin / "
+          f"max|logit|) {ties}")
+    check(far == 0, f"AR (a): greedy tokens differ from the CPU's past a near-tie: {ties}")
+
+
+def _ar_train(model, feats, dev, cfg):
+    """(b): two train_ar steps at the flagship; card vs CPU on a 2-layer copy."""
+    import copy
+
+    from text_to_sound_synthesis_torch.engine.optimizers import decay_mask
+    from text_to_sound_synthesis_torch.tools import train_ar
+
+    bs = int(cfg["dataloader"]["batch_size"])
+    lr = bs * float(cfg["model"]["base_learning_rate"])
+    mel = torch.rand((BATCH, *MEL, 1), generator=torch.Generator(dev).manual_seed(SEED + 62),
+                     device=dev) * 2 - 1
+    codec0 = {k: v.clone() for k, v in model.codec.state_dict().items()}
+    gpt0 = {k: v.detach().clone() for k, v in model.gpt.named_parameters()}
+    opt = train_ar.build_optimizer(model, lr)
+    model.gpt.train()
+    losses, secs, zero = [], [], {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_ar.train_step(model, opt, mel, feats)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for n, p in model.gpt.named_parameters():
+            zero[n] = zero.get(n, True) & (p.grad == 0)
+    model.gpt.eval()
+    mask = decay_mask(model.gpt)
+    decayed = {id(p) for p in opt.param_groups[0]["params"]}
+    check({n for n, p in model.gpt.named_parameters() if id(p) in decayed}
+          == {n for n, d in mask.items() if d}, "AR (b): the decay group is not the decay mask")
+    check(all(torch.equal(v, codec0[k]) for k, v in model.codec.state_dict().items()),
+          "AR (b): the frozen codec moved")
+    still, moved_zero, unmoved = 0, 0, []
+    for n, p in model.gpt.named_parameters():
+        p0, z = gpt0[n], zero[n]
+        if bool((~z).any()) and not bool((p != p0)[~z].any()):
+            unmoved.append(n)
+        if mask[n]:
+            want = p0[z] * (1 - lr * train_ar.WEIGHT_DECAY) ** 2
+            moved_zero += int((p[z] != p0[z]).sum())
+            check(bool(((p[z] - want).abs() <= 2 * torch.finfo(torch.float32).eps
+                        * p0[z].abs()).all()), f"AR (b): {n}: zero-gradient entries off the decay")
+        else:
+            still += int(z.sum())
+            check(torch.equal(p[z], p0[z]), f"AR (b): {n}: an undecayed zero-gradient entry moved")
+    check(not unmoved, f"AR (b): tensors with gradients did not move: {unmoved}")
+    check(all(np.isfinite(losses)), f"AR (b): losses {losses}")
+    # the first step's loss and gradients, card against CPU, on a 2-layer copy
+    small = copy.deepcopy(cfg)
+    small["model"]["params"]["transformer_config"]["params"]["GPT_config"]["n_layer"] = 2
+    cpu = train_ar.build_model(small, torch.device("cpu"), SEED + 63)
+    card = copy.deepcopy(cpu).to(dev)
+    z = model.encode_to_z(mel)
+    norms = []
+    for m, zz, ff in ((card, z, feats), (cpu, z.cpu(), feats.cpu())):
+        loss, _ = m.token_loss(zz, ff)
+        loss.backward()
+        g = torch.sqrt(sum(p.grad.double().square().sum() for p in m.gpt.parameters()))
+        norms.append((float(loss.detach()), float(g)))
+    (l_card, g_card), (l_cpu, g_cpu) = norms
+    print(f"  (b) train_ar at the flagship, batch {BATCH} of {MEL[0]} x {MEL[1]}, lr {lr:g}: "
+          f"losses {losses}, {secs[0]:.4f} / {secs[1]:.4f} s a step; the codec unchanged; "
+          f"decay on the {len([d for d in mask.values() if d])} Linear / Conv weights of "
+          f"{len(mask)} tensors; zero-gradient entries over both steps: {still} undecayed, "
+          f"unchanged; decayed ones moved {moved_zero} (each as p (1 - lr wd)^2); 2-layer copy's "
+          f"first loss card {l_card!r} / CPU {l_cpu!r}, grad norm {g_card!r} / {g_cpu!r}")
+    check(abs(l_card - l_cpu) <= AR_LOSS_RTOL * abs(l_cpu), "AR (b): card vs CPU loss")
+    check(abs(g_card - g_cpu) <= AR_F32_TOL * g_cpu, "AR (b): card vs CPU gradient norm")
+    return secs
+
+
+def _denoisers(dev):
+    """(c): both denoisers at the JAX package's defaults (``DENOISERS``), one
+    forward each at batch 2, card against CPU."""
+    import copy
+
+    from text_to_sound_synthesis_torch.models.diffusion import backbone
+    from text_to_sound_synthesis_torch.utils.init import init_random_
+
+    gen = torch.Generator().manual_seed(SEED + 64)
+    out = []
+    for name, kw in DENOISERS.items():
+        cpu = init_random_(getattr(backbone, name)(**kw), gen).eval()
+        card = copy.deepcopy(cpu).to(dev)
+        H, W = cpu.content_emb.spatial_size
+        tokens = torch.randint(0, cpu.num_classes, (2, H * W), generator=gen)
+        t = torch.tensor([0, 73])
+        cond = (torch.tensor([3, cpu.blocks[0].ln2.emb.num_embeddings - 3])
+                if name.startswith("Condition") else None)
+        with torch.no_grad():
+            want = cpu(tokens, cond, t)
+            got = card(tokens.to(dev), None if cond is None else cond.to(dev), t.to(dev))
+        err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        n = sum(p.numel() for p in cpu.parameters()) / 1e6
+        out.append(f"{name} ({len(cpu.blocks)} x d{cpu.to_logits[1].in_features}, {n:.1f} M, "
+                   f"{H} x {W} tokens) {err:.2e}")
+        check(tuple(got.shape) == (2, H * W, cpu.num_classes - 1)
+              and bool(torch.isfinite(got).all()) and err <= AR_F32_TOL,
+              f"denoisers (c): {name}, card vs CPU {err:.2e}")
+    print(f"  (c) the JAX defaults, batch 2, card vs CPU, max|d| / max|CPU| (gate {AR_F32_TOL:g}): "
+          f"{'; '.join(out)}")
+
+
+def phase_ar(vocoder, dev):
+    """Phase 10d (module docstring). Returns the AR request's and the AR
+    train step's times."""
+    from text_to_sound_synthesis_torch.models.gpt import ar_sample
+    from text_to_sound_synthesis_torch.tools.train_ar import build_model
+    from text_to_sound_synthesis_torch.utils.config import load_yaml_config
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    cfg = load_yaml_config(AR_CONFIG)
+    with full_f32():
+        model = build_model(cfg, dev, SEED + 60)
+        n = sum(p.numel() for p in model.gpt.parameters())
+        width = cfg["model"]["params"]["transformer_config"]["params"][
+            "feat_embedding_config"]["params"]["in_channels"]
+        feats = torch.randn((BATCH, width, 1), generator=torch.Generator(dev).manual_seed(SEED + 65),
+                            device=dev)
+        feats = feats / feats.norm(dim=1, keepdim=True)
+        times = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel = model.sample(feats, AR_HW, top_k=AR_TOP_K,
+                               generator=torch.Generator(dev).manual_seed(SEED + 66 + i))
+            wav = vocoder((mel[..., 0] + 1.0) / 2.0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        tokens = ar_sample(model.gpt, feats, steps=AR_HW[0] * AR_HW[1], top_k=AR_TOP_K,
+                           generator=torch.Generator(dev).manual_seed(SEED + 67))
+        check(tuple(tokens.shape) == (BATCH, AR_HW[0] * AR_HW[1]) and int(tokens.min()) >= 0
+              and int(tokens.max()) < model.gpt.vocab_size, f"AR (a): tokens {tuple(tokens.shape)}")
+        check(torch.equal(model.decode_to_img(tokens, AR_HW), mel),
+              "AR (a): sample's mel is not decode_to_img of ar_sample's tokens")
+        check(tuple(mel.shape) == (BATCH, *MEL, 1) and bool(torch.isfinite(mel).all()),
+              f"AR (a): mel {tuple(mel.shape)}")
+        check(bool(torch.isfinite(wav).all()) and float(wav.abs().max()) <= 1.0,
+              "AR (a): the wav is not finite in [-1, 1]")
+        err = _ar_checks(model, feats, tokens)
+        cache_gb = 2 * model.gpt.n_layer * BATCH * model.gpt.block_size * model.gpt.n_embd * 4 / 1e9
+        print(f"  (a) {AR_CONFIG[len(REPO) + 1:]}: GPTFeats {model.gpt.n_layer} x d"
+              f"{model.gpt.n_embd}, {n / 1e6:.1f} M parameters, f32, KV cache {cache_gb:.2f} GB; "
+              f"two requests of batch {BATCH} (features -> {tokens.shape[1]} tokens, top-k "
+              f"{AR_TOP_K} -> "
+              f"decode_code -> MelGAN): {times[0]:.3f} / {times[1]:.3f} s; every token in its "
+              f"step's top {AR_TOP_K}; cached decode vs full forward {err:.2e} (gate "
+              f"{AR_F32_TOL:g})")
+        _ar_greedy_card_vs_cpu(cfg, feats, dev)
+        train_s = _ar_train(model, feats, dev, cfg)
+        del model
+        _denoisers(dev)
+    counts = read_counts()
+    check(counts == expected_counts(), f"AR phase: kernel launches {counts}")
+    print(f"  phase 10d: {time.perf_counter() - t_phase:.1f} s (launches no kernel)")
+    return times, train_s
 
 
 def _bound(nbytes, **ops):
@@ -3320,6 +3673,10 @@ def main() -> int:
           "the int8 drift gate]")
     ev = phase_eval(model, cond_tokens, dev)
 
+    print("[10d the AR baseline (request, train step) and the class-conditional and "
+          "unconditional denoisers]")
+    ar_times, ar_train_s = phase_ar(vocoder, dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -3361,6 +3718,11 @@ def main() -> int:
           f"{ev['caption_s']:.2f} s; griffin_lim {GL_ITERS} steps {1e3 * ev['gl_s']:.1f} ms; the "
           f"drift gate (40 train steps, 3 x {DRIFT_CLIPS} clips, W4A8 static) {ev['drift_s']:.1f} s, "
           f"drift_ratio {ev['drift']['drift_ratio']!r}; phase 10c {ev['seconds']:.1f} s")
+    print(f"  AR baseline (ar_audiocaps.yaml: GPTFeats 19 x d1024, f32), second request "
+          f"(features -> 265 tokens, top-k {AR_TOP_K} -> decode_code -> MelGAN, batch {BATCH}): "
+          f"{ar_times[1]:.3f} s = {BATCH / ar_times[1]:.3f} clips/s; its train step, batch "
+          f"{BATCH} of {MEL[0]} x {MEL[1]} (the codec frozen): second {ar_train_s[1]:.4f} s = "
+          f"{BATCH / ar_train_s[1]:.2f} samples/s")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

@@ -309,19 +309,40 @@ def test_tokenizer_is_built_at_first_use():
         assert model.text_to_tokens(["a dog barks"])["token"].shape == (1, CTX)
 
 
-@pytest.mark.parametrize("kind", ["linear", "conv", "embedding"])
+@pytest.mark.parametrize("kind", ["linear", "conv", "embedding", "zeros"])
 def test_seeded_init_lecun_normal_draws_flax_defaults(kind):
-    """``init_random_(lecun_normal=True)`` draws each weight as the JAX
-    package's flax module does by default: Dense and Conv ``lecun_normal``
-    (a normal truncated at two standard deviations, variance 1 / fan_in),
-    Embed an untruncated normal of variance 1 / features. Held by the draws'
-    largest |w| and standard deviation, in units of 1 / sqrt(fan_in), beside
-    flax's own init of the same shape; the default draws every one
-    untruncated, and a bf16 draw holds bf16 values."""
+    """``init_random_``'s default draws each weight as the JAX package's flax
+    module does by default: Dense and Conv ``lecun_normal`` (a normal
+    truncated at two standard deviations, variance 1 / fan_in), Embed an
+    untruncated normal of variance 1 / features, and the parameters that the
+    JAX package's modules initialise to zeros (the GPT's ``pos_emb``,
+    ``ContentEmbedding``'s ``height_emb`` / ``width_emb`` under
+    ``pos_emb_type="parameter"``) zeros. Held by the draws' largest |w| and
+    standard deviation, in units of 1 / sqrt(fan_in), beside flax's own init
+    of the same shape; a bf16 draw holds bf16 values."""
     import flax.linen as fnn
     from text_to_sound_synthesis_torch.utils.init import init_random_
 
     key, bound = jax.random.PRNGKey(0), 2.0 / 0.87962566103423978
+    if kind == "zeros":
+        from text_to_sound_synthesis_torch.models.diffusion.embeddings import ContentEmbedding
+        from text_to_sound_synthesis_torch.models.gpt import GPT
+        from text_to_sound_synthesis_tpu.models.diffusion.embeddings import \
+            ContentEmbedding as JContentEmbedding
+        from text_to_sound_synthesis_tpu.models.gpt import GPT as JGPT
+
+        gcfg = dict(vocab_size=12, block_size=18, n_layer=1, n_head=2, n_embd=16)
+        gpt = init_random_(GPT(**gcfg), torch.Generator().manual_seed(0))
+        emb = init_random_(ContentEmbedding(10, (3, 4), 16, pos_emb_type="parameter"),
+                           torch.Generator().manual_seed(0))
+        jg = JGPT(**gcfg).init(key, jnp.zeros((1, 2), jnp.int32))["params"]
+        je = JContentEmbedding(10, (3, 4), 16, pos_emb_type="parameter").init(
+            key, jnp.zeros((1, 12), jnp.int32))["params"]
+        for port, flax in ((gpt.pos_emb, jg["pos_emb"]), (emb.height_emb, je["height_emb"]),
+                           (emb.width_emb, je["width_emb"])):
+            assert port.shape == flax.shape and not port.any() and not np.asarray(flax).any()
+        assert gpt.tok_emb.weight.std() > 0 and emb.emb.weight.std() > 0
+        return
     if kind == "linear":
         port, fan_in = torch.nn.Linear(1024, 512), 1024
         flax = fnn.Dense(512).init(key, jnp.zeros((1, 1024)))["params"]["kernel"]
@@ -332,27 +353,25 @@ def test_seeded_init_lecun_normal_draws_flax_defaults(kind):
         port, fan_in = torch.nn.Embedding(4096, 64), 64
         flax = fnn.Embed(4096, 64).init(key, jnp.zeros((1,), jnp.int32))["params"]["embedding"]
     f = np.asarray(flax) * fan_in ** 0.5
-    draw = lambda **kw: init_random_(port, torch.Generator().manual_seed(0), **kw).weight \
-        .detach().numpy() * fan_in ** 0.5
-    w, plain = draw(lecun_normal=True), draw()
-    assert abs(w.std() - 1) < 0.02 and abs(f.std() - 1) < 0.02 and abs(plain.std() - 1) < 0.02
-    assert np.abs(plain).max() > 4
+    w = init_random_(port, torch.Generator().manual_seed(0)).weight.detach().numpy() \
+        * fan_in ** 0.5
+    assert abs(w.std() - 1) < 0.02 and abs(f.std() - 1) < 0.02
     if kind == "embedding":
         assert f.max() > 4 and abs(w.max() / f.max() - 1) < 0.15
     else:
         assert bound - 0.01 < np.abs(w).max() <= bound + 1e-5
         assert bound - 0.01 < np.abs(f).max() <= bound + 1e-5
         assert not port.bias.any()
-        init_random_(port, torch.Generator().manual_seed(0), draw_dtype=torch.bfloat16,
-                     lecun_normal=True)
+        init_random_(port, torch.Generator().manual_seed(0), draw_dtype=torch.bfloat16)
         assert torch.equal(port.weight.bfloat16().float(), port.weight)
 
 
 def test_import_does_not_load_jax():
     """The package and every module of the port, the int8 serving engine's,
     the training engine's (Stage 1, the vocoder's and Stage 2), the data
-    pipeline's, the data-parallel layer's and the evaluation's (its models
-    and tools) included, import without JAX."""
+    pipeline's, the data-parallel layer's, the evaluation's (its models
+    and tools) and the AR baseline's (its models and tools) included, import
+    without JAX."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
             "text_to_sound_synthesis_torch.models.diffusion.calibrate",
@@ -400,7 +419,11 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.models.captioner",
             "text_to_sound_synthesis_torch.tools.evaluate",
             "text_to_sound_synthesis_torch.tools.eval_captions",
-            "text_to_sound_synthesis_torch.tools.eval_int8_drift"]
+            "text_to_sound_synthesis_torch.tools.eval_int8_drift",
+            "text_to_sound_synthesis_torch.models.gpt",
+            "text_to_sound_synthesis_torch.models.gpt.net2net",
+            "text_to_sound_synthesis_torch.tools.train_ar",
+            "text_to_sound_synthesis_torch.tools.generate_ar"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu') "
             "if m in sys.modules]; "

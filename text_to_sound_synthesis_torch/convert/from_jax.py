@@ -35,7 +35,9 @@ __all__ = [
     "load_clip_text", "load_diffusion", "load_vqgan", "load_vqgan1d", "load_melgan_generator",
     "load_discriminator", "load_melgan_discriminator", "load_vggishish", "load_lpaps",
     "load_diffsound", "load_int8_engine", "melception_state_dict", "load_melception",
-    "captioner_state_dict", "load_captioner",
+    "captioner_state_dict", "load_captioner", "denoiser_state_dict", "load_denoiser",
+    "rnn_embedder_state_dict", "gpt_state_dict", "load_gpt", "net2net_state_dict",
+    "load_net2net",
 ]
 
 
@@ -127,13 +129,17 @@ def load_clip_text(module: nn.Module, params: Mapping) -> nn.Module:
 _BLOCK_SUB = {"mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
 
 
-def diffusion_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
-    """``DiscreteDiffusion`` tree -> the reference ``DiffusionTransformer``'s
-    denoiser names (``transformer.*``)."""
-    p = _params(params)["backbone"]
+def _denoiser_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
+    """A denoiser's tree (``content_emb``, ``block_i``, ``norm_out``,
+    ``head``) -> the reference's names (``to_logits.0/1``, ``blocks.i.mlp.0/2``);
+    a bare parameter (``content_emb/height_emb`` under ``pos_emb_type=
+    "parameter"``) keeps its name."""
     sd = {}
     for path, w in _flatten(p).items():
         head, leaf = path[0], path[-1]
+        if head == "content_emb" and len(path) == 2:
+            sd[f"content_emb.{leaf}"] = w
+            continue
         if head == "content_emb":
             torch_name = f"content_emb.{path[1]}"
         elif head == "norm_out":
@@ -147,8 +153,27 @@ def diffusion_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"unmapped diffusion param {'/'.join(path)}")
         name, v = _leaf(leaf, w, _dense)
-        sd[f"transformer.{torch_name}.{name}"] = v
+        sd[f"{torch_name}.{name}"] = v
     return sd
+
+
+def diffusion_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``DiscreteDiffusion`` tree -> the reference ``DiffusionTransformer``'s
+    denoiser names (``transformer.*``)."""
+    return {f"transformer.{k}": v
+            for k, v in _denoiser_state_dict(_params(params)["backbone"]).items()}
+
+
+def denoiser_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """A standalone ``Condition2SpecTransformer`` or ``UnCondition2SpecTransformer``
+    tree -> the reference ``Condition2ImageTransformer`` /
+    ``UnCondition2ImageTransformer``'s names (``blocks.i.ln2``: the class AdaLN
+    or the LayerNorm)."""
+    return _denoiser_state_dict(_params(params))
+
+
+def load_denoiser(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, denoiser_state_dict(params))
 
 
 def load_diffusion(module: nn.Module, params: Mapping) -> nn.Module:
@@ -420,6 +445,90 @@ def captioner_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 def load_captioner(module: nn.Module, params: Mapping) -> nn.Module:
     return _load(module, captioner_state_dict(params))
+
+
+# -- the AR baseline: the GPT family and Net2Net ---------------------------------------
+
+def rnn_embedder_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``RNNEmbedder`` tree (``cell_i``, flax LSTM or GRU cells) -> torch
+    ``nn.LSTM`` / ``nn.GRU`` names, the inverse of the JAX package's
+    ``convert/torch_to_jax.py::convert_rnn_embedder``: gate rows stacked in
+    torch's order (LSTM i, f, g, o; GRU r, z, n). flax keeps one bias a gate
+    where torch splits it into ``bias_ih`` and ``bias_hh``: it goes to
+    ``bias_ih`` and ``bias_hh`` is 0, but for the GRU's new gate, whose hidden
+    bias sits inside the reset product and stays apart (``hn``)."""
+    p = _params(params)
+    sd = {}
+    for i in range(len(p)):
+        cell = _flatten(p[f"cell_{i}"])
+        lstm = ("ii", "kernel") in cell
+        gates = "ifgo" if lstm else "rzn"
+        sd[f"weight_ih_l{i}"] = np.concatenate([_dense(cell[(f"i{g}", "kernel")]) for g in gates])
+        sd[f"weight_hh_l{i}"] = np.concatenate([_dense(cell[(f"h{g}", "kernel")]) for g in gates])
+        H = sd[f"weight_hh_l{i}"].shape[1]
+        zero = np.zeros(H, np.float32)
+        if lstm:
+            sd[f"bias_ih_l{i}"] = np.concatenate([cell[(f"h{g}", "bias")] for g in gates])
+            sd[f"bias_hh_l{i}"] = np.zeros(4 * H, np.float32)
+        else:
+            sd[f"bias_ih_l{i}"] = np.concatenate([cell[(f"i{g}", "bias")] for g in gates])
+            sd[f"bias_hh_l{i}"] = np.concatenate([zero, zero, cell[("hn", "bias")]])
+    return sd
+
+
+def _embedder_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A feature or class embedder's tree -> its torch names: Conv1d (WIO
+    kernel), Linear, Embed or an ``RNNEmbedder``."""
+    if "cell_0" in tree:
+        return rnn_embedder_state_dict(tree)
+    sd = {}
+    for (leaf,), w in _flatten(tree).items():
+        name, v = _leaf(leaf, w, _conv1d if w.ndim == 3 else _dense)
+        sd[name] = v
+    return sd
+
+
+_GPT_SUB = {"mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+
+
+def gpt_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``GPT``, ``GPTFeats``, ``GPTClass`` or ``GPTFeatsClass`` tree -> minGPT
+    names (``tok_emb``, ``pos_emb``, ``blocks.i.attn.key``, ``blocks.i.mlp.0/2``,
+    ``ln_f``, ``head``, and ``embedder`` / ``feat_embedder`` / ``cls_embedder``)."""
+    p = _params(params)
+    sd = {}
+    for path, w in _flatten(p.get("gpt", p)).items():
+        head = path[0]
+        if head == "pos_emb":
+            sd["pos_emb"] = w
+            continue
+        if head.startswith("block_"):
+            head = f"blocks.{head.split('_')[1]}." + ".".join(
+                [_GPT_SUB.get(path[1], path[1])] + list(path[2:-1]))
+        elif head in ("embedder", "feat_embedder", "cls_embedder"):
+            continue
+        name, v = _leaf(path[-1], w, _dense)
+        sd[f"{head}.{name}"] = v
+    for emb in ("embedder", "feat_embedder", "cls_embedder"):
+        if emb in p:
+            sd.update({f"{emb}.{k}": v for k, v in _embedder_state_dict(p[emb]).items()})
+    return sd
+
+
+def load_gpt(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, gpt_state_dict(params))
+
+
+def net2net_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX ``Net2NetTransformer`` params ``{"codec", "gpt"}`` -> the reference's
+    ``first_stage_model.*`` and ``transformer.*``."""
+    sd = {f"first_stage_model.{k}": v for k, v in vqgan_state_dict(params["codec"]).items()}
+    sd.update({f"transformer.{k}": v for k, v in gpt_state_dict(params["gpt"]).items()})
+    return sd
+
+
+def load_net2net(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    return _load(model, net2net_state_dict(params))
 
 
 # -- the composite -------------------------------------------------------------------

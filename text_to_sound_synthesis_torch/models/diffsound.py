@@ -164,13 +164,12 @@ class Diffsound(nn.Module):
     def text_codec(self) -> Tokenize:
         return self.condition_codec
 
-    def init_params(self, generator: torch.Generator, lecun_normal: bool = False) -> "Diffsound":
-        """Seeded random init of every parameter, in place, on its device
-        (``utils.init.init_random_``; ``lecun_normal``: its Linear and Conv
-        weights as the JAX package's flax defaults draw them). The draws are
-        made in the compute dtype, so a bf16 model holds (in f32) the values
-        a model stored in bf16 was given."""
-        init_random_(self, generator, draw_dtype=self.dtype, lecun_normal=lecun_normal)
+    def init_params(self, generator: torch.Generator) -> "Diffsound":
+        """Seeded random init of every parameter, in place, on its device, as
+        the JAX package's flax defaults draw them (``utils.init.init_random_``).
+        The draws are made in the compute dtype, so a bf16 model holds (in
+        f32) the values a model stored in bf16 was given."""
+        init_random_(self, generator, draw_dtype=self.dtype)
         return self
 
     @contextlib.contextmanager
@@ -495,12 +494,12 @@ def crossfade(mels: torch.Tensor, overlap_frames: int) -> torch.Tensor:
 
 
 def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 0,
-                load_codec: bool = True, lecun_normal: bool = False) -> Diffsound:
+                load_codec: bool = True) -> Diffsound:
     """``build_model(config['model'])`` of the reference
     (``sound_synthesis/modeling/build.py:4-5``). The modules are made without
     storage, then materialised on ``device`` (the card unless the caller asks
     for another) and initialised there at random from a generator seeded with
-    ``seed`` (``lecun_normal``: ``Diffsound.init_params``'s); then, when the
+    ``seed`` (``Diffsound.init_params``); then, when the
     config names a codec ``ckpt_path`` and ``load_codec`` is set, the codec's
     trained weights replace its random ones
     (the JAX package's ``init_params(load_codec=True)``; callers that load
@@ -511,7 +510,7 @@ def build_model(config: Mapping[str, Any], *, device: Any = "cuda", seed: int = 
         model = instantiate_from_config(config.get("model", config))
     model = model.to_empty(device=device)
     if torch.device(device).type != "meta":
-        model.init_params(torch.Generator(device).manual_seed(seed), lecun_normal=lecun_normal)
+        model.init_params(torch.Generator(device).manual_seed(seed))
         if load_codec and model.codec_ckpt_path:
             model._load_codec_params()
     return model.eval()

@@ -1,11 +1,13 @@
-"""Denoising transformer backbone: AdaLN(t) self+cross blocks (PyTorch port).
+"""Denoising transformer backbones: AdaLN(t) blocks (PyTorch port).
 
-Port of the ``selfcross`` denoiser of
-``text_to_sound_synthesis_tpu/models/diffusion/backbone.py`` (reference
-``Text2ImageTransformer``, transformer_utils.py): 19 layers x (AdaLN ->
-self-attn over 265 content tokens -> AdaLN -> cross-attn to 77 CLIP token
-embeddings -> LN -> 4x GELU2 MLP), final LN + Linear to ``num_embed`` classes
-(MASK is never predicted).
+Port of ``text_to_sound_synthesis_tpu/models/diffusion/backbone.py``: the
+``selfcross`` denoiser (reference ``Text2ImageTransformer``,
+transformer_utils.py): 19 layers x (AdaLN -> self-attn over 265 content tokens
+-> AdaLN -> cross-attn to 77 CLIP token embeddings -> LN -> 4x GELU2 MLP),
+final LN + Linear to ``num_embed`` classes (MASK is never predicted); and the
+class-conditional and unconditional denoisers (``Condition2ImageTransformer``,
+``UnCondition2ImageTransformer``: ``selfcondition`` / ``self`` blocks),
+standalone modules that no sampler builds, as in the JAX package.
 
 Parameter names are the reference's (``content_emb``, ``blocks.N.ln1.emb``,
 ``blocks.N.attn1.query``, ``blocks.N.mlp.0``, ``to_logits.0/1``). Activations
@@ -29,8 +31,9 @@ from ...utils.config import register
 from ...utils.dtype import check_compute_dtype
 from .embeddings import ContentEmbedding
 
-__all__ = ["Text2SpecTransformer", "SelfCrossBlock", "AdaLayerNorm", "MultiHeadAttention",
-           "SinusoidalTimeEmb", "gelu2"]
+__all__ = ["Text2SpecTransformer", "Condition2SpecTransformer", "UnCondition2SpecTransformer",
+           "SelfCrossBlock", "SelfConditionBlock", "SelfBlock", "AdaLayerNorm",
+           "MultiHeadAttention", "SinusoidalTimeEmb", "gelu2"]
 
 LN_EPS = 1e-6
 
@@ -78,6 +81,8 @@ class AdaLayerNorm(nn.Module):
     configs)."""
 
     def __init__(self, n_embd: int, diffusion_step: int, emb_type: str = "adalayernorm"):
+        # ``diffusion_step`` rows of the table: the class count when the
+        # modulation is keyed on a class id (``SelfConditionBlock.ln2``)
         super().__init__()
         self.diffusion_step = diffusion_step
         if "abs" in emb_type:
@@ -135,6 +140,15 @@ class MultiHeadAttention(nn.Module):
         return self.resid_drop(self.proj(y))
 
 
+def _mlp(n_embd: int, mlp_hidden_times: int, activate: str, resid_pdrop: float):
+    return nn.Sequential(
+        nn.Linear(n_embd, mlp_hidden_times * n_embd),
+        _ACT[activate](),
+        nn.Linear(mlp_hidden_times * n_embd, n_embd),
+        nn.Dropout(resid_pdrop),
+    )
+
+
 class SelfCrossBlock(nn.Module):
     """AdaLN->self-attn, AdaLN->cross-attn, LN->MLP (Block, transformer_utils.py:168-272)."""
 
@@ -148,12 +162,7 @@ class SelfCrossBlock(nn.Module):
         self.attn1 = MultiHeadAttention(n_embd, n_head, None, attn_pdrop, resid_pdrop)
         self.attn2 = MultiHeadAttention(n_embd, n_head, condition_dim, attn_pdrop, resid_pdrop)
         self.ln2 = nn.LayerNorm(n_embd, eps=LN_EPS)
-        self.mlp = nn.Sequential(
-            nn.Linear(n_embd, mlp_hidden_times * n_embd),
-            _ACT[activate](),
-            nn.Linear(mlp_hidden_times * n_embd, n_embd),
-            nn.Dropout(resid_pdrop),
-        )
+        self.mlp = _mlp(n_embd, mlp_hidden_times, activate, resid_pdrop)
 
     def ada_tables(self):
         """(T, 2D) modulation tables for both AdaLNs."""
@@ -170,6 +179,127 @@ class SelfCrossBlock(nn.Module):
         h = self.ln1_1(x, t, mod=m2)
         x = x + self.attn2(h, cond, kv_cache=cond_kv)
         return x + self.mlp(self.ln2(x))
+
+
+class SelfConditionBlock(nn.Module):
+    """'selfcondition' block: AdaLN(t) -> self-attn, then an AdaLN keyed on
+    the class id (over ``class_number`` rows) -> MLP (transformer_utils.py:207-219,
+    261-265)."""
+
+    def __init__(self, n_embd: int, n_head: int, diffusion_step: int,
+                 class_number: int = 1000, mlp_hidden_times: int = 4,
+                 activate: str = "GELU2", timestep_type: str = "adalayernorm",
+                 class_type: str = "adalayernorm", attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
+        super().__init__()
+        self.ln1 = AdaLayerNorm(n_embd, diffusion_step, timestep_type)
+        self.attn = MultiHeadAttention(n_embd, n_head, None, attn_pdrop, resid_pdrop)
+        self.ln2 = AdaLayerNorm(n_embd, class_number, class_type)
+        self.mlp = _mlp(n_embd, mlp_hidden_times, activate, resid_pdrop)
+
+    def forward(self, x, class_idx, t):
+        h = self.ln1(x, t)
+        x = x + self.attn(h, h)
+        return x + self.mlp(self.ln2(x, class_idx))
+
+
+class SelfBlock(nn.Module):
+    """'self' block: AdaLN(t) -> self-attn -> LN -> MLP (unconditional)."""
+
+    def __init__(self, n_embd: int, n_head: int, diffusion_step: int,
+                 mlp_hidden_times: int = 4, activate: str = "GELU2",
+                 timestep_type: str = "adalayernorm", attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
+        super().__init__()
+        self.ln1 = AdaLayerNorm(n_embd, diffusion_step, timestep_type)
+        self.attn = MultiHeadAttention(n_embd, n_head, None, attn_pdrop, resid_pdrop)
+        self.ln2 = nn.LayerNorm(n_embd, eps=LN_EPS)
+        self.mlp = _mlp(n_embd, mlp_hidden_times, activate, resid_pdrop)
+
+    def forward(self, x, t):
+        h = self.ln1(x, t)
+        x = x + self.attn(h, h)
+        return x + self.mlp(self.ln2(x))
+
+
+class _GridDenoiser(nn.Module):
+    """Content embedding -> blocks -> LN + Linear to ``num_embed`` classes."""
+
+    def __init__(self, blocks, n_embd: int, content_spatial_size,
+                 content_emb_config: Optional[Mapping[str, Any]]):
+        super().__init__()
+        emb_params = dict((content_emb_config or {}).get("params", {}))
+        emb_params.setdefault("spatial_size", tuple(content_spatial_size))
+        self.content_emb = ContentEmbedding(**emb_params)
+        self.blocks = nn.ModuleList(blocks)
+        self.to_logits = nn.Sequential(
+            nn.LayerNorm(n_embd, eps=LN_EPS),
+            nn.Linear(n_embd, self.content_emb.num_classes - 1),
+        )
+
+    @property
+    def num_classes(self) -> int:
+        return self.content_emb.num_classes
+
+
+@register(
+    "text_to_sound_synthesis_tpu.models.diffusion.Condition2SpecTransformer",
+    "sound_synthesis.modeling.transformers.transformer_utils.Condition2ImageTransformer",
+)
+class Condition2SpecTransformer(_GridDenoiser):
+    """Class-conditional denoiser (Condition2ImageTransformer,
+    transformer_utils.py:445-585): tokens + class id + t -> logits."""
+
+    def __init__(self, class_number: int = 1000, n_layer: int = 24, n_embd: int = 1024,
+                 n_head: int = 16, content_seq_len: int = 265, diffusion_step: int = 100,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0, mlp_hidden_times: int = 4,
+                 block_activate: str = "GELU2", attn_type: str = "selfcondition",
+                 class_type: str = "adalayernorm", timestep_type: str = "adalayernorm",
+                 mlp_type: str = "fc", content_spatial_size: Any = (5, 53),
+                 content_emb_config: Optional[Mapping[str, Any]] = None):
+        super().__init__(
+            (SelfConditionBlock(n_embd, n_head, diffusion_step, class_number, mlp_hidden_times,
+                                block_activate, timestep_type, class_type, attn_pdrop,
+                                resid_pdrop) for _ in range(n_layer)),
+            n_embd, content_spatial_size, content_emb_config)
+
+    def forward(self, tokens: torch.Tensor, class_idx: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        """tokens (B, L) int; class ids (B,) or (B, 1); t (B,) int ->
+        logits (B, L, num_classes - 1)."""
+        x = self.content_emb(tokens)
+        class_idx = class_idx.reshape(-1)
+        for blk in self.blocks:
+            x = blk(x, class_idx, t)
+        return self.to_logits(x)
+
+
+@register(
+    "text_to_sound_synthesis_tpu.models.diffusion.UnCondition2SpecTransformer",
+    "sound_synthesis.modeling.transformers.transformer_utils.UnCondition2ImageTransformer",
+)
+class UnCondition2SpecTransformer(_GridDenoiser):
+    """Unconditional denoiser (UnCondition2ImageTransformer,
+    transformer_utils.py:588-725)."""
+
+    def __init__(self, n_layer: int = 24, n_embd: int = 512, n_head: int = 16,
+                 content_seq_len: int = 256, diffusion_step: int = 100,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0, mlp_hidden_times: int = 4,
+                 block_activate: str = "GELU2", attn_type: str = "self",
+                 timestep_type: str = "adalayernorm", mlp_type: str = "fc",
+                 content_spatial_size: Any = (16, 16),
+                 content_emb_config: Optional[Mapping[str, Any]] = None):
+        super().__init__(
+            (SelfBlock(n_embd, n_head, diffusion_step, mlp_hidden_times, block_activate,
+                       timestep_type, attn_pdrop, resid_pdrop) for _ in range(n_layer)),
+            n_embd, content_spatial_size, content_emb_config)
+
+    def forward(self, tokens: torch.Tensor, cond: Any, t: torch.Tensor) -> torch.Tensor:
+        """``cond`` accepted and ignored (unconditional)."""
+        x = self.content_emb(tokens)
+        for blk in self.blocks:
+            x = blk(x, t)
+        return self.to_logits(x)
 
 
 @register(

@@ -27,18 +27,27 @@ __all__ = ["ContentEmbedding"]
     "sound_synthesis.modeling.embeddings.dalle_mask_image_embedding.DalleMaskImageEmbedding",
 )
 class ContentEmbedding(nn.Module):
+    """``pos_emb_type="embedding"`` (every config) keeps the positions as
+    ``Embedding`` tables; ``"parameter"`` as bare (H, D) / (W, D) parameters
+    of the same names, zeros at init (``ZERO_INIT``), as the JAX module's
+    ``self.param(..., zeros, ...)``."""
+
+    ZERO_INIT = ("height_emb", "width_emb")
+
     def __init__(self, num_embed: int = 256, spatial_size: Sequence[int] = (5, 53),
                  embed_dim: int = 1024, trainable: bool = True,
                  pos_emb_type: str = "embedding"):
         super().__init__()
-        if pos_emb_type != "embedding":
-            raise NotImplementedError(f"pos_emb_type {pos_emb_type!r}: only 'embedding' is ported")
         self.num_embed = num_embed
         self.spatial_size = tuple(int(s) for s in spatial_size)
         H, W = self.spatial_size
         self.emb = nn.Embedding(num_embed + 1, embed_dim)
-        self.height_emb = nn.Embedding(H, embed_dim)
-        self.width_emb = nn.Embedding(W, embed_dim)
+        if pos_emb_type == "embedding":
+            self.height_emb = nn.Embedding(H, embed_dim)
+            self.width_emb = nn.Embedding(W, embed_dim)
+        else:
+            self.height_emb = nn.Parameter(torch.zeros(H, embed_dim))
+            self.width_emb = nn.Parameter(torch.zeros(W, embed_dim))
 
     @property
     def num_classes(self) -> int:
@@ -48,6 +57,7 @@ class ContentEmbedding(nn.Module):
     def forward(self, index: torch.Tensor) -> torch.Tensor:
         """(B, L) int token ids (mask id == num_embed) -> (B, L, D)."""
         tok = self.emb(index.clamp(min=0))  # reference clamps negatives to 0
-        pos = (self.height_emb.weight[:, None, :] + self.width_emb.weight[None, :, :])
-        pos = pos.reshape(1, -1, pos.shape[-1])
+        h, w = (e if isinstance(e, torch.Tensor) else e.weight
+                for e in (self.height_emb, self.width_emb))
+        pos = (h[:, None, :] + w[None, :, :]).reshape(1, -1, h.shape[-1])
         return tok + pos[:, : tok.shape[1], :].to(tok.dtype)

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..utils.config import register
+from ..utils.init import lecun_normal_
 
 __all__ = ["ActNorm", "FlaxBatchNorm1d", "FlaxBatchNorm2d", "NLayerDiscriminator",
            "NLayerDiscriminator1dFeats", "NLayerDiscriminator1dSpecs", "frozen_batch_stats",
@@ -211,12 +212,12 @@ class NLayerDiscriminator1dSpecs(_Disc1d):
 
 @torch.no_grad()
 def init_discriminator_(disc: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The training init from scratch, as the JAX package's: conv kernels ~
-    N(0, 1/fan_in), biases 0; BatchNorm scale 1, bias 0, running mean 0 and
-    variance 1; ActNorm loc 0, scale 1."""
+    """The training init from scratch, as the JAX package's: conv kernels
+    flax's ``lecun_normal``, biases 0; BatchNorm scale 1, bias 0, running mean
+    0 and variance 1; ActNorm loc 0, scale 1."""
     for m in disc.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-            m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
+            lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, _FlaxStats):

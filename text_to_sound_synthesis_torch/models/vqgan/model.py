@@ -115,7 +115,7 @@ class VQSegmentationModel(VQModel):
 @torch.no_grad()
 def init_codec_(codec: nn.Module, generator: torch.Generator) -> nn.Module:
     """The training init of a codec from scratch, as the JAX package's: convs
-    ~ N(0, 1/fan_in), biases 0, GroupNorm scales 1, and each codebook
+    flax's ``lecun_normal``, biases 0, GroupNorm scales 1, and each codebook
     U(-1/n_e, 1/n_e) (quantize.py:52-59), not the generic init's normal."""
     init_random_(codec, generator)
     for m in codec.modules():

@@ -15,10 +15,10 @@ int8 drift is acceptable when row 5's two numbers are comparable — the
 quantization then moves the sample distribution no further than resampling
 does (the JAX package's gate: ``drift_ratio <= 1.5``). With no released
 checkpoint the tool runs the model on random weights (still a valid relative
-comparison), drawn as the JAX package's flax modules draw them (Linear and
-Conv weights ``lecun_normal``, truncated at two standard deviations: the W4
-grid's step is each output channel's largest weight over 7, so the tails
-decide the int8 engine's error); pass ``--ckpt`` / ``--melception`` for the
+comparison), drawn as the port's seeded init draws them, the JAX
+package's flax defaults (Linear and Conv weights ``lecun_normal``, truncated
+at two standard deviations: the W4 grid's step is each output channel's
+largest weight over 7, so the tails decide the int8 engine's error); pass ``--ckpt`` / ``--melception`` for the
 real gate.
 
 The sets are drawn on the model's bf16 compute dtype (the served bf16 path)
@@ -170,7 +170,7 @@ def run(args) -> dict:
 
     device = local_device(args.device)
     model = build_model(load_yaml_config(args.config_file), device=device, seed=args.seed,
-                        load_codec=args.ckpt == "random", lecun_normal=True)
+                        load_codec=args.ckpt == "random")
     if args.ckpt != "random":
         load_weights(model, load_checkpoint(args.ckpt), prefer_ema=True)
     if args.train_steps:
