@@ -27,8 +27,11 @@ its ``melgan_trainer``; ``vocoder``), both in f32 under PyTorch's default
 precision, then the AR baseline of ``configs/ar_audiocaps.yaml`` in full
 f32 as ``chip_smoke.py`` phase 10d builds it: one batch-8 request (265
 cached decodes at top-k 100, then ``decode_code``; ``ar``) and one
-``train_ar`` step at batch 8 of 80 x 848 mels (``ar_train``): all of them,
-or the paths named. One
+``train_ar`` step at batch 8 of 80 x 848 mels (``ar_train``); first, if
+named, ``chip_smoke.py`` phase 10e's HTTP server (W4A8 static, batch 8) over
+one burst of 32 mel requests from 16 clients (``serve``, before the model
+above is built; the profiler sees every thread's kernels, the wall is the
+burst's): all of them, or the paths named. One
 warm-up request,
 one unprofiled request (host clock up to a synchronize), then one request
 under ``torch.profiler``. The vocoder is left out. Then K11, which no request
@@ -80,7 +83,52 @@ def profile(name: str, run, what: str = "request without the vocoder") -> None:
 # a request's sampling, and its tokens returned beside the mel
 REQ = dict(sample_type="top0.85r", return_tokens=True)
 PATHS = ("bf16", "w4", "w8", "int8mha", "long", "ref", "k11", "train", "train_bf16", "stage1",
-         "vocoder", "ar", "ar_train")
+         "vocoder", "ar", "ar_train", "serve")
+
+
+def profile_serve(dev) -> None:
+    """``chip_smoke.py`` phase 10e's server (``--int8 --calibrate``, W4A8
+    static, batch 8, linger 50 ms) on 127.0.0.1:0, its captions on
+    ``$T2S_CLIP_BPE`` or the synthetic merge table: one burst of
+    ``SERVE_BURST`` mel requests from ``SERVE_CLIENTS`` clients, as
+    ``profile`` times a request."""
+    import os
+    import tempfile
+    import threading
+
+    from text_to_sound_synthesis_torch.tools import bench_serve, serve
+
+    old = os.environ.get("T2S_CLIP_BPE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["T2S_CLIP_BPE"] = old or cs.write_merge_table(os.path.join(tmp, "merges.txt"))
+        calib = os.path.join(tmp, "captions.txt")
+        with open(calib, "w") as f:
+            f.write("\n".join(bench_serve.CAPTIONS) + "\n")
+        engine = serve.Engine(serve.get_args(
+            ["--config_file", cs._flagship_yaml(os.path.join(tmp, "flagship_bf16.yaml")),
+             "--ckpt", "random", "--seed", str(cs.SEED + 2), "--int8", "--calibrate", calib,
+             "--batch", str(cs.BATCH), "--max_wait_ms", "50", "--port", "0"]))
+        srv = serve.make_server(engine, "127.0.0.1", 0)
+        host, port = srv.server_address
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            start = len(engine.timeline)
+            profile(f"server burst, W4A8 static, batch {cs.BATCH}: {cs.SERVE_BURST} mel requests "
+                    f"from {cs.SERVE_CLIENTS} clients",
+                    lambda: bench_serve.burst(host, port, cs.SERVE_BURST, cs.SERVE_CLIENTS) and None,
+                    what="burst")
+            tl = engine.timeline[start:]
+            dispatch = ", ".join(f"{t['dispatch_end'] - t['dispatch_start']:.3f}" for t in tl)
+            fetch = ", ".join(f"{t['fetch_end'] - t['dispatch_end']:.3f}" for t in tl)
+            print(f"  batches of the three bursts {[t['size'] for t in tl]}; per batch, dispatch "
+                  f"(launches) {dispatch} s, then the wait for its fetch {fetch} s")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            engine.close()
+            if old is None:
+                os.environ.pop("T2S_CLIP_BPE", None)
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -97,6 +145,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(cs.card_line())
+    if "serve" in paths:
+        profile_serve(dev)
     cfg = load_yaml_config(cs.CONFIG)
     cfg["model"]["params"]["dtype"] = "bfloat16"
     model = build_model(cfg, device=dev, seed=cs.SEED)

@@ -229,11 +229,39 @@ Phases (any failed check exits nonzero, and no result line is printed):
              (c) ``Condition2SpecTransformer`` and
              ``UnCondition2SpecTransformer`` at the JAX defaults (DENOISERS),
              one forward each, card against CPU within AR_F32_TOL.
+10e. entry — the user-facing tools, as a user runs them, on the flagship YAML
+             with ``dtype: bfloat16`` and seeded weights, each tool building
+             its own model on the card; captions tokenized with
+             ``$T2S_CLIP_BPE`` where it is set, else the synthetic merge
+             table ``BPE_MERGES`` written to a temporary directory (the phase
+             says which, and whether ``regex`` is importable). (a) the fixed
+             captions of ``TOKENIZER_IDS`` (non-ASCII words among them) give
+             the JAX package's ids on the synthetic table. (b) the generate
+             CLI in-process (``main(argv)``): two captions x ``--replicate
+             4``, batch 8, with ``--vocoder`` on the phase's MelGAN written
+             as in 5b (d): 8 ``.npy`` + 8 ``.wav``, the mels bit for bit
+             ``Diffsound.generate``'s on a generator seeded ``--seed`` (K1 =
+             100); then ``--int8 --duration 25 --batch 1``: a wav of
+             round(25 x 22050 / 256) x 256 samples (K2 = 100). (c) the HTTP
+             server (``--int8 --calibrate``: W4A8 static, ``--batch 8
+             --max_wait_ms 50``) on 127.0.0.1:0: ``/healthz``; eight
+             concurrent requests of one caption form one batch whose mels are,
+             as a set, bit for bit a direct ``generate_int8`` on the same
+             captions with the generator in the same state, its launches phase
+             6's request's; a 400 and a 404; a burst of 32 mel requests from
+             16 clients and 2 wav requests, all 200, at least one dispatch
+             begun before the previous batch's fetch ended (the collector's
+             and fetcher's timestamps); the burst again without the wavs;
+             clips/s, p50 and p95 of each, reported, not gated; then a bf16
+             server of batch 1 at
+             ``--queue_limit 1``: two requests answered, the third 429. (d)
+             ``bench_serve`` in-process at ``--requests 16 --clients 8
+             --batch 8``: its JSON line, every request answered.
 11. times  — each path's request time and clips/s, phase 5b's reference and
              fused times in bench.py's scope, the train steps' times (Stage 2
              in f32 and bf16, Stage 1, MelGAN, the AR baseline), the
-             evaluation's, the AR request's, beside the card's name and power
-             limit. Every request phase counts K11 and
+             evaluation's, the AR request's, the server burst's, beside the
+             card's name and power limit. Every request phase counts K11 and
              T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
@@ -1564,6 +1592,24 @@ def _onehot_steps_vs_k1(model, fs, cond_emb, r, rule, dev):
             len(ts) * BATCH * L)
 
 
+def write_vocoder_dir(vocoder, voc_dir: str) -> str:
+    """Write ``vocoder`` in the reference's layout to ``voc_dir``: ``args.yml``
+    (``VOC_ARGS``) and a weight-normed ``best_netG.pt``. Returns ``voc_dir``."""
+    os.makedirs(voc_dir)
+    with open(os.path.join(voc_dir, "args.yml"), "w") as f:
+        f.write("".join(f"{k}: {v}\n" for k, v in VOC_ARGS.items()))
+    wn = {}
+    for k, w in vocoder.gen.state_dict().items():   # weight norm: v = 2 w, g = |w|
+        w = w.cpu()
+        if k.endswith(".weight"):
+            wn[k + "_g"] = w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
+            wn[k + "_v"] = 2 * w
+        else:
+            wn[k] = w
+    torch.save(wn, os.path.join(voc_dir, "best_netG.pt"))
+    return voc_dir
+
+
 def phase_onehot(model, fs, vocoder, cond_tokens, cfg, dev):
     """Phase 5b: the one-hot reference sampler and the rest of the inference
     API on the bf16 flagship (module docstring). Returns the bench-scope
@@ -1652,20 +1698,7 @@ def phase_onehot(model, fs, vocoder, cond_tokens, cfg, dev):
         del loaded
         check(same, "codec .ckpt: decode_code differs from the source model's")
 
-        voc_dir = os.path.join(tmp, "vocoder")
-        os.makedirs(voc_dir)
-        with open(os.path.join(voc_dir, "args.yml"), "w") as f:
-            f.write("".join(f"{k}: {v}\n" for k, v in VOC_ARGS.items()))
-        wn = {}
-        for k, w in vocoder.gen.state_dict().items():   # weight norm: v = 2 w, g = |w|
-            w = w.cpu()
-            if k.endswith(".weight"):
-                wn[k + "_g"] = w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
-                wn[k + "_v"] = 2 * w
-            else:
-                wn[k] = w
-        torch.save(wn, os.path.join(voc_dir, "best_netG.pt"))
-        voc2 = load_vocoder(voc_dir, device=dev)
+        voc2 = load_vocoder(write_vocoder_dir(vocoder, os.path.join(tmp, "vocoder")), device=dev)
         spec = ((rec[:2, ..., 0].float() + 1) / 2).clamp(0, 1)
         voc_err = float((voc2(spec) - vocoder(spec)).abs().max())
     print(f"  (d) codec .ckpt (Lightning layout, a loss.* entry) built and loaded on the card: "
@@ -3426,6 +3459,361 @@ def phase_ar(vocoder, dev):
     return times, train_s
 
 
+# -- phase 10e: the entry points -------------------------------------------------------------
+
+# A synthetic CLIP merge table, for machines without the released one
+# ($T2S_CLIP_BPE): byte pairs of the captions below, "é" (bytes c3 a9, "Ã©"
+# in the byte alphabet) and "ß" ("ÃŁ") among them. It gives a vocabulary of
+# 532 ids, SOT 530 and EOT 531, inside the CLIP tower's 49 408 rows.
+BPE_MERGES = ("t h", "th e</w>", "i n", "i n</w>", "d o", "do g</w>", "r a", "ra in</w>", "a r",
+              "b ar", "c a", "ca f", "\u00c3 \u00a9", "\u00c3 \u00a9</w>", "caf \u00c3\u00a9</w>",
+              "\u00c3 \u0141", "s t", "st r")
+# each caption's ids on that table, as the JAX package's tokenizer (with
+# ``regex``) gives them; tests/test_torch_tokenizer.py holds them to it
+TOKENIZER_IDS = {
+    "the dog barks in the rain": [513, 517, 521, 74, 338, 515, 513, 519],
+    "a caf\u00e9 with na\u00efve jazz":
+        [320, 526, 86, 72, 83, 327, 77, 64, 127, 107, 85, 324, 73, 64, 89, 345],
+    "stra\u00dfe": [528, 518, 527, 324],
+    "\u00dcn\u00efc\u00f6d\u00e9 \u00c0\u00c9\u00ce \u65e5\u672c\u8a9e\u306e\u97f3 \u0663\u0664 \u00bd":
+        [127, 120, 77, 127, 107, 66, 127, 114, 67, 525, 127, 254, 524, 127, 362, 162, 245, 98, 162,
+         250, 105, 164, 103, 252, 159, 223, 106, 165, 253, 367, 149, 352, 149, 353, 126, 377],
+    "tom&#39;s  dog &amp; cat\u3000barks\x85twice\x1cnow":
+        [83, 78, 332, 6, 338, 517, 261, 522, 339, 521, 74, 338, 83, 86, 72, 66, 324, 77, 78, 342],
+    "it's the DOG's caf\u00e9!!": [72, 339, 6, 338, 513, 517, 6, 338, 526, 0, 256],
+}
+
+
+def write_merge_table(path: str) -> str:
+    """Write ``BPE_MERGES`` as a merge table (a header line, then one merge a
+    line) to ``path``; returns ``path``."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(("#version: 0.2",) + BPE_MERGES))
+    return path
+
+
+# the entry points' requests: (b) two captions x 4, (c) one caption x BATCH, then
+# the burst of SERVE_BURST mel requests from SERVE_CLIENTS clients and two wavs
+ENTRY_CAPTIONS = ("a dog barks in the rain", "thunder rumbles while a train passes")
+LONG_SECONDS = 25
+SERVE_BURST, SERVE_CLIENTS = 32, 16
+
+
+def _flagship_yaml(path: str) -> str:
+    """The flagship config with ``dtype: bfloat16`` (phase 5's model), as a YAML."""
+    from text_to_sound_synthesis_torch.utils.config import load_yaml_config, save_config_to_yaml
+
+    cfg = load_yaml_config(CONFIG)
+    cfg["model"]["params"]["dtype"] = "bfloat16"
+    save_config_to_yaml(cfg, path)
+    return path
+
+
+def _entry_tokenizer(tmp: str) -> str:
+    """(a): the fixed captions' ids on the synthetic table against the JAX
+    package's. Returns the table (b)-(d) tokenize with."""
+    import importlib.util
+
+    from text_to_sound_synthesis_torch.models.clip.tokenizer import ClipBPETokenizer
+
+    synthetic = write_merge_table(os.path.join(tmp, "merges.txt"))
+    tok = ClipBPETokenizer(bpe_path=synthetic)
+    bad = [c for c, ids in TOKENIZER_IDS.items() if tok.encode(c) != ids]
+    print(f"  (a) tokenizer: {len(TOKENIZER_IDS) - len(bad)} of {len(TOKENIZER_IDS)} fixed captions "
+          f"(non-ASCII words among them) give the JAX package's ids on the synthetic table; "
+          f"`regex` importable on this machine: {importlib.util.find_spec('regex') is not None}")
+    check(not bad, f"tokenizer: ids differ from the JAX package's for {bad!r}")
+    table = os.environ.get("T2S_CLIP_BPE")
+    print(f"      (b)-(d) tokenize with {'$T2S_CLIP_BPE = ' + table if table else 'the synthetic table'}")
+    return table or synthetic
+
+
+def _wav_frames(path: str) -> int:
+    import wave
+
+    with wave.open(path) as w:
+        check((w.getframerate(), w.getsampwidth(), w.getnchannels()) == (22050, 3, 1),
+              f"{path}: not a 22 050 Hz PCM_24 mono wav")
+        return w.getnframes()
+
+
+def _entry_cli(yml: str, voc_dir: str, tmp: str, dev) -> float:
+    """(b): the generate CLI in-process, bf16 and ``--int8 --duration``.
+    Returns the bf16 run's seconds."""
+    from text_to_sound_synthesis_torch.tools import generate as cli
+
+    built, load = [], cli.load_model
+
+    def recording(*args, **kwargs):     # the CLI's model, for the direct comparison
+        built.append(load(*args, **kwargs))
+        return built[-1]
+
+    cli.load_model = recording
+    try:
+        out = os.path.join(tmp, "cli_bf16")
+        argv = ["--config_file", yml, "--ckpt", "random", "--seed", str(SEED), "--outdir", out,
+                "--vocoder", voc_dir, "--replicate", "4", "--batch", "2"]
+        for cap in ENTRY_CAPTIONS:
+            argv += ["--caption", cap]
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(argv) == 0, "generate CLI (bf16) failed")
+        bf16_s = time.perf_counter() - t0
+        counts = read_counts()
+        model = built.pop()
+        names = [f"caption{c}_sample_{i}" for c in range(2) for i in range(4)]
+        check(sorted(os.listdir(out)) == sorted(n + e for n in names for e in (".npy", ".wav")),
+              f"generate CLI wrote {sorted(os.listdir(out))}")
+        check(counts == expected_counts(K1=N_STEPS), f"generate CLI (bf16): launches {counts}")
+        got = np.stack([np.load(os.path.join(out, n + ".npy")) for n in names])
+        caps = [c for c in ENTRY_CAPTIONS for _ in range(4)]
+        toks = torch.from_numpy(model.text_to_tokens(caps)["token"]).to(dev)
+        want = cli.to_spec(model.generate(torch.Generator(dev).manual_seed(SEED), toks))
+        check(np.array_equal(got, want.cpu().numpy()),
+              "generate CLI (bf16): the mels differ from Diffsound.generate's")
+        frames = {_wav_frames(os.path.join(out, n + ".wav")) for n in names}
+        check(frames == {MEL[1] * 256}, f"generate CLI (bf16): wav frames {frames}")
+        print(f"  (b) generate CLI, bf16, 2 captions x --replicate 4 (batch {BATCH}, {N_STEPS} "
+              f"steps) with the MelGAN of {voc_dir[len(tmp) + 1:]}/: {bf16_s:.2f} s (the model's "
+              f"build and the eight vocoder calls included); 8 .npy + 8 .wav; the mels bit for "
+              f"bit Diffsound.generate's on a generator seeded --seed; launches {counts}")
+        del model, want
+
+        out = os.path.join(tmp, "cli_long")
+        reset_counts()
+        t0 = time.perf_counter()
+        check(cli.main(["--config_file", yml, "--ckpt", "random", "--seed", str(SEED + 1),
+                        "--outdir", out, "--vocoder", voc_dir, "--int8", "--duration",
+                        str(LONG_SECONDS), "--batch", "1", "--replicate", "1", "--caption",
+                        ENTRY_CAPTIONS[1]]) == 0, "generate CLI (--int8 --duration) failed")
+        long_s = time.perf_counter() - t0
+        counts = read_counts()
+        n_frames = round(LONG_SECONDS * 22050 / 256)
+        spec = np.load(os.path.join(out, "caption0_sample_0.npy"))
+        check(spec.shape == (MEL[0], n_frames) and bool(np.isfinite(spec).all()),
+              f"generate CLI (--int8 --duration): mel {spec.shape}")
+        wav_frames = _wav_frames(os.path.join(out, "caption0_sample_0.wav"))
+        check(wav_frames == n_frames * 256, f"generate CLI (--int8 --duration): {wav_frames} frames")
+        want = expected_counts(K2=N_STEPS)     # one sampler call of 3 rows; K3-K5 as dynamic
+        check(all(counts[k] == want[k] for k in ("K1", "K2", "K11", "T1", "T2", "T3")),
+              f"generate CLI (--int8 --duration): launches {counts}")
+        print(f"  (b) generate CLI, --int8 (W4A8, dynamic scales) --duration {LONG_SECONDS} "
+              f"--batch 1: {long_s:.2f} s (build and quantization included); a {n_frames}-frame "
+              f"mel, a wav of {wav_frames} samples; launches {counts}")
+    finally:
+        cli.load_model = load
+        built.clear()
+    torch.cuda.empty_cache()
+    return bf16_s
+
+
+def _http(host: str, port: int, method: str, path: str, body=None):
+    """One request -> (status, content type, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def _concurrent_http(host: str, port: int, bodies, stagger: float = 0.0):
+    """POST /generate each body from its own thread -> [(status, type, body)]."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def post(i):
+        out[i] = _http(host, port, "POST", "/generate", bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+        time.sleep(stagger)
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "server: a request never returned")
+    return out
+
+
+def _burst_numbers(results, wall: float, timeline) -> dict:
+    """A burst's mel answers ([(ok, seconds, status)]) and its batches'
+    timestamps -> clips/s, p50, p95 and each batch's dispatch and fetch wait."""
+    lats = sorted(sec for _, sec, _ in results)
+    n = len(lats)
+    return {"clips_per_s": n / wall, "p50_s": lats[n // 2], "p95_s": lats[min(n - 1, int(n * 0.95))],
+            "wall_s": wall, "batches": [t["size"] for t in timeline],
+            "dispatch_s": [t["dispatch_end"] - t["dispatch_start"] for t in timeline],
+            "fetch_wait_s": [t["fetch_end"] - t["dispatch_end"] for t in timeline]}
+
+
+def _burst_line(b: dict) -> str:
+    return (f"{b['clips_per_s']:.3f} clips/s ({len(b['batches'])} batches {b['batches']} in "
+            f"{b['wall_s']:.3f} s), p50 {b['p50_s']:.3f} s, p95 {b['p95_s']:.3f} s; per batch, "
+            f"dispatch (launches) {', '.join(f'{x:.3f}' for x in b['dispatch_s'])} s, then the "
+            f"wait for its fetch {', '.join(f'{x:.3f}' for x in b['fetch_wait_s'])} s")
+
+
+def _entry_server(yml: str, voc_dir: str, tmp: str, dev) -> dict:
+    """(c): the W4A8 static server on 127.0.0.1:0, then a bf16 one at a queue
+    limit of 1 for the 429. Returns the burst's numbers."""
+    import io
+    import threading
+
+    from text_to_sound_synthesis_torch.tools import bench_serve, serve
+    from text_to_sound_synthesis_torch.tools.generate import to_spec
+
+    calib = os.path.join(tmp, "captions.txt")
+    with open(calib, "w") as f:
+        f.write("\n".join(bench_serve.CAPTIONS) + "\n")
+    t0 = time.perf_counter()
+    engine = serve.Engine(serve.get_args(
+        ["--config_file", yml, "--ckpt", "random", "--seed", str(SEED + 2), "--int8",
+         "--calibrate", calib, "--batch", str(BATCH), "--max_wait_ms", "50", "--vocoder",
+         voc_dir, "--port", "0"]))
+    ready_s = time.perf_counter() - t0
+    check(engine.qp.weight_bits == 4 and engine.qp.act_scales is not None,
+          "server: --int8 --calibrate is not the W4A8 static engine")
+    srv = serve.make_server(engine, "127.0.0.1", 0)
+    host, port = srv.server_address
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        status, ctype, body = _http(host, port, "GET", "/healthz")
+        check((status, ctype, json.loads(body)) == (200, "application/json", {
+            "status": "ok", "batch": BATCH, "served": 0}), f"server: /healthz {status} {body!r}")
+        # one batch of identical captions against a direct generate_int8
+        cap = ENTRY_CAPTIONS[0]
+        state, n_batches = engine.generator.get_state(), len(engine.timeline)
+        reset_counts()
+        answers = _concurrent_http(host, port, [{"caption": cap, "format": "mel"}] * BATCH)
+        counts = read_counts()
+        check([a[0] for a in answers] == [200] * BATCH, f"server: {[a[0] for a in answers]}")
+        check([t["size"] for t in engine.timeline[n_batches:]] == [BATCH],
+              f"server: {BATCH} concurrent requests made batches "
+              f"{[t['size'] for t in engine.timeline[n_batches:]]}")
+        LN = N_LAYER * N_STEPS
+        expect = expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kp=2 * LN)
+        check(counts == expect, f"server: launches {counts} for one batch, expected {expect} "
+              "(phase 6's request)")
+        got = np.stack([np.load(io.BytesIO(a[2])) for a in answers])
+        g = torch.Generator(dev)
+        g.set_state(state)
+        toks = torch.from_numpy(engine.model.text_to_tokens([cap] * BATCH)["token"]).to(dev)
+        want = to_spec(engine.model.generate_int8(engine.qp, g, toks)).cpu().numpy()
+        # the callers' rows in the batch follow their arrival: match them as a set
+        check(sorted(r.tobytes() for r in got) == sorted(r.tobytes() for r in want),
+              "server: the batch's mels differ from a direct generate_int8 on the same captions "
+              "and generator state")
+        print(f"  (c) server (--int8 --calibrate: W4A8 static, batch {BATCH}, linger 50 ms) ready "
+              f"in {ready_s:.1f} s (build, quantization, calibration, warm-up); /healthz 200; "
+              f"{BATCH} concurrent requests of one caption: one batch, bit for bit a direct "
+              f"generate_int8 on the generator's state, launches {counts}")
+        bad = [(_http(host, port, "POST", "/generate", {})[0], 400),
+               (_http(host, port, "GET", "/nope")[0], 404),
+               (_http(host, port, "POST", "/generate", {"caption": cap, "format": "flac"})[0], 400)]
+        check(all(a == b for a, b in bad), f"server: error statuses {bad}")
+
+        # the burst: SERVE_BURST mel requests from SERVE_CLIENTS clients, two wavs beside
+        start = len(engine.timeline)
+        wavs = []
+        wav_thread = threading.Thread(target=lambda: wavs.extend(_concurrent_http(
+            host, port, [{"caption": c, "format": "wav"} for c in ENTRY_CAPTIONS])))
+        wav_thread.start()
+        results, wall = bench_serve.burst(host, port, SERVE_BURST, SERVE_CLIENTS)
+        wav_thread.join(600)
+        statuses = sorted(st for _, _, st in results) + [w[0] for w in wavs]
+        check(statuses == [200] * (SERVE_BURST + 2), f"server burst: statuses {statuses}")
+        for status, ctype, body in wavs:
+            path = os.path.join(tmp, "served.wav")
+            with open(path, "wb") as f:
+                f.write(body)
+            check(ctype == "audio/wav" and _wav_frames(path) == MEL[1] * 256,
+                  f"server: a wav answer of type {ctype}")
+        tl = engine.timeline[start:]
+        overlaps = sum(tl[i]["dispatch_start"] < tl[i - 1]["fetch_end"] for i in range(1, len(tl)))
+        check(overlaps > 0, "server: no dispatch began before the previous batch's fetch ended "
+              "(dispatch not pipelined)")
+        out = {"with_wavs": _burst_numbers(results, wall, tl), "overlaps": overlaps}
+        print(f"  (c) burst of {SERVE_BURST} mel requests from {SERVE_CLIENTS} clients and 2 wav "
+              f"requests: all 200; {overlaps} of {len(tl) - 1} dispatches began before the "
+              f"previous batch's fetch ended; on {card_line()}: {_burst_line(out['with_wavs'])}")
+        # the same burst without the wav requests (the vocoder's work in the
+        # handlers is the only difference)
+        start = len(engine.timeline)
+        results, wall = bench_serve.burst(host, port, SERVE_BURST, SERVE_CLIENTS)
+        check(sorted(st for _, _, st in results) == [200] * SERVE_BURST,
+              "server burst: a request failed")
+        out["mel_only"] = _burst_numbers(results, wall, engine.timeline[start:])
+        print(f"  (c) the burst again, mel requests only: {_burst_line(out['mel_only'])}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+    del engine
+    torch.cuda.empty_cache()
+
+    # a 429: a bf16 server of batch 1 at a queue limit of 1; the collector
+    # holds the first request for its launches, the second waits, the third
+    # finds the queue full
+    engine = serve.Engine(serve.get_args(
+        ["--config_file", yml, "--ckpt", "random", "--seed", str(SEED + 3), "--batch", "1",
+         "--queue_limit", "1", "--max_wait_ms", "0", "--port", "0"]))
+    srv = serve.make_server(engine, "127.0.0.1", 0)
+    host, port = srv.server_address
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        answers = _concurrent_http(host, port, [{"caption": c, "format": "mel"} for c in
+                                                ("wind", "rain", "a horn")], stagger=0.1)
+        statuses = [a[0] for a in answers]
+        check(statuses == [200, 200, 429], f"server at a queue limit of 1: statuses {statuses}")
+        body = json.loads(answers[2][2])
+        check(body == {"error": "request queue full (1 pending)"}, f"server: the 429's body {body}")
+        print(f"  (c) bf16 server at --queue_limit 1: statuses {statuses}, the 429's body {body}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry(vocoder, dev) -> dict:
+    """Phase 10e (module docstring). Returns the server bursts' numbers
+    ("with_wavs", "mel_only", "overlaps") and the phase's "seconds"."""
+    import tempfile
+
+    from text_to_sound_synthesis_torch.tools import bench_serve
+
+    t_phase = time.perf_counter()
+    old = os.environ.get("T2S_CLIP_BPE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["T2S_CLIP_BPE"] = _entry_tokenizer(tmp)
+        try:
+            yml = _flagship_yaml(os.path.join(tmp, "flagship_bf16.yaml"))
+            voc_dir = write_vocoder_dir(vocoder, os.path.join(tmp, "vocoder"))
+            _entry_cli(yml, voc_dir, tmp, dev)
+            burst = _entry_server(yml, voc_dir, tmp, dev)
+            print("  (d) bench_serve --requests 16 --clients 8 --batch 8 (its defaults otherwise: "
+                  "--int8 W4A8 dynamic, top0.85r,fast3), its line:", flush=True)
+            check(bench_serve.main(["--config_file", yml, "--requests", "16", "--clients", "8",
+                                    "--batch", "8", "--port", "0"]) == 0,
+                  "bench_serve: a request failed")
+        finally:
+            if old is None:
+                os.environ.pop("T2S_CLIP_BPE", None)
+            else:
+                os.environ["T2S_CLIP_BPE"] = old
+    torch.cuda.empty_cache()
+    burst["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10e: {burst['seconds']:.1f} s")
+    return burst
+
+
 def _bound(nbytes, **ops):
     """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` operations
     by type. The tensor cores (int8 and bf16 dots, one after the other) and
@@ -3677,6 +4065,9 @@ def main() -> int:
           "unconditional denoisers]")
     ar_times, ar_train_s = phase_ar(vocoder, dev)
 
+    print("[10e the entry points: the tokenizer, the generate CLI, the HTTP server, bench_serve]")
+    serve_res = phase_entry(vocoder, dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -3723,6 +4114,12 @@ def main() -> int:
           f"{ar_times[1]:.3f} s = {BATCH / ar_times[1]:.3f} clips/s; its train step, batch "
           f"{BATCH} of {MEL[0]} x {MEL[1]} (the codec frozen): second {ar_train_s[1]:.4f} s = "
           f"{BATCH / ar_train_s[1]:.2f} samples/s")
+    for label, b in (("with 2 wav requests beside", serve_res["with_wavs"]),
+                     ("mel requests only", serve_res["mel_only"])):
+        print(f"  the HTTP server, W4A8 static, batch {BATCH}, {N_STEPS} steps, a burst of "
+              f"{SERVE_BURST} mel requests from {SERVE_CLIENTS} clients, {label}: "
+              f"{b['clips_per_s']:.3f} clips/s, p50 {b['p50_s']:.3f} s, p95 {b['p95_s']:.3f} s")
+    print(f"  phase 10e (the entry points): {serve_res['seconds']:.1f} s")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

@@ -370,8 +370,10 @@ def test_import_does_not_load_jax():
     """The package and every module of the port, the int8 serving engine's,
     the training engine's (Stage 1, the vocoder's and Stage 2), the data
     pipeline's, the data-parallel layer's, the evaluation's (its models
-    and tools) and the AR baseline's (its models and tools) included, import
-    without JAX."""
+    and tools), the AR baseline's (its models and tools) and the
+    user-facing tools (generate, serve, bench_serve, extract_text_features,
+    check_artifacts) included, import without JAX; the CLIP tokenizer
+    without ``regex``."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
             "text_to_sound_synthesis_torch.models.diffusion.calibrate",
@@ -423,9 +425,16 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.models.gpt",
             "text_to_sound_synthesis_torch.models.gpt.net2net",
             "text_to_sound_synthesis_torch.tools.train_ar",
-            "text_to_sound_synthesis_torch.tools.generate_ar"]
+            "text_to_sound_synthesis_torch.tools.generate_ar",
+            "text_to_sound_synthesis_torch.models.clip.tokenizer",
+            "text_to_sound_synthesis_torch.models.clip.word_split",
+            "text_to_sound_synthesis_torch.tools.generate",
+            "text_to_sound_synthesis_torch.tools.serve",
+            "text_to_sound_synthesis_torch.tools.bench_serve",
+            "text_to_sound_synthesis_torch.tools.extract_text_features",
+            "text_to_sound_synthesis_torch.tools.check_artifacts"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
-            "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu') "
+            "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu', 'regex') "
             "if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

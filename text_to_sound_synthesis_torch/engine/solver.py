@@ -32,6 +32,7 @@ import torch.distributed as dist
 from ..parallel.distributed import (all_gather_cat, fold_seed, get_rank, get_world_size,
                                     wrap_ddp)
 from ..utils.config import instantiate_from_config
+from ..utils.io import write_wav
 from .checkpoint import (checkpoint_path, latest_checkpoint, load_checkpoint,
                          restore_train_state, save_checkpoint, train_payload)
 from .logger import Logger
@@ -109,6 +110,16 @@ class Solver:
         self.diffusion_acc_list = [0.0] * T
         self.diffusion_keep_list = [0.0] * T
         self._sample_batch = None   # cached captions for in-training sampling
+        # a MelGAN for audible samples (the reference ImageLogger's vocoder_cfg)
+        self.vocoder = None
+        voc_path = solver_cfg.get("vocoder_path")
+        if voc_path:
+            from ..models.melgan.interface import load_vocoder
+
+            try:
+                self.vocoder = load_vocoder(voc_path, device=self.device)
+            except (OSError, ValueError, RuntimeError) as e:
+                logger.log_info(f"vocoder attach failed ({e!r}); samples stay spec-only")
         # best-checkpoint tracking (PL ModelCheckpoint top-k analogue)
         self.save_top_k = int(solver_cfg.get("save_top_k", 3))
         self._best: list = []   # [(val_loss, name)] ascending
@@ -206,8 +217,9 @@ class Solver:
 
     def sample(self, suffix: str = "") -> None:
         """In-training sampling: ``top0.85r`` from the cached captions with
-        the EMA weights, spec ``.npy`` (+ ``.png`` with PIL) under
-        ``<run>/samples`` (solver_spec.py:191-261)."""
+        the EMA weights, spec ``.npy`` (+ ``.png`` with PIL, + a 22 050 Hz
+        ``.wav`` with the ``vocoder_path`` MelGAN) under ``<run>/samples``
+        (solver_spec.py:191-261)."""
         if self._sample_batch is None or not self.logger.is_primary:
             return
         cond_tokens = self._sample_batch["condition_token"][:4]
@@ -228,6 +240,9 @@ class Solver:
             else:
                 img = (np.clip(spec[b], 0, 1) * 255).astype("uint8")[::-1]
                 Image.fromarray(img).save(base + ".png")
+            if self.vocoder is not None:
+                wav = self.vocoder(torch.from_numpy(spec[b:b + 1]))[0].float().cpu().numpy()
+                write_wav(base + ".wav", 22050, wav)
         self.logger.log_info(f"wrote {spec.shape[0]} samples at iter {it}")
 
     def _to_model_batch(self, batch: Mapping[str, Any]) -> dict:

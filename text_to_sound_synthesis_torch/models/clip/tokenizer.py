@@ -10,6 +10,9 @@ The merge table ``bpe_simple_vocab_16e6.txt.gz`` is an external artifact (like
 the released model checkpoints): point ``bpe_path`` at it, set ``$T2S_CLIP_BPE``,
 or drop it under ``<repo>/artifacts/``. ftfy's mojibake fixing is skipped (the
 AudioCaps captions are plain ASCII); HTML-unescape and whitespace folding match.
+Words are split as the reference's ``regex`` pattern splits them, letters and
+numbers of every script included, by ``word_split.split_words`` on the
+standard library alone.
 """
 
 from __future__ import annotations
@@ -17,22 +20,11 @@ from __future__ import annotations
 import gzip
 import html
 import os
-import re as _stdre
+import re
 from functools import lru_cache
 from typing import Dict, List, Sequence, Tuple
 
-try:  # `regex` supports \p{L}/\p{N}; bundled with the image
-    import regex as _re
-    _WORD_PAT = _re.compile(
-        r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+",
-        _re.IGNORECASE,
-    )
-except ImportError:  # ASCII-only fallback
-    _re = _stdre
-    _WORD_PAT = _stdre.compile(
-        r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[a-zA-Z]+|[0-9]|[^\sa-zA-Z0-9]+",
-        _stdre.IGNORECASE,
-    )
+from .word_split import split_words
 
 __all__ = ["ClipBPETokenizer", "find_default_bpe", "byte_unicode_table"]
 
@@ -86,7 +78,7 @@ def _adjacent_pairs(symbols: Sequence[str]) -> set:
 
 def _clean(text: str) -> str:
     text = html.unescape(html.unescape(text))
-    text = _stdre.sub(r"\s+", " ", text)
+    text = re.sub(r"\s+", " ", text)
     return text.strip()
 
 
@@ -164,7 +156,7 @@ class ClipBPETokenizer:
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         text = _clean(text).lower()
-        for word in _WORD_PAT.findall(text):
+        for word in split_words(text):
             mapped = "".join(self.byte_encoder[b] for b in word.encode("utf-8"))
             ids.extend(self.encoder[part] for part in self._bpe(mapped).split(" "))
         return ids
