@@ -257,12 +257,48 @@ Phases (any failed check exits nonzero, and no result line is printed):
              ``--queue_limit 1``: two requests answered, the third 429. (d)
              ``bench_serve`` in-process at ``--requests 16 --clients 8
              --batch 8``: its JSON line, every request answered.
+10f. tail — the long tail. (a) ``configs/ar_audiocaps.yaml``'s flagship with
+             ``dtype: bfloat16`` against the same weights in f32 (TF32 off):
+             greedy 265 tokens at batch 8, the share equal and each row's
+             first difference at a near-tie of the f32 logits on the shared
+             prefix, within twice AR_BF16_REL of the largest |f32 logit|;
+             the logits on the f32 sequence within AR_BF16_REL of it (a
+             limit fixed from readings); a request each way, its time,
+             device time and idle share; every kernel count 0. (b)
+             ``train_ar``'s step under a one-rank NCCL group (the GPT under
+             DDP, lr = 1 x bs x base_lr) two steps bit for bit the steps
+             without. (c) the flagship Stage-2 loss at batch 20 with the
+             denoiser's ``checkpoint`` on and off: the loss and every
+             gradient bit for bit, or within TRAIN_RTOL (it says which);
+             whole steps each way in turns, peak memory lower with it; both
+             times. (d) ``train_classifier``'s step, Melception (309
+             classes) and VGGishish (VGG16 layers, ``use_bn`` both ways) at
+             batch 16 of 80 x 848 in full f32: the first step on the card
+             against the CPU (CLS_* gates: the loss, the gradients, the
+             running statistics; the weights AdamW's first step on the
+             card's gradients), two more on the card alone, Melception's
+             running statistics untouched; a step's time. (e) the CLIP
+             ViT-B/32 vision tower (224 px, batch 16) card against CPU
+             within VIT_TOL, its time.
+             (f) ``vis_codebook`` on a seeded 10 s wav through
+             ``configs/vqgan_caps.yaml``'s seeded codec written as a
+             ``.ckpt`` and MelGAN: the 5 x 53 grid equal to ``VQModel.encode``
+             on the CPU, the bitrate line 265 x 8 bits over the clip's
+             seconds. (g) ``run_parity_gate`` in smoke mode on a proxy
+             ``.pth`` of phase 5's weights (``{'model', 'ema'}``),
+             ``--replicate 2 --batch 2``, bf16 and ``--int8``: no FAIL, the
+             SKIPs naming the absent reference, its samples bit for bit
+             ``tools/generate.py``'s, exact launch counts (K1 = 100; K2 =
+             100, K3 = K4 = K5 = Kw = 19 x 100, Kp = 2 x 19 x 100). (h)
+             ``dryrun.entry()`` on the card, finite; ``dryrun_multichip(1)``
+             under NCCL in a spawned process.
 11. times  — each path's request time and clips/s, phase 5b's reference and
              fused times in bench.py's scope, the train steps' times (Stage 2
              in f32 and bf16, Stage 1, MelGAN, the AR baseline), the
-             evaluation's, the AR request's, the server burst's, beside the
-             card's name and power limit. Every request phase counts K11 and
-             T1-T3 at 0.
+             evaluation's, the AR request's, the server burst's, phase 10f's
+             (the AR request in f32 and bf16, the checkpointed step, the
+             classifier steps, the ViT, the gate), beside the card's name
+             and power limit. Every request phase counts K11 and T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -1512,6 +1548,21 @@ def reference_copy(model):
     ref = copy.deepcopy(model).float()
     ref.dtype = torch.float32
     return ref
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms for the block (cuDNN's deterministic
+    convs among them; an op without one warns), restored after. torch's
+    defaults let CUDA backward kernels reduce by atomic adds, so the same
+    step run twice need not agree bit for bit on the card."""
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
 
 
 @contextlib.contextmanager
@@ -3814,6 +3865,567 @@ def phase_entry(vocoder, dev) -> dict:
     return burst
 
 
+# -- phase 10f: the long tail ----------------------------------------------------------------
+
+VQGAN_CAPS = os.path.join(REPO, "configs", "vqgan_caps.yaml")
+# (a) the AR flagship's bf16 compute against its f32 (TF32 off) on the same
+# weights: the logits on the f32 sequence within AR_BF16_REL of the largest
+# |f32 logit| (measured 1.471e-2 on the H100; 1.3e-2 in the CPU test), a
+# limit fixed beforehand, not read off the path under test; a greedy token
+# may differ only at a near-tie of the f32 logits on the shared prefix, its
+# two logits within the band: twice that limit's |bf16 - f32|, the most two
+# logits can move against each other.
+AR_BF16_REL = 2e-2
+# (d) train_classifier's step at its defaults (batch 16, lr 3e-4, wd 1e-4),
+# card against CPU in full f32 on the CPU's threads: the first step from one
+# state on both sides, then two more on the card alone, timed. The loss
+# within TRAIN_RTOL. Each gradient tensor within CLS_GRAD_TOL of its norm,
+# but the conv biases ahead of a BatchNorm, zero in exact arithmetic (both
+# sides hold rounding): on the H100 cuDNN's f32 convs (TF32 off) put each
+# conv layer's gradient 0.03-0.8 % of its norm from the CPU's (VGG16's 13
+# layers, the error growing toward the input), the dense head's 1e-6; the
+# gate is 2.5x that. The weights are the first AdamW step (betas 0.9 /
+# 0.999, eps 1e-8) on the card's own gradients, w (1 - lr wd) - lr g /
+# (|g| + eps), within CLS_ADAM_TOL lr plus two f32 ulps of w: f32 rounds
+# the moments, their bias corrections and the two updates of w, a few ulps
+# in all, where a gradient of the wrong sign is 2 lr off and a missing step
+# 1 lr. (Two sides' weights cannot be held to each other: where they round
+# a near-zero gradient to opposite signs, AdamW's step parts them by 2 lr.)
+# The running statistics within CLS_STATS_RTOL of their largest.
+CLS_CLASSES, CLS_BATCH, CLS_STEPS, CLS_LR, CLS_WD = 309, 16, 3, 3e-4, 1e-4
+CLS_MEL = MEL
+CLS_ARCHS = (("melception", False), ("vggishish", False), ("vggishish", True))
+CLS_GRAD_TOL, CLS_STATS_RTOL, CLS_ADAM_TOL = 2e-2, 1e-5, 1e-5
+# (e) ViT-B/32 in full f32, card against CPU: 12 layers at width 768, the
+# largest |difference| over the largest |value| (~1e-6 each side)
+VIT = dict(input_resolution=224, patch_size=32, width=768, layers=12, heads=12, output_dim=512)
+VIT_BATCH, VIT_TOL = 16, 1e-4
+GATE_CAPTIONS = ENTRY_CAPTIONS
+
+
+def _ar_feat_dim(cfg) -> int:
+    return int(cfg["model"]["params"]["transformer_config"]["params"]["feat_embedding_config"]
+               ["params"]["in_channels"])
+
+
+def _idle_share(run):
+    """(wall s of one run, device ms of one profiled run, idle share =
+    1 - device / wall): the device events of ``torch.profiler`` with CUDA
+    activity only, summed from its raw results, not through ``key_averages``,
+    which builds an event tree in Python for each of a request's kernels
+    (~500 a decode step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA) / 1e6
+    return wall, device_ms, 1 - device_ms / (wall * 1e3)
+
+
+def _tail_ar_bf16(vocoder, dev) -> dict:
+    """(a): the AR flagship with ``dtype: bfloat16`` against the same weights in f32."""
+    import copy
+
+    from text_to_sound_synthesis_torch.models.gpt import ar_sample
+    from text_to_sound_synthesis_torch.tools.train_ar import build_model
+    from text_to_sound_synthesis_torch.utils.config import load_yaml_config
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+    cfg = load_yaml_config(AR_CONFIG)
+    bcfg = copy.deepcopy(cfg)
+    bcfg["model"]["params"]["dtype"] = "bfloat16"
+    f32, bf16 = build_model(cfg, dev, SEED + 70), build_model(bcfg, dev, SEED + 70)
+    check(bf16.dtype == bf16.gpt.dtype == torch.bfloat16 and f32.gpt.dtype == torch.float32
+          and all(torch.equal(a, b) for a, b in zip(f32.state_dict().values(),
+                                                    bf16.state_dict().values())),
+          "tail (a): the bf16 model's f32 weights are not the f32 model's")
+    feats = torch.randn((BATCH, _ar_feat_dim(cfg), 1), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 71))
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    steps = AR_HW[0] * AR_HW[1]
+    with torch.no_grad(), full_f32():
+        g32 = ar_sample(f32.gpt, feats, steps=steps, top_k=1)
+        g16 = ar_sample(bf16.gpt, feats, steps=steps, top_k=1)
+        l32 = f32.gpt(g32[:, :-1], feats)
+        l16 = bf16.gpt(g32[:, :-1], feats)
+    check(l16.dtype == torch.bfloat16 and bf16.gpt.init_cache(1)[0].k.dtype == torch.bfloat16,
+          "tail (a): the bf16 model's logits or KV cache are not bf16")
+    d = (l16.float() - l32).abs()
+    rel = float(d.max() / l32.abs().max())
+    check(rel <= AR_BF16_REL, f"tail (a): bf16 logits off f32 by {rel:.3e} of max|f32| "
+          f"(limit {AR_BF16_REL:g})")
+    band = 2 * AR_BF16_REL * float(l32.abs().max())
+    share = float((g16 == g32).float().mean())
+    firsts, far = [], 0
+    for b in range(BATCH):
+        diff = (g16[b] != g32[b]).nonzero()
+        if len(diff):
+            t = int(diff[0])
+            margin = float(l32[b, t, g32[b, t]] - l32[b, t, g16[b, t]])
+            firsts.append((b, t, round(margin, 4)))
+            far += margin > band
+    check(far == 0, f"tail (a): a greedy bf16 token first differs past the band {band:.4f}: "
+          f"{firsts}")
+
+    def req(model, seed, what):
+        def run():
+            mel = model.sample(feats, AR_HW, top_k=AR_TOP_K,
+                               generator=torch.Generator(dev).manual_seed(seed))
+            wav = vocoder((mel[..., 0].float() + 1.0) / 2.0)
+            check(tuple(mel.shape) == (BATCH, *MEL, 1) and bool(torch.isfinite(mel).all())
+                  and bool(torch.isfinite(wav).all()), f"tail (a): the {what} request's output")
+        return run
+
+    with full_f32():
+        res = {k: _idle_share(req(m, SEED + 73, k)) for k, m in (("f32", f32), ("bf16", bf16))}
+    print(f"  (a) {AR_CONFIG[len(REPO) + 1:]} with dtype: bfloat16 against the same weights in "
+          f"f32 (TF32 off): KV cache and logits bf16, parameters f32; greedy {steps} tokens at "
+          f"batch {BATCH}: {100 * share:.2f} % equal, first differences (row, step, f32 margin) "
+          f"{firsts} within the band {band:.4f} (2 x {AR_BF16_REL:g} max|f32 logit|); logits "
+          f"on the f32 sequence max|d| / max|f32| {rel:.3e} (limit {AR_BF16_REL:g})")
+    for k, (wall, dev_ms, idle) in res.items():
+        print(f"      {k} request (features -> {steps} tokens top-k {AR_TOP_K} -> decode_code -> "
+              f"MelGAN, batch {BATCH}): {wall:.3f} s = {BATCH / wall:.3f} clips/s; device "
+              f"{dev_ms:.1f} ms, idle share {idle:.3f}")
+    del f32, bf16
+    torch.cuda.empty_cache()
+    return {**res, "share": share, "rel": rel}
+
+
+def _tail_train_ar_group(dev):
+    """(b): ``train_ar``'s step under a one-rank NCCL group (the GPT under
+    DDP) against the step without, two steps, at the rule's lr."""
+    import copy
+
+    import torch.distributed as dist
+
+    from text_to_sound_synthesis_torch.parallel import (get_world_size, init_distributed,
+                                                        wrap_ddp)
+    from text_to_sound_synthesis_torch.tools import train_ar
+    from text_to_sound_synthesis_torch.utils.config import load_yaml_config
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+    cfg = load_yaml_config(AR_CONFIG)
+    plain = train_ar.build_model(cfg, dev, SEED + 74)
+    under = copy.deepcopy(plain)
+    gen = torch.Generator(dev).manual_seed(SEED + 75)
+    mel = torch.rand((BATCH, *MEL, 1), generator=gen, device=dev) * 2 - 1
+    feats = torch.randn((BATCH, _ar_feat_dim(cfg), 1), generator=gen, device=dev)
+    init_distributed(dev, init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        backend, world = dist.get_backend(), get_world_size()
+        lr = train_ar.learning_rate(cfg, world)
+        bs, base = int(cfg["dataloader"]["batch_size"]), float(cfg["model"]["base_learning_rate"])
+        check(lr == 1 * bs * base, f"tail (b): lr {lr} is not 1 x {bs} x {base}")
+        gpt = wrap_ddp(under.gpt, dev)
+        check(isinstance(gpt, torch.nn.parallel.DistributedDataParallel), "tail (b): no DDP")
+        opts = train_ar.build_optimizer(plain, lr), train_ar.build_optimizer(under, lr)
+        plain.gpt.train()
+        under.gpt.train()
+        losses = []
+        with full_f32(), deterministic_algorithms():
+            for _ in range(2):
+                losses.append((train_ar.train_step(plain, opts[0], mel, feats),
+                               train_ar.train_step(under, opts[1], mel, feats, None, gpt)))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    differ = [n for (n, p), q in zip(plain.named_parameters(), under.parameters())
+              if not torch.equal(p, q)]
+    differ += [f"AdamW state of {n}" for (n, _), s, t in zip(
+        plain.gpt.named_parameters(), opts[0].state.values(), opts[1].state.values())
+        if not all(torch.equal(x, y) for x, y in zip(s.values(), t.values()))]
+    differ += [f"loss {i + 1}" for i, (a, b) in enumerate(losses) if not torch.equal(a, b)]
+    check(not differ, f"tail (b): train_ar's step under DDP (one rank) differs from the step "
+          f"without: {differ[:6]}")
+    print(f"  (b) train_ar under a one-rank {backend} group, lr = {world} x {bs} x {base:g} = "
+          f"{lr:g}: two steps at batch {BATCH} with the GPT under DDP bit for bit the steps "
+          f"without (losses, weights, AdamW moments), both under torch's deterministic "
+          f"algorithms; the codec outside DDP")
+    del plain, under, opts
+    torch.cuda.empty_cache()
+
+
+def _tail_remat(dev) -> dict:
+    """(c): the flagship Stage-2 loss and gradients with the denoiser's
+    ``checkpoint`` on and off, then whole steps each way: peak memory, time."""
+    from text_to_sound_synthesis_torch.models.diffusion.process import sample_timesteps
+
+    tr = FlagshipTrainer(dev)
+    model, den = tr.model, tr.denoiser
+    diff = model.diffusion
+    draws = _train_draws(tr.gen, TRAIN_BATCH, diff.diffusion_step, diff.content_seq_len,
+                         diff.num_classes)
+
+    def loss_grads(ck: bool):
+        den.checkpoint = ck
+        den.zero_grad(set_to_none=True)
+        t, pt = sample_timesteps(tr.state.lt, TRAIN_BATCH, draws=draws.timesteps)
+        out = model.loss(tr.batch["image"], tr.batch["condition_token"], t, pt,
+                         gumbel=draws.gumbel)
+        out.loss.backward()
+        return out.loss.detach(), [p.grad.clone() for p in den.parameters()]
+
+    with pytorch_default_precision():
+        (l0, g0), (l1, g1) = loss_grads(False), loss_grads(True)
+        bitwise = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+        g_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(g1, g0))
+        l_rel = abs(float(l1 - l0)) / abs(float(l0))
+        del g0, g1
+        den.zero_grad(set_to_none=True)
+        runs = {False: [], True: []}
+        for ck in (False, True, False, True):
+            den.checkpoint = ck
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            runs[ck].append((time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30))
+            check(np.isfinite(float(m.loss)), f"tail (c): loss {float(m.loss)}")
+    den.checkpoint = False
+    check(bitwise or (l_rel <= TRAIN_RTOL and g_rel <= TRAIN_RTOL),
+          f"tail (c): checkpointing moved the loss by {l_rel:.2e}, a gradient by {g_rel:.2e}")
+    (s_plain, gb_plain), (s_ck, gb_ck) = runs[False][-1], runs[True][-1]
+    check(gb_ck < gb_plain, f"tail (c): peak memory {gb_ck:.2f} GiB with checkpointing, "
+          f"{gb_plain:.2f} without")
+    print(f"  (c) the flagship Stage-2 loss at batch {TRAIN_BATCH} (f32, TF32 convs) with "
+          f"checkpoint=True against False: "
+          f"{'bit for bit (loss and every gradient)' if bitwise else f'within TRAIN_RTOL: loss {l_rel:.2e}, gradients {g_rel:.2e} (the recompute rounds otherwise)'}; "
+          f"a whole step (second of each, in turns): {s_plain:.4f} s / {gb_plain:.2f} GiB peak "
+          f"without, {s_ck:.4f} s / {gb_ck:.2f} GiB with (PERF.md's record: 22.6 GiB without)")
+    del tr, model, den
+    torch.cuda.empty_cache()
+    return {"plain": runs[False][-1], "checkpoint": runs[True][-1], "bitwise": bitwise}
+
+
+def _biases_ahead_of_batch_norm(model) -> set:
+    """Names of the conv biases followed by a BatchNorm in a Sequential: the
+    norm subtracts the batch mean, so their gradient is zero in exact
+    arithmetic and each side holds its rounding."""
+    out = set()
+    for name, seq in model.named_modules():
+        if isinstance(seq, torch.nn.Sequential):
+            for j in range(len(seq) - 1):
+                if (isinstance(seq[j], torch.nn.Conv2d) and seq[j].bias is not None
+                        and isinstance(seq[j + 1], torch.nn.modules.batchnorm._BatchNorm)):
+                    out.add(f"{name}.{j}.bias" if name else f"{j}.bias")
+    return out
+
+
+def _first_adamw_error(params, before) -> float:
+    """The largest |w - (w0 (1 - lr wd) - lr g / (|g| + eps))| over ``params``
+    after a first AdamW step from ``before`` (their values before it) on
+    their gradients, over CLS_LR, less two f32 ulps of w0; at most
+    CLS_ADAM_TOL if the step is that one."""
+    worst = 0.0
+    for k, p in params:
+        g, w = p.grad.double(), before[k].double()
+        want = w * (1 - CLS_LR * CLS_WD) - CLS_LR * g / (g.abs() + 1e-8)
+        over = (p.detach().double() - want).abs() - 2 ** -22 * w.abs()
+        worst = max(worst, float(over.max()) / CLS_LR)
+    return worst
+
+
+def _tail_classifier(dev) -> dict:
+    """(d): train_classifier's step, card against CPU in full f32: the first
+    from one state on both sides, then two more on the card alone."""
+    import copy
+
+    from text_to_sound_synthesis_torch.engine.classifier_solver import (
+        ClassifierTrainState, make_classifier_train_step)
+    from text_to_sound_synthesis_torch.tools.train_classifier import (build_classifier,
+                                                                      init_classifier_)
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+    rng = np.random.default_rng(SEED + 76)
+    mel = torch.from_numpy(rng.standard_normal((CLS_BATCH, *CLS_MEL)).astype(np.float32))
+    target = torch.from_numpy(rng.integers(0, CLS_CLASSES, CLS_BATCH))
+    counts = np.bincount(target.numpy(), minlength=CLS_CLASSES).astype(np.float32)
+    weights = torch.from_numpy(counts.sum() / np.maximum(counts, 1.0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads, len(os.sched_getaffinity(0))))
+    out = {}
+    try:
+        for i, (arch, use_bn) in enumerate(CLS_ARCHS):
+            name = arch + (" use_bn" if use_bn else "")
+            card = init_classifier_(build_classifier(arch, CLS_CLASSES, use_bn=use_bn)
+                                    .to_empty(device=dev),
+                                    torch.Generator(dev).manual_seed(SEED + 77 + i))
+            cpu = copy.deepcopy(card).cpu()
+            stats0 = {k: v.clone() for k, v in cpu.state_dict().items() if "running" in k}
+            before = {k: p.detach().clone() for k, p in card.named_parameters()}
+            zero = _biases_ahead_of_batch_norm(cpu)
+            sc, sp = (ClassifierTrainState.create(card, CLS_LR, CLS_WD),
+                      ClassifierTrainState.create(cpu, CLS_LR, CLS_WD))
+            fc, fp = make_classifier_train_step(weights.to(dev)), make_classifier_train_step(weights)
+            mc, tc = mel.to(dev), target.to(dev)
+            with full_f32():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lc = float(fc(sc, mc, tc)["loss"])
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                lp = float(fp(sp, mel, target)["loss"])
+                cpu_s = time.perf_counter() - t0
+                check(abs(lc - lp) <= TRAIN_RTOL * abs(lp),
+                      f"tail (d) {name}: loss card {lc!r} CPU {lp!r}")
+                g_err = 0.0
+                for (k, a), b in zip(card.named_parameters(), cpu.parameters()):
+                    if k in zero:        # zero in exact arithmetic: rounding on both sides
+                        continue
+                    d = a.grad.cpu().double() - b.grad.double()
+                    rel = float(d.norm() / b.grad.double().norm())
+                    g_err = max(g_err, rel)
+                    check(rel <= CLS_GRAD_TOL, f"tail (d) {name}: {k}.grad off by {rel:.2e} "
+                          "of its norm")
+                adam = _first_adamw_error(card.named_parameters(), before)
+                check(adam <= CLS_ADAM_TOL, f"tail (d) {name}: the weights are {adam:.2e} lr "
+                      "off AdamW's first step on the card's gradients")
+                sd = cpu.state_dict()
+                for k, v in card.state_dict().items():
+                    if "running" in k or "num_batches" in k:
+                        d = float((v.cpu().double() - sd[k].double()).abs().max())
+                        check(d <= CLS_STATS_RTOL * float(sd[k].abs().max()),
+                              f"tail (d) {name}: {k} off by {d:.2e}")
+                secs = []
+                for _ in range(CLS_STEPS - 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss = float(fc(sc, mc, tc)["loss"])
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    check(np.isfinite(loss), f"tail (d) {name}: loss {loss}")
+            moved = [not torch.equal(v.cpu(), stats0[k]) for k, v in card.state_dict().items()
+                     if "running" in k]
+            if arch == "melception":
+                check(not any(moved) and all(torch.equal(v, stats0[k]) for k, v in
+                                             cpu.state_dict().items() if "running" in k),
+                      "tail (d) melception: the running statistics moved")
+            elif use_bn:
+                check(all(moved), "tail (d) vggishish use_bn: a BatchNorm kept its statistics")
+            n = sum(p.numel() for p in card.parameters())
+            out[name] = float(np.median(secs))
+            stats = ("running statistics untouched over three steps (the folded affine trained)"
+                     if arch == "melception" else f"running statistics within {CLS_STATS_RTOL:g}"
+                     if use_bn else "no BatchNorm")
+            print(f"  (d) {name} ({n / 1e6:.1f} M parameters, {CLS_CLASSES} classes), batch "
+                  f"{CLS_BATCH} of {CLS_MEL[0]} x {CLS_MEL[1]}, lr {CLS_LR:g}, weighted CE, full "
+                  f"f32, card vs CPU ({torch.get_num_threads()} threads) on the first step: loss "
+                  f"{lc:.6f} / {lp:.6f}; gradients within {g_err:.2e} of their norm (gate "
+                  f"{CLS_GRAD_TOL:g}; not the {len(zero)} conv biases ahead of a BatchNorm, zero "
+                  f"in exact arithmetic); the weights AdamW's first step on the card's gradients "
+                  f"within {adam:.1e} lr (gate {CLS_ADAM_TOL:g} lr + 2 ulps); {stats}; a step on "
+                  f"the card {out[name]:.4f} s (median of steps 2-3; the first {first:.4f} s), "
+                  f"the CPU's {cpu_s:.1f} s")
+            del cpu, card, sc, sp
+            torch.cuda.empty_cache()
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def _tail_vit(dev) -> float:
+    """(e): the CLIP ViT-B/32 vision tower, card against CPU in full f32."""
+    import copy
+
+    from text_to_sound_synthesis_torch.models.clip import ClipVisionEncoder
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+    cpu = ClipVisionEncoder(**VIT).init_params(torch.Generator().manual_seed(SEED + 80)).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    px = VIT["input_resolution"]
+    x = torch.randn((VIT_BATCH, 3, px, px), generator=torch.Generator().manual_seed(SEED + 81))
+    xd = x.to(dev)
+    with torch.no_grad(), full_f32():
+        want = cpu(x)
+        got = card(xd)
+        ms = cuda_time_ms(lambda: card(xd), iters=20, warmup=3)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    check(tuple(got.shape) == (VIT_BATCH, VIT["output_dim"]) and bool(torch.isfinite(got).all())
+          and err <= VIT_TOL, f"tail (e): ViT card vs CPU {err:.2e}")
+    n = sum(p.numel() for p in cpu.parameters())
+    print(f"  (e) CLIP ViT-B/32 ({n / 1e6:.1f} M, {px} px, width {VIT['width']}, {VIT['layers']} "
+          f"layers x {VIT['heads']} heads, output {VIT['output_dim']}), batch {VIT_BATCH}, full "
+          f"f32: card vs CPU max|d| / max|CPU| {err:.2e} (gate "
+          f"{VIT_TOL:g}); {ms:.3f} ms a batch on the card")
+    return ms
+
+
+def _tail_vis_codebook(vocoder, tmp: str, dev):
+    """(f): ``vis_codebook`` on a seeded 10 s wav, the flagship codec and MelGAN."""
+    import io
+
+    from text_to_sound_synthesis_torch.models.vqgan.model import VQModel, init_codec_
+    from text_to_sound_synthesis_torch.tools import vis_codebook
+    from text_to_sound_synthesis_torch.utils.config import load_yaml_config
+    from text_to_sound_synthesis_torch.utils.dtype import full_f32
+    from text_to_sound_synthesis_torch.utils.io import read_wav, write_wav
+
+    mp = load_yaml_config(VQGAN_CAPS)["model"]["params"]
+    codec = init_codec_(VQModel(mp["ddconfig"], n_embed=mp["n_embed"], embed_dim=mp["embed_dim"]),
+                        torch.Generator().manual_seed(SEED + 82)).eval()
+    ckpt = os.path.join(tmp, "codec.ckpt")
+    torch.save({"state_dict": codec.state_dict()}, ckpt)
+    wav_path = os.path.join(tmp, "clip.wav")
+    write_wav(wav_path, 22050, (np.random.default_rng(SEED + 83).standard_normal(22050 * 10)
+                                * 0.1).astype(np.float32))
+    out = os.path.join(tmp, "vis")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = vis_codebook.main(["--wav", wav_path, "--config", VQGAN_CAPS, "--ckpt", ckpt,
+                                "--vocoder", write_vocoder_dir(vocoder, os.path.join(tmp, "voc")),
+                                "--outdir", out])
+    secs = time.perf_counter() - t0
+    report = buf.getvalue()
+    tokens = np.load(os.path.join(out, "tokens.npy"))
+    _, spec = vis_codebook.clip_mel(read_wav(wav_path, 22050)[0], MEL[1])
+    with torch.no_grad(), full_f32():
+        _, vq = codec.encode(torch.from_numpy(2 * spec - 1)[None, :, :, None])
+    seconds, n, ne = MEL[1] * 256 / 22050, tokens.size, mp["n_embed"]
+    line = (f"codebook bitrate: {n * np.log2(ne) / seconds:.1f} bit/s ({n} tokens x log2({ne}) / "
+            f"{seconds:.2f}s)")
+    down = 2 ** (len(mp["ddconfig"]["ch_mult"]) - 1)
+    check(rc == 0 and tokens.shape == (MEL[0] // down, MEL[1] // down),
+          f"tail (f): vis_codebook rc {rc}, {tokens.shape}")
+    check(np.array_equal(tokens, vq.indices[0].numpy()),
+          f"tail (f): {int((tokens != vq.indices[0].numpy()).sum())} of 265 tokens differ from "
+          "VQModel.encode's on the CPU")
+    check(line in report, f"tail (f): no line {line!r} in the report")
+    check(all(os.path.exists(os.path.join(out, f)) for f in
+              ("reconstruction.npy", "reconstruction.wav", "original.wav")), "tail (f): outputs")
+    l1 = [r for r in report.splitlines() if r.startswith("reconstruction L1")]
+    print(f"  (f) vis_codebook on a seeded 10 s wav, {VQGAN_CAPS[len(REPO) + 1:]}'s codec and "
+          f"MelGAN: the {tokens.shape[0]} x {tokens.shape[1]} grid equal to VQModel.encode's on "
+          f"the CPU; '{line}'; {l1[0]}; "
+          f"tokens, reconstruction and two wavs written; {secs:.1f} s")
+
+
+def _tail_parity_gate(model, tmp: str, dev) -> dict:
+    """(g): ``run_parity_gate`` in smoke mode on a proxy ``.pth`` of phase 5's
+    model, bf16 and ``--int8``; its samples against ``tools/generate.py``'s."""
+    from text_to_sound_synthesis_torch.tools import generate, run_parity_gate as gate
+
+    pth = os.path.join(tmp, "diffsound_proxy.pth")
+    t0 = time.perf_counter()
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    torch.save({"model": sd, "ema": {k[len("transformer."):]: v for k, v in sd.items()
+                                     if k.startswith("transformer.transformer.")}}, pth)
+    print(f"  (g) the proxy .pth ({os.path.getsize(pth) / 2**30:.2f} GiB) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    yml = _flagship_yaml(os.path.join(tmp, "gate_bf16.yaml"))
+    common = ["--config_file", yml, "--ckpt", pth, "--replicate", "2", "--batch", "2"]
+    for c in GATE_CAPTIONS:
+        common += ["--caption", c]
+    LN = N_LAYER * N_STEPS
+    want = {"bf16": expected_counts(K1=N_STEPS),
+            "int8": expected_counts(K2=N_STEPS, K3=LN, K4=LN, K5=LN, Kp=2 * LN, Kw=LN)}
+    res = {}
+    for mode, extra in (("bf16", []), ("int8", ["--int8"])):
+        out = os.path.join(tmp, f"gate_{mode}")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = gate.main(common + extra + ["--outdir", out])
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        report = open(os.path.join(out, "PARITY_GATE.md")).read()
+        rows = [r.split(" | ") for r in report.splitlines() if r.startswith("| ")
+                and not r.startswith("| step")]
+        status = {r[0][2:]: r[1] for r in rows}
+        skips = [r[2] for r in rows if r[1] == "SKIP" and r[0][2:] in ("roundtrip", "logit_parity")]
+        check(rc == 0 and "FAIL" not in status.values(), f"tail (g) {mode}: {status}")
+        check(status.get("load") == "PASS" and status.get("generate") == "PASS",
+              f"tail (g) {mode}: {status}")
+        check(all("T2S_REFERENCE" in s for s in skips), f"tail (g) {mode}: SKIPs {skips}")
+        check(counts == want[mode], f"tail (g) {mode}: launches {counts}, expected {want[mode]}")
+        direct = os.path.join(tmp, f"generate_{mode}")
+        check(generate.main(common + extra + ["--outdir", direct]) == 0, f"tail (g) {mode}: generate")
+        names = sorted(os.listdir(os.path.join(out, "samples")))
+        check(len(names) == 2 * len(GATE_CAPTIONS) and names == sorted(os.listdir(direct))
+              and all(np.array_equal(np.load(os.path.join(out, "samples", n)),
+                                     np.load(os.path.join(direct, n))) for n in names),
+              f"tail (g) {mode}: the gate's samples are not generate.py's")
+        res[mode] = secs
+        print(f"  (g) run_parity_gate smoke ({mode}), the flagship bf16 config, a proxy .pth of "
+              f"phase 5's weights ({{'model', 'ema'}}), --replicate 2 --batch 2: {status}; "
+              f"{len(names)} samples bit for bit generate.py's; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {secs:.1f} s")
+    gate._RAW_CACHE.clear()
+    return res
+
+
+def _tail_dryrun(dev) -> float:
+    """(h): ``dryrun.entry()`` on the card, then ``dryrun_multichip(1)`` under NCCL."""
+    from text_to_sound_synthesis_torch.tools import dryrun
+
+    fn, args = dryrun.entry(dev)
+    logp = fn(*args)
+    check(tuple(logp.shape) == (1, L_TOK, 257) and bool(torch.isfinite(logp).all())
+          and args[0].transformer.to_logits[1].weight.dtype == torch.bfloat16,
+          f"tail (h): entry's log p {tuple(logp.shape)}")
+    del fn, args, logp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(1, "cuda")
+    secs = time.perf_counter() - t0
+    print(f"  (h) dryrun.entry(): the flagship denoiser's predict_start in bf16 at batch 1 on "
+          f"the card, finite (1, {L_TOK}, 257) log-probabilities; dryrun_multichip(1) under NCCL "
+          f"(a spawned rank: one DDP train step, both sharded samplers) in {secs:.1f} s")
+    return secs
+
+
+def phase_tail(model, vocoder, dev) -> dict:
+    """Phase 10f (module docstring). Returns its parts' numbers and "seconds"."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[key] = time.perf_counter() - t0
+        return out
+
+    reset_counts()
+    res = {"ar": timed("a", _tail_ar_bf16, vocoder, dev)}
+    timed("b", _tail_train_ar_group, dev)
+    res["remat"] = timed("c", _tail_remat, dev)
+    res["classifier"] = timed("d", _tail_classifier, dev)
+    res["vit_ms"] = timed("e", _tail_vit, dev)
+    counts = read_counts()
+    check(counts == expected_counts(), f"tail (a)-(e): kernel launches {counts}")
+    old = os.environ.get("T2S_CLIP_BPE")
+    with tempfile.TemporaryDirectory() as tmp:
+        if old is None:
+            os.environ["T2S_CLIP_BPE"] = write_merge_table(os.path.join(tmp, "merges.txt"))
+        try:
+            reset_counts()
+            timed("f", _tail_vis_codebook, vocoder, tmp, dev)
+            check(read_counts() == expected_counts(), "tail (f): a kernel launched")
+            res["gate"] = timed("g", _tail_parity_gate, model, tmp, dev)
+        finally:
+            if old is None:
+                os.environ.pop("T2S_CLIP_BPE", None)
+    res["dryrun_s"] = timed("h", _tail_dryrun, dev)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10f: {res['seconds']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()) + ")")
+    return res
+
+
 def _bound(nbytes, **ops):
     """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` operations
     by type. The tensor cores (int8 and bf16 dots, one after the other) and
@@ -4068,6 +4680,11 @@ def main() -> int:
     print("[10e the entry points: the tokenizer, the generate CLI, the HTTP server, bench_serve]")
     serve_res = phase_entry(vocoder, dev)
 
+    print("[10f the long tail: the AR baseline in bf16, train_ar over a group, activation "
+          "checkpointing, classifier training, the CLIP vision tower, vis_codebook, the parity "
+          "gate, the dry run]")
+    tail = phase_tail(model, vocoder, dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -4120,6 +4737,19 @@ def main() -> int:
               f"{SERVE_BURST} mel requests from {SERVE_CLIENTS} clients, {label}: "
               f"{b['clips_per_s']:.3f} clips/s, p50 {b['p50_s']:.3f} s, p95 {b['p95_s']:.3f} s")
     print(f"  phase 10e (the entry points): {serve_res['seconds']:.1f} s")
+    for k in ("f32", "bf16"):
+        wall, dev_ms, idle = tail["ar"][k]
+        print(f"  AR baseline request in {k} compute (batch {BATCH}, features -> wav): {wall:.3f} s "
+              f"= {BATCH / wall:.3f} clips/s, device {dev_ms:.1f} ms, idle share {idle:.3f}")
+    (s0, g0), (s1, g1) = tail["remat"]["plain"], tail["remat"]["checkpoint"]
+    print(f"  Stage-2 flagship step, f32, batch {TRAIN_BATCH}: {s0:.4f} s, {g0:.2f} GiB peak; with "
+          f"activation checkpointing {s1:.4f} s ({s1 / s0:.3f} x), {g1:.2f} GiB peak")
+    print(f"  classifier steps (batch {CLS_BATCH} of {MEL[0]} x {MEL[1]}, full f32): "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in tail["classifier"].items())
+          + f"; ViT-B/32 batch {VIT_BATCH} at 224 px: {tail['vit_ms']:.3f} ms")
+    print(f"  run_parity_gate smoke: bf16 {tail['gate']['bf16']:.1f} s, --int8 "
+          f"{tail['gate']['int8']:.1f} s; dryrun_multichip(1) {tail['dryrun_s']:.1f} s; phase "
+          f"10f {tail['seconds']:.1f} s")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

@@ -2,11 +2,13 @@
 tests/test_torch_stage1_tools.py): one rank of a 2-process gloo group on the
 CPU, a fresh interpreter running the port alone (no JAX).
 
-    python tests/_torch_mp_worker.py <port> <rank> <world> <out> [stage1]
+    python tests/_torch_mp_worker.py <port> <rank> <world> <out> [stage1 | ar CONFIG PORT2]
 
 Each rank joins ``tcp://localhost:<port>``. With ``stage1`` it runs two
 adversarial SpecVQGAN steps on its half of each global batch, data parallel
-over the group (``main_stage1``); otherwise:
+over the group (``main_stage1``); with ``ar`` two ``train_ar`` steps on its
+share of each global AR batch with the GPT under DDP, then the ``train_ar``
+CLI on CONFIG for one step in a group at PORT2 (``main_ar``); otherwise:
 1. the tiny model's training loss on its half of one global batch, with the
    draws supplied (the global draws, sliced), backward through the denoiser
    under DDP: the averaged gradients;
@@ -30,8 +32,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from tests._torch_tiny import (B, OPT_CFG, S1_B, T, TRAIN_CFG, batch, stage1_batches,  # noqa: E402
-                               stage1_state, tbatch)
+from tests._torch_tiny import (AR_BS, AR_MODEL, B, OPT_CFG, S1_B, T, TRAIN_CFG,  # noqa: E402
+                               ar_batches, batch, stage1_batches, stage1_state, tbatch)
 from text_to_sound_synthesis_torch.data.loader import ShardedLoader  # noqa: E402
 from text_to_sound_synthesis_torch.engine.clip_grad import ClipGradNorm  # noqa: E402
 from text_to_sound_synthesis_torch.engine.optimizers import build_optimizer  # noqa: E402
@@ -109,10 +111,41 @@ def main_stage1(rank, world, out):
     torch.save(report, f"{out}.{rank}.pt")
 
 
+def main_ar(rank, world, out, config, port2):
+    """Two ``train_ar`` steps at lr = world x AR_BS x base_lr on this rank's
+    rows of each global batch, the GPT under DDP: the loss, the gradients
+    and the GPT's weights after each. Then the ``train_ar`` CLI for one step
+    on ``config`` (its own group, from torchrun's variables)."""
+    from text_to_sound_synthesis_torch.tools import train_ar
+
+    model = train_ar.build_model({"model": AR_MODEL}, torch.device("cpu"), 0)
+    model.gpt.train()
+    gpt = wrap_ddp(model.gpt, "cpu")
+    opt = train_ar.build_optimizer(model, world * AR_BS * AR_MODEL["base_learning_rate"])
+    n = AR_BS // world
+    report = []
+    for mel, cond in ar_batches():
+        loss = train_ar.train_step(model, opt, mel[rank * n:(rank + 1) * n],
+                                   cond[rank * n:(rank + 1) * n], None, gpt)
+        report.append({"loss": float(loss),
+                       "grads": {k: p.grad.clone() for k, p in model.gpt.named_parameters()},
+                       "gpt": {k: v.clone() for k, v in model.gpt.state_dict().items()}})
+    torch.save(report, f"{out}.{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=port2)
+    train_ar.main(["-b", config, "--output", os.path.dirname(out), "--max_steps", "1",
+                   "--log_every", "1", "--device", "cpu"])
+
+
 def main():
     port, rank, world, out = sys.argv[1:5]
     rank, world = int(rank), int(world)
     init_distributed("cpu", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    if sys.argv[5:6] == ["ar"]:
+        main_ar(rank, world, out, *sys.argv[6:8])
+        return
     if sys.argv[5:] == ["stage1"]:
         main_stage1(rank, world, out)
         dist.barrier()

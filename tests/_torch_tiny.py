@@ -136,3 +136,37 @@ def assert_grads_close(module, want, what):
         g = got[k].numpy() if got[k] is not None else np.zeros_like(w)
         atol = max(1e-4 * float(np.abs(w).max()), 1e-7 * top)
         np.testing.assert_allclose(g, w, rtol=0, atol=atol, err_msg=f"{what} {k}")
+
+
+#: the AR baseline's tiny Net2Net (tests/test_torch_ar_tools.py, the gloo
+#: train_ar step of tests/_torch_mp_worker.py)
+AR_MODEL = {
+    "target": "text_to_sound_synthesis_tpu.models.gpt.Net2NetTransformer",
+    "base_learning_rate": 1e-4,
+    "params": {
+        "transformer_config": {"params": {
+            "feat_embedding_config": {"target": "torch.nn.Conv1d",
+                                      "params": {"in_channels": 8, "out_channels": 16,
+                                                 "kernel_size": 1}},
+            "GPT_config": dict(vocab_size=10, block_size=17, n_layer=1, n_head=2, n_embd=16),
+        }},
+        "first_stage_config": {
+            "target": "text_to_sound_synthesis_tpu.models.vqgan.VQModel",
+            "params": {"embed_dim": 16, "n_embed": 10,
+                       "ddconfig": dict(double_z=False, z_channels=16, resolution=16,
+                                        in_channels=1, out_ch=1, ch=8, ch_mult=[1, 2],
+                                        num_res_blocks=1, attn_resolutions=[8], dropout=0.0)}},
+        "first_stage_permuter_config": {
+            "target": "text_to_sound_synthesis_tpu.ops.permuter.ColumnMajor",
+            "params": {"H": 2, "W": 8}},
+    },
+}
+AR_BS = 4       # the global batch
+
+
+def ar_batches(n=2):
+    """``n`` global AR batches: (mel (AR_BS, 4, 16, 1), features (AR_BS, 8, 1))."""
+    rng = np.random.default_rng(41)
+    return [(torch.from_numpy(rng.uniform(-1, 1, (AR_BS, 4, 16, 1)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((AR_BS, 8, 1)).astype(np.float32)))
+            for _ in range(n)]

@@ -8,6 +8,9 @@ from the same bridged weights on the same batch, and ``generate_ar``'s greedy
 samples against JAX's ``Net2NetTransformer.sample`` on those weights."""
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,29 +29,11 @@ from text_to_sound_synthesis_torch.models.melgan import MelGANGenerator
 from text_to_sound_synthesis_torch.tools import generate_ar, train_ar
 from text_to_sound_synthesis_torch.utils.config import instantiate_from_config
 
+from tests._torch_tiny import AR_BS, AR_MODEL, ar_batches
+
 torch.set_num_threads(1)
 
-TINY_AR_MODEL = {
-    "target": "text_to_sound_synthesis_tpu.models.gpt.Net2NetTransformer",
-    "base_learning_rate": 1e-4,
-    "params": {
-        "transformer_config": {"params": {
-            "feat_embedding_config": {"target": "torch.nn.Conv1d",
-                                      "params": {"in_channels": 8, "out_channels": 16,
-                                                 "kernel_size": 1}},
-            "GPT_config": dict(vocab_size=10, block_size=17, n_layer=1, n_head=2, n_embd=16),
-        }},
-        "first_stage_config": {
-            "target": "text_to_sound_synthesis_tpu.models.vqgan.VQModel",
-            "params": {"embed_dim": 16, "n_embed": 10,
-                       "ddconfig": dict(double_z=False, z_channels=16, resolution=16,
-                                        in_channels=1, out_ch=1, ch=8, ch_mult=[1, 2],
-                                        num_res_blocks=1, attn_resolutions=[8], dropout=0.0)}},
-        "first_stage_permuter_config": {
-            "target": "text_to_sound_synthesis_tpu.ops.permuter.ColumnMajor",
-            "params": {"H": 2, "W": 8}},
-    },
-}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _write_data(tmp_path, rng, n_cls=2, n_per=4, mel=4, frames=40):
@@ -63,7 +48,7 @@ def _write_data(tmp_path, rng, n_cls=2, n_per=4, mel=4, frames=40):
             np.savetxt(tmp_path / "tok" / f"cls{c}" / f"v{i}.txt", rng.random(8).astype(np.float32))
     split = tmp_path / "split_train.txt"
     split.write_text("\n".join(f"cls{c}/v{i}" for c in range(n_cls) for i in range(n_per)) + "\n")
-    cfg = {"model": TINY_AR_MODEL,
+    cfg = {"model": AR_MODEL,
            "dataloader": {"batch_size": 2, "train_datasets": [{
                "target": "text_to_sound_synthesis_tpu.data.SpecsDataset",
                "params": {"split": "train", "spec_dir_path": str(tmp_path / "feats" / "*"),
@@ -75,7 +60,7 @@ def _write_data(tmp_path, rng, n_cls=2, n_per=4, mel=4, frames=40):
 
 
 def _jax_params(seed=0):
-    jm = j_instantiate(TINY_AR_MODEL)
+    jm = j_instantiate(AR_MODEL)
     init = jax.jit(jm.init_params, static_argnames=("mel_shape", "cond_shape"))
     p = init(jax.random.PRNGKey(seed), mel_shape=(1, 4, 16, 1), cond_shape=(1, 8, 1))
     rng = np.random.default_rng(seed)
@@ -85,7 +70,7 @@ def _jax_params(seed=0):
 
 
 def _port(p):
-    model = from_jax.load_net2net(instantiate_from_config(TINY_AR_MODEL), p)
+    model = from_jax.load_net2net(instantiate_from_config(AR_MODEL), p)
     model.codec.requires_grad_(False).eval()
     return model
 
@@ -183,6 +168,67 @@ def test_train_ar_then_generate_ar(tmp_path):
     want = (np.asarray(sample(p, jax.random.PRNGKey(0), jnp.asarray(feats)))[..., 0] + 1.0) / 2.0
     for i in range(4):
         np.testing.assert_allclose(np.load(greedy / f"v{i}_sample_0.npy"), want[i], atol=1e-4)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_train_ar_data_parallel_over_two_processes(tmp_path):
+    """``train_ar`` on a 2-process gloo group (fresh interpreters,
+    ``tests/_torch_mp_worker.py ... ar``): each rank takes half of each
+    global batch with the GPT under DDP, at lr = 2 x bs x base_lr (JAX's
+    ``jax.device_count()`` rule); two steps against one process on the
+    whole batch at the same lr. The ranks' mean loss within rtol 1e-6, the
+    averaged gradients within 1e-6 of the largest, the weights within 1e-6
+    but where a gradient is zero in exact arithmetic (below 1e-6 of the
+    largest: the attention keys' biases), where each side's AdamW steps by
+    its own rounding, held to 2 lr as in the step test above. The CLI then
+    takes a step on the group and logs the rule's lr."""
+    cfg_path = _write_data(tmp_path, np.random.default_rng(0))
+    port, out = _free_port(), str(tmp_path / "rank")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("RANK", None)
+    port2 = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "tests", "_torch_mp_worker.py"),
+                               str(port), str(r), "2", out, "ar", str(cfg_path), str(port2)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+    reps = [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(2)]
+
+    lr = 2 * AR_BS * AR_MODEL["base_learning_rate"]
+    model = train_ar.build_model({"model": AR_MODEL}, torch.device("cpu"), 0)
+    model.gpt.train()
+    opt = train_ar.build_optimizer(model, lr)
+    tiny = {}
+    for i, (mel, cond) in enumerate(ar_batches()):
+        loss = train_ar.train_step(model, opt, mel, cond)
+        np.testing.assert_allclose((reps[0][i]["loss"] + reps[1][i]["loss"]) / 2, float(loss),
+                                   rtol=1e-6)
+        g_max = max(float(p.grad.abs().max()) for p in model.gpt.parameters())
+        for k, p in model.gpt.named_parameters():
+            assert float((reps[0][i]["grads"][k] - p.grad).abs().max()) <= 1e-6 * g_max, (i, k)
+            tiny[k] = tiny.get(k, False) | (p.grad.abs() < 1e-6 * g_max)
+            d = (reps[0][i]["gpt"][k] - p.detach()).abs()
+            assert float(torch.where(tiny[k], 0.0, d).max()) <= 1e-6, (i, k, float(d.max()))
+            assert float(d.max()) <= 2 * lr, (i, k)
+            assert torch.equal(reps[1][i]["gpt"][k], reps[0][i]["gpt"][k]), (i, k)
+    log = (tmp_path / "ar_gpt" / "log.txt").read_text()
+    assert f"lr = 2 x 2 x 0.0001 = {2 * 2 * 1e-4:.2e} on cpu, 1 samples a rank" in log
+    assert (tmp_path / "ar_gpt" / "checkpoint" / "last.ckpt").exists()
 
 
 def test_tools_refuse_a_missing_card():

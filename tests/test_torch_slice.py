@@ -370,10 +370,11 @@ def test_import_does_not_load_jax():
     """The package and every module of the port, the int8 serving engine's,
     the training engine's (Stage 1, the vocoder's and Stage 2), the data
     pipeline's, the data-parallel layer's, the evaluation's (its models
-    and tools), the AR baseline's (its models and tools) and the
+    and tools), the AR baseline's (its models and tools), the
     user-facing tools (generate, serve, bench_serve, extract_text_features,
-    check_artifacts) included, import without JAX; the CLIP tokenizer
-    without ``regex``."""
+    check_artifacts) and the long tail (classifier training, the CLIP vision
+    tower, vis_codebook, run_parity_gate, dryrun) included, import without
+    JAX; the CLIP tokenizer without ``regex``."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
             "text_to_sound_synthesis_torch.models.diffusion.calibrate",
@@ -432,7 +433,13 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.tools.serve",
             "text_to_sound_synthesis_torch.tools.bench_serve",
             "text_to_sound_synthesis_torch.tools.extract_text_features",
-            "text_to_sound_synthesis_torch.tools.check_artifacts"]
+            "text_to_sound_synthesis_torch.tools.check_artifacts",
+            "text_to_sound_synthesis_torch.engine.classifier_solver",
+            "text_to_sound_synthesis_torch.tools.train_classifier",
+            "text_to_sound_synthesis_torch.models.clip.vision_model",
+            "text_to_sound_synthesis_torch.tools.vis_codebook",
+            "text_to_sound_synthesis_torch.tools.run_parity_gate",
+            "text_to_sound_synthesis_torch.tools.dryrun"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu', 'regex') "
             "if m in sys.modules]; "

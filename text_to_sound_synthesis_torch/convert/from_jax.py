@@ -34,6 +34,7 @@ __all__ = [
     "melgan_discriminator_state_dict", "vggishish_state_dict", "lpaps_state_dict",
     "load_clip_text", "load_diffusion", "load_vqgan", "load_vqgan1d", "load_melgan_generator",
     "load_discriminator", "load_melgan_discriminator", "load_vggishish", "load_lpaps",
+    "clip_vision_state_dict", "load_clip_vision",
     "load_diffsound", "load_int8_engine", "melception_state_dict", "load_melception",
     "captioner_state_dict", "load_captioner", "denoiser_state_dict", "load_denoiser",
     "rnn_embedder_state_dict", "gpt_state_dict", "load_gpt", "net2net_state_dict",
@@ -107,14 +108,7 @@ def clip_text_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
             name, v = _leaf(path[-1], w, _dense)
             sd[f"{head}.{name}"] = v
         elif head.startswith("resblock_"):
-            base = f"transformer.resblocks.{head.split('_')[1]}"
-            sub, leaf = path[1], path[-1]
-            if sub == "attn_in_proj":
-                sd[f"{base}.attn.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"] = (
-                    _dense(w) if leaf == "kernel" else w)
-            else:
-                name, v = _leaf(leaf, w, _dense)
-                sd[f"{base}.{_CLIP_SUB[sub]}.{name}"] = v
+            _clip_resblock(sd, head, path[1], path[-1], w)
         else:
             raise KeyError(f"unmapped clip param {'/'.join(path)}")
     return sd
@@ -122,6 +116,41 @@ def clip_text_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 def load_clip_text(module: nn.Module, params: Mapping) -> nn.Module:
     return _load(module, clip_text_state_dict(params))
+
+
+def _clip_resblock(sd: Dict[str, np.ndarray], head: str, sub: str, leaf: str, w) -> None:
+    base = f"transformer.resblocks.{head.split('_')[1]}"
+    if sub == "attn_in_proj":
+        sd[f"{base}.attn.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"] = (
+            _dense(w) if leaf == "kernel" else w)
+    else:
+        name, v = _leaf(leaf, w, _dense)
+        sd[f"{base}.{_CLIP_SUB[sub]}.{name}"] = v
+
+
+def clip_vision_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """``ClipVisionEncoder`` tree -> the reference ``VisualTransformer``'s
+    names (a CLIP checkpoint's ``visual.*`` less the prefix); the stem goes
+    from flax's (p, p, 3, width) NHWC kernel to torch's (width, 3, p, p)."""
+    sd = {}
+    for path, w in _flatten(_params(params)).items():
+        head = path[0]
+        if head in ("class_embedding", "positional_embedding", "proj"):
+            sd[head] = w
+        elif head == "conv1":
+            sd["conv1.weight"] = _conv2d(w)
+        elif head in ("ln_pre", "ln_post"):
+            name, v = _leaf(path[-1], w, _dense)
+            sd[f"{head}.{name}"] = v
+        elif head.startswith("resblock_"):
+            _clip_resblock(sd, head, path[1], path[-1], w)
+        else:
+            raise KeyError(f"unmapped clip vision param {'/'.join(path)}")
+    return sd
+
+
+def load_clip_vision(module: nn.Module, params: Mapping) -> nn.Module:
+    return _load(module, clip_vision_state_dict(params))
 
 
 # -- diffusion denoiser --------------------------------------------------------
@@ -294,30 +323,29 @@ def load_melgan_discriminator(module: nn.Module, params: Mapping) -> nn.Module:
 
 # -- VGGishish and LPAPS ------------------------------------------------------------
 
-def _vgg_feature_index(conv_layers) -> Dict[int, int]:
+def _vgg_feature_index(conv_layers, use_bn: bool = False) -> Dict[int, int]:
     """conv i -> its index in the reference's ``features`` Sequential."""
-    out, conv_i, idx = {}, 0, 0
-    for v in conv_layers:
-        if v == "MP":
-            idx += 1
-        else:
-            out[conv_i] = idx
-            conv_i += 1
-            idx += 2
-    return out
+    from ..models.lpaps.vggishish import conv_indices
+
+    return dict(enumerate(conv_indices(conv_layers, use_bn)))
 
 
-def vggishish_state_dict(params: Mapping, conv_layers=None) -> Dict[str, np.ndarray]:
+def vggishish_state_dict(params: Mapping, conv_layers=None,
+                         use_bn: bool = False) -> Dict[str, np.ndarray]:
     """``VGGishish`` tree -> ``features.N`` / ``classifier.{0,2,4}``; fc1's
-    rows go from flax's (5, 10, C) flatten to torch's (C, 5, 10)."""
+    rows go from flax's (5, 10, C) flatten to torch's (C, 5, 10). With
+    ``use_bn`` the variables' ``bn_i`` (scale, bias; ``batch_stats`` mean,
+    var) go to the BatchNorm after conv i."""
     from ..models.lpaps.vggishish import VGG16_LAYERS
 
-    fi = _vgg_feature_index(conv_layers or VGG16_LAYERS)
+    fi = _vgg_feature_index(conv_layers or VGG16_LAYERS, use_bn)
     sd = {}
     for (mod, leaf), w in _flatten(_params(params)).items():
         if mod.startswith("conv_"):
             name, v = _leaf(leaf, w, _conv2d)
             sd[f"features.{fi[int(mod[5:])]}.{name}"] = v
+        elif mod.startswith("bn_"):
+            sd[f"features.{fi[int(mod[3:])] + 1}.{'weight' if leaf == 'scale' else 'bias'}"] = w
         else:
             ci = {"fc1": 0, "fc2": 2, "fc3": 4}[mod]
             if leaf == "kernel" and mod == "fc1":
@@ -325,11 +353,17 @@ def vggishish_state_dict(params: Mapping, conv_layers=None) -> Dict[str, np.ndar
             elif leaf == "kernel":
                 w = _dense(w)
             sd[f"classifier.{ci}.{'weight' if leaf == 'kernel' else 'bias'}"] = w
+    if use_bn:
+        for (mod, leaf), w in _flatten(params["batch_stats"]).items():
+            pre = f"features.{fi[int(mod[3:])] + 1}"
+            sd[f"{pre}.running_{leaf}"] = w
+            sd[f"{pre}.num_batches_tracked"] = np.asarray(0, np.int64)
     return sd
 
 
-def load_vggishish(module: nn.Module, params: Mapping, conv_layers=None) -> nn.Module:
-    return _load(module, vggishish_state_dict(params, conv_layers))
+def load_vggishish(module: nn.Module, params: Mapping, conv_layers=None,
+                   use_bn: bool = False) -> nn.Module:
+    return _load(module, vggishish_state_dict(params, conv_layers, use_bn))
 
 
 def lpaps_state_dict(params: Mapping) -> Dict[str, np.ndarray]:

@@ -35,12 +35,11 @@ then nothing is cast or kept.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 import os
 from functools import partial
-from typing import Any, Iterator, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -49,6 +48,7 @@ from ..convert.checkpoint import load_torch_state_dict
 from ..ops import permuter as permuter_ops
 from ..ops.sampling import truncate_top_k, truncate_top_r
 from ..utils.config import instantiate_from_config, register
+from ..utils.dtype import ComputeDtype
 from ..utils.init import init_random_
 from .clip.text_model import CLIPTextEmbedding
 from .clip.tokenize import Tokenize
@@ -99,7 +99,7 @@ def parse_sample_type(sample_type: str):
     "text_to_sound_synthesis_tpu.models.Diffsound",
     "sound_synthesis.modeling.models.dalle_spec.DALLE",
 )
-class Diffsound(nn.Module):
+class Diffsound(ComputeDtype, nn.Module):
     def __init__(
         self,
         *,
@@ -112,10 +112,6 @@ class Diffsound(nn.Module):
         dtype: Any = torch.float32,
     ):
         super().__init__()
-        if isinstance(dtype, str):  # config files say e.g. dtype: bfloat16
-            dtype = getattr(torch, dtype)
-        if not isinstance(dtype, torch.dtype):
-            raise TypeError(f"dtype must name a torch dtype, got {dtype!r}")
         self.content_info = dict(content_info)
         self.condition_info = dict(condition_info)
         # trained stage-1 weights for the frozen codec (dalle_spec.py:45-49),
@@ -130,22 +126,10 @@ class Diffsound(nn.Module):
         self.token_hw = (int(H), int(W))
         self.dtype = dtype
 
-    @property
-    def dtype(self) -> torch.dtype:
-        """The compute dtype."""
-        return self._dtype
-
-    @dtype.setter
-    def dtype(self, dtype: torch.dtype) -> None:
-        """Set the compute dtype: mark the parts with it, so that they refuse
-        to run on weights held in another (``utils/dtype.py``; unmarked in
-        f32), and drop the copies kept for the old one."""
-        self._dtype = dtype
-        self._compute_copies: dict = {}
-        for part in (self.content_codec, self.transformer, self.transformer.transformer,
-                     self.transformer.condition_emb):
-            if part is not None:
-                part.compute_dtype = None if dtype == torch.float32 else dtype
+    def _marked_parts(self) -> tuple:
+        """The parts marked with the compute dtype (``utils/dtype.py``)."""
+        return (self.content_codec, self.transformer, self.transformer.transformer,
+                self.transformer.condition_emb)
 
     # the JAX package's names for the three parts
     @property
@@ -171,48 +155,6 @@ class Diffsound(nn.Module):
         f32) the values a model stored in bf16 was given."""
         init_random_(self, generator, draw_dtype=self.dtype)
         return self
-
-    @contextlib.contextmanager
-    def compute_weights(self, *parts: Optional[nn.Module]) -> Iterator["Diffsound"]:
-        """Within the block, every floating parameter and buffer of ``parts``
-        (the whole model when none is given) reads as its copy in the compute
-        dtype: the f32 weights rounded to ``dtype``. A tensor that takes a
-        gradient, under autograd, is cast afresh and the cast recorded, so
-        the gradient reaches the f32 parameter. Any other tensor reads a
-        copy kept from an earlier block, made anew only when the tensor
-        changed since (its version counter: an optimizer step, an in-place
-        write or a load; or its storage: ``.to``), so a request casts
-        nothing twice. A write through ``.data`` is not seen: set ``dtype``
-        again after one, which drops the copies. Tensors already in ``dtype`` are left
-        alone, so the blocks nest. A no-op in f32."""
-        swapped = []
-        if self.dtype != torch.float32:
-            grad, memo = torch.is_grad_enabled(), {}
-            for part in (parts or (self,)):
-                for m in (part.modules() if part is not None else ()):
-                    for store in (m._parameters, m._buffers):
-                        for k, t in store.items():
-                            if t is None or not t.is_floating_point() or t.dtype == self.dtype:
-                                continue
-                            if id(t) not in memo:
-                                memo[id(t)] = (t.to(self.dtype) if grad and t.requires_grad
-                                               else self._kept_copy(t))
-                            swapped.append((store, k, t))
-                            store[k] = memo[id(t)]
-        try:
-            yield self
-        finally:
-            for store, k, t in reversed(swapped):
-                store[k] = t
-
-    def _kept_copy(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` in the compute dtype, cast again only when ``t`` changed."""
-        stamp = (t._version, t.data_ptr(), t.device)
-        kept = self._compute_copies.get(id(t))
-        if kept is None or kept[0] is not t or kept[1] != stamp:
-            kept = (t, stamp, t.detach().to(self.dtype))
-            self._compute_copies[id(t)] = kept
-        return kept[2]
 
     def _load_codec_params(self) -> None:
         """Replace the codec's weights with the trained stage-1 weights at

@@ -17,6 +17,17 @@ LayerNorm eps is 1e-6, as in the JAX package. Dropout (``attn_pdrop``,
 reference put it and acts only in training mode: ``build_model`` returns the
 model in eval mode, and ``DiscreteDiffusion.train_loss`` sets the mode to its
 ``is_train`` for its forward, as the JAX package passes ``deterministic``.
+
+``Text2SpecTransformer(checkpoint=True)`` recomputes each block in the
+backward pass, as JAX's ``nn.remat`` does (``backbone.py:390``): under
+autograd each ``SelfCrossBlock`` runs inside
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps only
+the block's inputs and replays the dropout's random state in the recompute,
+so the loss and gradients are the plain pass's. The recompute reads the
+weights the forward read (in a compute dtype, the copies
+``compute_weights`` lent it). Outside a gradient pass the blocks run
+plainly. No config reaches the flag: ``DiscreteDiffusion`` drops it, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _recompute
 
 from ...utils.config import register
 from ...utils.dtype import check_compute_dtype
@@ -333,6 +345,7 @@ class Text2SpecTransformer(nn.Module):
             nn.LayerNorm(n_embd, eps=LN_EPS),
             nn.Linear(n_embd, self.content_emb.num_classes - 1),
         )
+        self.checkpoint = checkpoint
 
     @property
     def num_classes(self) -> int:
@@ -341,6 +354,14 @@ class Text2SpecTransformer(nn.Module):
     def ada_tables(self):
         """Per-block ((T, 2D), (T, 2D)) AdaLN modulation tables."""
         return [blk.ada_tables() for blk in self.blocks]
+
+    @staticmethod
+    def _block_recomputed(blk: SelfCrossBlock, x, cond, t, **kw):
+        """``blk`` under activation checkpointing, on the tensors it reads now
+        (``compute_weights`` restores the f32 weights before the backward)."""
+        tensors = {**dict(blk.named_parameters()), **dict(blk.named_buffers())}
+        return _recompute(lambda *a: torch.func.functional_call(blk, tensors, a, kw),
+                          x, cond, t, use_reentrant=False)
 
     def cond_kvs(self, cond_emb: torch.Tensor):
         """Per-block precomputed cross-attention (k, v) of a fixed condition."""
@@ -356,8 +377,10 @@ class Text2SpecTransformer(nn.Module):
         check_compute_dtype(self, self.to_logits[1].weight)
         x = self.content_emb(tokens)
         cond = cond_emb.to(x.dtype)
+        run = (self._block_recomputed if self.checkpoint and torch.is_grad_enabled()
+               else lambda blk, *a, **kw: blk(*a, **kw))
         for i, blk in enumerate(self.blocks):
-            x = blk(x, cond, t,
+            x = run(blk, x, cond, t,
                     mods=mods[i] if mods is not None else None,
                     cond_kv=cond_kvs[i] if cond_kvs is not None else None)
         return self.to_logits(x)

@@ -155,6 +155,7 @@ class DiscreteDiffusion(nn.Module):
         self.mask_weight = tuple(float(w) for w in mask_weight)
         self._schedules = {}   # built once per device: no host copy per training step
         tcfg = dict((transformer_config or {}).get("params", {}))
+        tcfg.pop("checkpoint", None)       # as the JAX package: no config turns on the remat
         tcfg["content_emb_config"] = content_emb_config or tcfg.get("content_emb_config")
         tcfg["diffusion_step"] = diffusion_step  # owned by this module
         accepted = inspect.signature(Text2SpecTransformer).parameters

@@ -12,7 +12,8 @@ BatchNorm trains as flax's ``BatchNorm(momentum=0.9)`` does in the JAX
 package (``FlaxBatchNorm2d`` / ``1d``): the batch's mean and biased variance
 (E[x^2] - E[x]^2, floored at 0) normalise, and the running averages take
 0.9 old + 0.1 new with that biased variance (torch's BatchNorm puts the
-unbiased variance there). Forwards inside ``frozen_batch_stats`` normalise
+unbiased variance there); torch's ``momentum`` m is flax's 1 - m, so
+``momentum=0.01`` is flax's default 0.99 (``VGGishish(use_bn=True)``). Forwards inside ``frozen_batch_stats`` normalise
 with the batch's statistics and leave the running ones untouched, as the JAX
 step discards the updates of its generator-phase forwards. With a process
 group set (``set_batch_stats_group``) the sums are all-reduced, so the
@@ -59,8 +60,9 @@ class _FlaxStats:
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(0.1 * mean)
-                self.running_var.mul_(0.9).add_(0.1 * var)
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var)
                 self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)

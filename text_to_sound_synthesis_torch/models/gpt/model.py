@@ -16,6 +16,13 @@ is. Attention is plain matmuls with the softmax in f32. LayerNorm eps is
 1e-6, and the dropout rates are accepted and not applied, as in the JAX
 package (0 in every config).
 
+``dtype`` is the compute dtype, as flax's ``dtype`` is in the JAX package
+(``utils/dtype.py::ComputeDtype``): the parameters stay f32, and each entry
+point (``forward``, ``embed_feats``, the decode steps) runs on copies of the
+weights in ``dtype``, the features and the KV cache in ``dtype`` too, the
+attention's softmax in f32 and cast back. The default, f32, computes as
+before, with no copy.
+
 Sampling (``ar_sample``) prefills the conditioning in one pass, then runs one
 cached decode a token: each layer's cache is preallocated (B, block_size, H,
 hd) and written in place at ``pos``, so its shapes stay static, as JAX's
@@ -24,6 +31,7 @@ hd) and written in place at ``pos``, so its shapes stay static, as JAX's
 
 from __future__ import annotations
 
+import functools
 import inspect
 import math
 from typing import Any, List, Mapping, NamedTuple, Optional, Tuple, Union
@@ -33,12 +41,22 @@ from torch import nn
 
 from ...ops.sampling import top_k_multinomial
 from ...utils.config import register
+from ...utils.dtype import ComputeDtype
 
 __all__ = ["GPT", "GPTFeats", "GPTClass", "GPTFeatsClass", "RNNEmbedder", "LayerCache",
            "ar_sample"]
 
 LN_EPS = 1e-6
 Pos = Union[int, torch.Tensor]
+
+
+def _computes(fn):
+    """Run the method on the weights' copies in the compute dtype."""
+    @functools.wraps(fn)
+    def inner(self, *args, **kwargs):
+        with self.compute_weights():
+            return fn(self, *args, **kwargs)
+    return inner
 
 
 class LayerCache(NamedTuple):
@@ -129,13 +147,15 @@ class GPTBlock(nn.Module):
     "text_to_sound_synthesis_tpu.models.gpt.GPT",
     "specvqgan.modules.transformer.mingpt.GPT",
 )
-class GPT(nn.Module):
+class GPT(ComputeDtype, nn.Module):
     ZERO_INIT = ("pos_emb",)
 
     def __init__(self, vocab_size: int = 256, block_size: int = 266, n_layer: int = 19,
                  n_head: int = 16, n_embd: int = 1024, embd_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0, attn_pdrop: float = 0.0, n_unmasked: int = 0):
+                 resid_pdrop: float = 0.0, attn_pdrop: float = 0.0, n_unmasked: int = 0,
+                 dtype: Any = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.vocab_size, self.block_size = vocab_size, block_size
         self.n_layer, self.n_head, self.n_embd = n_layer, n_head, n_embd
         self.tok_emb = nn.Embedding(vocab_size, n_embd)
@@ -145,9 +165,10 @@ class GPT(nn.Module):
         self.ln_f = nn.LayerNorm(n_embd, eps=LN_EPS)
         self.head = nn.Linear(n_embd, vocab_size, bias=False)
 
+    @_computes
     def forward(self, idx: torch.Tensor, embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T) token ids (+ optional prepended conditioning embeddings
-        (B, Tc, D)) -> logits (B, Tc + T, vocab)."""
+        (B, Tc, D)) -> logits (B, Tc + T, vocab), in the compute dtype."""
         x = self.tok_emb(idx)
         if embeddings is not None:
             x = torch.cat([embeddings.to(x.dtype), x], dim=1)
@@ -160,35 +181,41 @@ class GPT(nn.Module):
 
     def init_cache(self, batch: int, max_len: Optional[int] = None) -> List[LayerCache]:
         """One zeroed (B, max_len, H, hd) key and value buffer per layer, in
-        the weights' dtype, on their device."""
-        w = self.head.weight
+        the compute dtype, on the weights' device."""
         shape = (batch, max_len or self.block_size, self.n_head, self.n_embd // self.n_head)
-        return [LayerCache(w.new_zeros(shape), w.new_zeros(shape)) for _ in range(self.n_layer)]
+        dev = self.head.weight.device
+        return [LayerCache(torch.zeros(shape, dtype=self.dtype, device=dev),
+                           torch.zeros(shape, dtype=self.dtype, device=dev))
+                for _ in range(self.n_layer)]
 
+    @_computes
     def decode_embedded(self, x_emb: torch.Tensor, cache: List[LayerCache], pos: Pos):
         """One step from an input embedding (B, 1, D) at position ``pos`` ->
         (logits (B, vocab), cache)."""
-        x = x_emb + self.pos_emb[:, pos][:, None].to(x_emb.dtype)
+        x = x_emb.to(self.dtype) + self.pos_emb[:, pos][:, None].to(self.dtype)
         new_cache = []
         for blk, c in zip(self.blocks, cache):
             x, c = blk.decode_step(x, c, pos)
             new_cache.append(c)
         return self.head(self.ln_f(x))[:, 0], new_cache
 
+    @_computes
     def decode_token(self, token: torch.Tensor, cache: List[LayerCache], pos: Pos):
         """One step from token ids (B,) at position ``pos``."""
         return self.decode_embedded(self.tok_emb(token)[:, None], cache, pos)
 
+    @_computes
     def decode_prefix(self, x_emb: torch.Tensor, cache: List[LayerCache]):
         """The conditioning prefix (B, Tc, D) in one pass with the training
         mask -> (logits at position Tc - 1, cache)."""
-        x = x_emb + self.pos_emb[:, : x_emb.shape[1]].to(x_emb.dtype)
+        x = x_emb.to(self.dtype) + self.pos_emb[:, : x_emb.shape[1]].to(self.dtype)
         new_cache = []
         for blk, c in zip(self.blocks, cache):
             x, c = blk.prefill(x, c)
             new_cache.append(c)
         return self.head(self.ln_f(x))[:, -1], new_cache
 
+    @_computes
     def embed_tokens(self, idx: torch.Tensor) -> torch.Tensor:
         return self.tok_emb(idx)
 
@@ -268,13 +295,14 @@ class GPTFeats(GPT):
     channel-major, through ``feat_embedding_config``'s embedder."""
 
     def __init__(self, feat_embedding_config: Optional[Mapping[str, Any]] = None,
-                 GPT_config: Optional[Mapping[str, Any]] = None):
-        super().__init__(**_gpt_kwargs(GPT_config))
+                 GPT_config: Optional[Mapping[str, Any]] = None, dtype: Any = torch.float32):
+        super().__init__(**_gpt_kwargs(GPT_config), dtype=dtype)
         self.embedder = _build_feat_embedder(feat_embedding_config, self.n_embd)
 
+    @_computes
     def embed_feats(self, feats: torch.Tensor) -> torch.Tensor:
         """(B, D, T) -> (B, T, n_embd)."""
-        return self.embedder(feats.transpose(1, 2))
+        return self.embedder(feats.transpose(1, 2).to(self.dtype))
 
     def forward(self, idx, feats):
         return super().forward(idx, embeddings=self.embed_feats(feats))
@@ -288,10 +316,11 @@ class GPTClass(GPT):
     """GPT conditioned on a prepended class-token embedding (mingpt.py:295-305)."""
 
     def __init__(self, token_embedding_config: Optional[Mapping[str, Any]] = None,
-                 GPT_config: Optional[Mapping[str, Any]] = None):
-        super().__init__(**_gpt_kwargs(GPT_config))
+                 GPT_config: Optional[Mapping[str, Any]] = None, dtype: Any = torch.float32):
+        super().__init__(**_gpt_kwargs(GPT_config), dtype=dtype)
         self.embedder = _class_table(token_embedding_config, self.n_embd)
 
+    @_computes
     def embed_feats(self, cls_idx: torch.Tensor) -> torch.Tensor:
         """(B,) or (B, 1) class ids -> (B, 1, n_embd)."""
         return self.embedder(_class_ids(cls_idx))
@@ -310,11 +339,12 @@ class GPTFeatsClass(GPT):
 
     def __init__(self, feat_embedding_config: Optional[Mapping[str, Any]] = None,
                  token_embedding_config: Optional[Mapping[str, Any]] = None,
-                 GPT_config: Optional[Mapping[str, Any]] = None):
-        super().__init__(**_gpt_kwargs(GPT_config))
+                 GPT_config: Optional[Mapping[str, Any]] = None, dtype: Any = torch.float32):
+        super().__init__(**_gpt_kwargs(GPT_config), dtype=dtype)
         self.feat_embedder = _build_feat_embedder(feat_embedding_config, self.n_embd)
         self.cls_embedder = _class_table(token_embedding_config, self.n_embd)
 
+    @_computes
     def embed_feats(self, feats_token) -> torch.Tensor:
         """``{'feature': (B, D, T), 'target': (B,) or (B, 1) class ids}`` (the
         ``FeatsClassStage`` layout) or a (feats, ids) tuple -> (B, T + 1, n_embd)."""
@@ -322,7 +352,7 @@ class GPTFeatsClass(GPT):
             feats, cls_idx = feats_token
         else:
             feats, cls_idx = feats_token["feature"], feats_token["target"]
-        feat_emb = self.feat_embedder(feats.transpose(1, 2))
+        feat_emb = self.feat_embedder(feats.transpose(1, 2).to(self.dtype))
         cls_emb = self.cls_embedder(_class_ids(cls_idx))
         return torch.cat([feat_emb, cls_emb.to(feat_emb.dtype)], dim=1)
 
@@ -340,14 +370,16 @@ def ar_sample(model: GPT, cond, *, steps: int, top_k: int = 100, temperature: fl
     conditioning is prefilled in one pass (the training mask, minGPT's
     unmasked prefix included), then each token is one cached decode, drawn by
     ``ops.sampling.top_k_multinomial`` from ``generator`` (on the model's
-    device). Replaces the reference's per-token full forwards
-    (``generate_samples_caps.py:162-229``); its random stream is not JAX's."""
-    cond_emb = model.embed_feats(cond)
-    B, Tc = cond_emb.shape[:2]
-    cache = model.init_cache(B)
-    logits, cache = model.decode_prefix(cond_emb, cache)
-    tokens = [top_k_multinomial(generator, logits, top_k, temperature)]
-    for t in range(steps - 1):
-        logits, cache = model.decode_token(tokens[-1], cache, Tc + t)
-        tokens.append(top_k_multinomial(generator, logits, top_k, temperature))
+    device) on the logits in the compute dtype. Replaces the reference's
+    per-token full forwards (``generate_samples_caps.py:162-229``); its
+    random stream is not JAX's."""
+    with model.compute_weights():
+        cond_emb = model.embed_feats(cond)
+        B, Tc = cond_emb.shape[:2]
+        cache = model.init_cache(B)
+        logits, cache = model.decode_prefix(cond_emb, cache)
+        tokens = [top_k_multinomial(generator, logits, top_k, temperature)]
+        for t in range(steps - 1):
+            logits, cache = model.decode_token(tokens[-1], cache, Tc + t)
+            tokens.append(top_k_multinomial(generator, logits, top_k, temperature))
     return torch.stack(tokens, dim=1)

@@ -19,6 +19,7 @@ from torch import nn
 
 from ...ops import permuter as permuter_ops
 from ...utils.config import instantiate_from_config, register
+from ...utils.dtype import ComputeDtype
 from ...utils.init import init_random_
 from ..vqgan.model import VQModel, init_codec_
 from .model import GPT, GPTClass, GPTFeats, GPTFeatsClass, ar_sample
@@ -30,12 +31,19 @@ __all__ = ["Net2NetTransformer"]
     "text_to_sound_synthesis_tpu.models.gpt.Net2NetTransformer",
     "specvqgan.models.cond_transformer.Net2NetTransformer",
 )
-class Net2NetTransformer(nn.Module):
+class Net2NetTransformer(ComputeDtype, nn.Module):
     """``cond_stage_config`` (the raw-features stage passes features through),
     ``cond_stage_key``, ``first_stage_key``, ``downsample_cond_size`` and
-    ``base_learning_rate`` are accepted for config parity. The parameters
-    and the computation are f32 (the JAX module's ``dtype``, a compute dtype
-    no config sets, is not ported)."""
+    ``base_learning_rate`` are accepted for config parity.
+
+    ``dtype`` is the compute dtype, as in the JAX module, which passes it to
+    the codec and to the GPT (a config sets it as ``model.params.dtype``,
+    e.g. ``bfloat16``): the parameters, their gradients and the AdamW
+    moments stay f32; the GPT computes on copies of its weights in
+    ``dtype`` (``models/gpt/model.py``), the codec's token paths run inside
+    ``compute_weights`` on copies of its own, kept until a weight changes
+    (``utils/dtype.py::ComputeDtype``); the attention's softmax and the loss
+    run in f32. The default, f32, computes as before."""
 
     def __init__(self, *, transformer_config: Mapping[str, Any],
                  first_stage_config: Mapping[str, Any],
@@ -43,7 +51,7 @@ class Net2NetTransformer(nn.Module):
                  first_stage_permuter_config: Optional[Mapping[str, Any]] = None,
                  cond_stage_key: str = "feature", first_stage_key: str = "image",
                  downsample_cond_size: int = -1, pkeep: float = 1.0,
-                 base_learning_rate: Optional[float] = None):
+                 base_learning_rate: Optional[float] = None, dtype: Any = torch.float32):
         super().__init__()
         self.first_stage_key, self.cond_stage_key = first_stage_key, cond_stage_key
         self.pkeep = float(pkeep)
@@ -54,6 +62,12 @@ class Net2NetTransformer(nn.Module):
         self.transformer: GPT = gpt_cls(**dict(transformer_config.get("params") or {}))
         self.permuter = (instantiate_from_config(first_stage_permuter_config)
                          if first_stage_permuter_config else permuter_ops.Identity())
+        self.dtype = dtype
+
+    def _marked_parts(self) -> tuple:
+        """The codec refuses its f32 weights outside ``compute_weights``; the
+        GPT takes the compute dtype as its own."""
+        return (self.first_stage_model, self.transformer)
 
     @property
     def gpt(self) -> GPT:
@@ -76,29 +90,34 @@ class Net2NetTransformer(nn.Module):
     @torch.no_grad()
     def encode_to_z(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, H, W, 1) in [-1, 1] -> (B, h w) permuted token ids."""
-        idx = self.first_stage_model.encode_indices(mel)
+        with self.compute_weights(self.first_stage_model):
+            idx = self.first_stage_model.encode_indices(mel.to(self.dtype))
         return self.permuter(idx.reshape(idx.shape[0], -1).long())
 
     @torch.no_grad()
     def decode_to_img(self, tokens: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-        """(B, h w) permuted token ids -> mel (B, H, W, 1)."""
+        """(B, h w) permuted token ids -> mel (B, H, W, 1), in the compute dtype."""
         H, W = hw
         grid = self.permuter(tokens, reverse=True).reshape(-1, H, W)
-        return self.first_stage_model.decode_code(grid)
+        with self.compute_weights(self.first_stage_model):
+            return self.first_stage_model.decode_code(grid)
 
     # -- training loss -------------------------------------------------------
 
-    def loss(self, mel: torch.Tensor, cond, generator: Optional[torch.Generator] = None):
+    def loss(self, mel: torch.Tensor, cond, generator: Optional[torch.Generator] = None,
+             gpt: Optional[nn.Module] = None):
         """Next-token cross entropy (cond_transformer.py:68-116, 353-359) on
         the codec's tokens of ``mel``: ``token_loss(encode_to_z(mel), ...)``."""
-        return self.token_loss(self.encode_to_z(mel), cond, generator)
+        return self.token_loss(self.encode_to_z(mel), cond, generator, gpt)
 
-    def token_loss(self, z: torch.Tensor, cond, generator: Optional[torch.Generator] = None):
+    def token_loss(self, z: torch.Tensor, cond, generator: Optional[torch.Generator] = None,
+                   gpt: Optional[nn.Module] = None):
         """The targets are the whole token sequence ``z`` (B, L), the inputs
         the conditioning and z[:, :-1]. ``pkeep < 1``: each input token is
         kept with probability pkeep, else replaced by a uniform id drawn from
-        ``generator`` (required then); the targets stay clean. Returns (mean
-        loss, logits (B, L, vocab))."""
+        ``generator`` (required then); the targets stay clean. ``gpt`` runs
+        the GPT in its place (its DDP wrapper under a process group). Returns
+        (mean loss, logits (B, L, vocab))."""
         z_in = z[:, :-1]
         if self.pkeep < 1.0:
             if generator is None:
@@ -107,9 +126,12 @@ class Net2NetTransformer(nn.Module):
             rand = torch.randint(0, self.first_stage_model.quantize.n_e, z_in.shape,
                                  generator=generator, device=z.device)
             z_in = torch.where(keep, z_in, rand)
-        logits = self.transformer(z_in, cond)
+        logits = (gpt or self.transformer)(z_in, cond)
         logits = logits[:, logits.shape[1] - z.shape[1]:]     # predictions for z[0..L-1]
-        loss = nn.functional.cross_entropy(logits.float().transpose(1, 2), z)
+        # over (B L, vocab) rows: CUDA's (B, vocab, L) form sums by atomic adds,
+        # so its value is not reproducible bit for bit
+        loss = nn.functional.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                                           z.reshape(-1))
         return loss, logits
 
     # -- sampling ------------------------------------------------------------

@@ -29,7 +29,7 @@ from torch import nn
 from ...utils.config import register
 
 __all__ = ["Melception", "BasicConv2d", "InceptionA", "InceptionB", "InceptionC",
-           "InceptionD", "InceptionE", "load_melception_checkpoint", "TAPS"]
+           "InceptionD", "InceptionE", "load_melception_checkpoint", "unit_batch_stats_", "TAPS"]
 
 #: every feature tap, in the order the forward reaches them
 TAPS = ("64", "192", "768", "2048", "logits_unbiased", "logits")
@@ -195,6 +195,17 @@ class Melception(nn.Module):
         self.fc = nn.Linear(2048, num_classes)
         self.eval()     # a feature extractor: BatchNorm on its running statistics
 
+    def train(self, mode: bool = True) -> "Melception":
+        """Train mode for every part but the BatchNorms, which stay in eval
+        mode: each is the JAX package's folded ``bn_scale`` / ``bn_shift``
+        (``unit_batch_stats_``), so training moves its weight and bias and
+        never its running statistics."""
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+        return self
+
     def forward(self, mel: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats: Dict[str, torch.Tensor] = {}
         want = self.features_list
@@ -223,6 +234,19 @@ class Melception(nn.Module):
         if "logits" in want:
             feats["logits"] = logits_unbiased + self.fc.bias
         return feats
+
+
+def unit_batch_stats_(model: nn.Module) -> nn.Module:
+    """Set every BatchNorm's running mean to 0 and variance to 1 - eps, in
+    place: the eval-mode BN is then exactly x * weight + bias (in f32, 1 -
+    1e-3 plus eps 1e-3 rounds to 1.0), the JAX package's folded ``bn_scale``
+    / ``bn_shift``, as a fresh JAX ``Melception`` starts (scale 1, shift 0)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0 - m.eps)
+    return model
 
 
 def load_melception_checkpoint(model: Melception, path: str) -> Melception:

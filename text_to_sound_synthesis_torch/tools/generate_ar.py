@@ -83,7 +83,7 @@ def main(argv=None) -> int:
         for s in range(args.samples_per_video):
             mel = model.sample(feats, hw, top_k=args.top_k, temperature=args.temperature,
                                generator=generator)
-            spec = (mel[..., 0] + 1.0) / 2.0
+            spec = (mel[..., 0].float() + 1.0) / 2.0      # numpy takes no bf16
             wavs = vocoder(spec).cpu().numpy() if vocoder is not None else None
             spec = spec.cpu().numpy()
             for i, f in enumerate(chunk):
