@@ -291,14 +291,31 @@ Phases (any failed check exits nonzero, and no result line is printed):
              ``tools/generate.py``'s, exact launch counts (K1 = 100; K2 =
              100, K3 = K4 = K5 = Kw = 19 x 100, Kp = 2 x 19 x 100). (h)
              ``dryrun.entry()`` on the card, finite; ``dryrun_multichip(1)``
-             under NCCL in a spawned process.
+             under NCCL in a spawned process (JAX's mesh at one card: (1, 1)).
+10g. model axis — the flagship ``Text2SpecTransformer``'s Stage-2 step
+             (seeded weights from the YAML, f32 with TF32 off, batch 4 of
+             random codes and unit-norm conditions, supplied draws, AdamW with
+             the decay mask, the OR-ed clip, the ``Lt`` update) at a model axis
+             of 2 (``parallel.sharding.MegatronText2Spec``): two spawned
+             processes on the one card in a gloo group (NCCL refuses two ranks
+             on one device; gloo stages the all-reduces and all-gathers through
+             the host). Held against one process on the same card, weights,
+             batch and draws: the loss and the gradient norm within rtol 1e-5,
+             the gathered gradients within 1e-5 of the largest, the updated
+             weights within 1e-6 (2 lr where a gradient is within 1e-5 of the
+             largest of zero), t and ``Lt_count`` equal; the ranks' replicated
+             gradients and weights bit for bit equal. Both steps' times (the
+             median of MA_STEPS after the first), the model group's all-reduce
+             and all-gather count and bytes a step. No kernel of the port runs
+             in it.
 11. times  — each path's request time and clips/s, phase 5b's reference and
              fused times in bench.py's scope, the train steps' times (Stage 2
              in f32 and bf16, Stage 1, MelGAN, the AR baseline), the
              evaluation's, the AR request's, the server burst's, phase 10f's
              (the AR request in f32 and bf16, the checkpointed step, the
-             classifier steps, the ViT, the gate), beside the card's name
-             and power limit. Every request phase counts K11 and T1-T3 at 0.
+             classifier steps, the ViT, the gate), phase 10g's two steps,
+             beside the card's name and power limit. Every request phase
+             counts K11 and T1-T3 at 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' record, each kernel with its bound at the timed shapes (the
@@ -4426,6 +4443,207 @@ def phase_tail(model, vocoder, dev) -> dict:
     return res
 
 
+# -- phase 10g: the Megatron model axis ----------------------------------------------------------
+
+MA_BATCH, MA_LR, MA_STEPS = 4, 1e-4, 3   # the global batch, AdamW's lr, timed steps a side
+MA_TIMEOUT = 300                         # seconds for the two ranks, the build included
+
+
+def _sync_step(step, state, batch, draws, dev):
+    """One step, waited for; (state, metrics, seconds)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, m = step(state, batch, MA_LR, draws=draws)
+    float(m.loss)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return state, m, time.perf_counter() - t0
+
+
+def _model_axis_rank(rank: int, port: int, device_type: str, tiny: bool, queue) -> None:
+    """One of phase 10g's two ranks, a (1, 2) gloo group on one card: both
+    take the split step and MA_STEPS more; then rank 0 takes the
+    one-process step from the same weights, batch and draws, compares the
+    two and times MA_STEPS more. Rank 0 puts the numbers in ``queue``; a
+    failure on either rank puts its traceback there."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from text_to_sound_synthesis_torch.engine.clip_grad import ClipGradNorm
+        from text_to_sound_synthesis_torch.engine.optimizers import build_optimizer
+        from text_to_sound_synthesis_torch.engine.train_state import (DiffusionTrainState,
+                                                                      make_train_step)
+        from text_to_sound_synthesis_torch.parallel import init_distributed, same_across
+        from text_to_sound_synthesis_torch.parallel.mesh import make_mesh
+        from text_to_sound_synthesis_torch.parallel.sharding import megatron_denoiser
+        from text_to_sound_synthesis_torch.tools import dryrun
+        from text_to_sound_synthesis_torch.utils.dtype import full_f32
+
+        dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        else:
+            torch.set_num_threads(1)
+        opt_cfg = {"target": "adamw", "params": {"betas": (0.9, 0.96), "weight_decay": 0.045}}
+        with full_f32():
+            t_build = time.perf_counter()
+            init_distributed(dev, init_method=f"tcp://localhost:{port}", rank=rank,
+                             world_size=2, backend="gloo")
+            mesh = make_mesh(model=2)
+            model = dryrun.build_diffusion(tiny, dev, SEED + 70)
+            T, L, K = model.diffusion_step, model.content_seq_len, model.num_classes
+            tcfg = dryrun.diffusion_params(tiny)["transformer_config"]["params"]
+            S, D = tcfg.get("condition_seq_len", dryrun.TINY_COND), tcfg["condition_dim"]
+            rng = np.random.default_rng(SEED + 71)
+            cond = rng.standard_normal((MA_BATCH, S, D)).astype(np.float32)
+            batch = {"x0": torch.from_numpy(rng.integers(0, K - 1, (MA_BATCH, L))).to(dev),
+                     "cond": torch.from_numpy(cond / np.linalg.norm(cond, axis=-1,
+                                                                  keepdims=True)).to(dev)}
+            draws = _train_draws(torch.Generator(dev).manual_seed(SEED + 72), MA_BATCH, T, L, K)
+
+            # the split step: the denoiser over the model axis, the data axis 1 (no DDP)
+            den = megatron_denoiser(model.transformer, mesh)
+            n_local = sum(p.numel() for p in den.parameters())
+            state = DiffusionTrainState.create(den, build_optimizer(opt_cfg, den, MA_LR), T,
+                                               with_ema=False)
+            step = make_train_step(model, ClipGradNorm(0, 5000, 0.5), ddp=den, mesh=mesh)
+            build_s = time.perf_counter() - t_build
+            den.axis.reset_counts()
+            state, m, first_s = _sync_step(step, state, batch, draws, dev)
+            counts = dict(den.axis.counts)
+            rep = [n for n, _ in den.named_parameters() if n not in den.split_dims]
+            params = dict(den.named_parameters())
+            rep_grads_same = same_across(torch.cat([params[n].grad.reshape(-1) for n in rep]),
+                                          mesh.model_group)
+            rep_same = same_across(torch.cat([params[n].detach().reshape(-1) for n in rep]),
+                                    mesh.model_group)
+            loss_same = same_across(m.loss.reshape(1), mesh.model_group)
+            grads = den.full_grads()
+            weights = {k: v.clone() for k, v in den.full_state_dict().items()}
+            tp = dict(loss=float(m.loss), norm=float(m.grad_norm), t=m.t.cpu(),
+                      count=state.lt.Lt_count.cpu(), hist=state.lt.Lt_history.cpu())
+            tp_times = [first_s]
+            for _ in range(MA_STEPS):
+                state, _, s = _sync_step(step, state, batch, draws, dev)
+                tp_times.append(s)
+            peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+            del state, step, den
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+            if rank == 0:
+                whole = model.transformer          # the weights the split began from
+                ref = DiffusionTrainState.create(whole, build_optimizer(opt_cfg, whole, MA_LR),
+                                                 T, with_ema=False)
+                ref_step = make_train_step(model, ClipGradNorm(0, 5000, 0.5))
+                ref, rm, one_first = _sync_step(ref_step, ref, batch, draws, dev)
+                g_max = max(float(p.grad.abs().max()) for p in whole.parameters())
+                grad_err = max(float((grads[n] - p.grad).abs().max())
+                               for n, p in whole.named_parameters()) / g_max
+                w_err = w_tiny = 0.0
+                for n, p in whole.named_parameters():
+                    d = (weights[n] - p.detach()).abs()
+                    tiny_g = p.grad.abs() < 1e-5 * g_max
+                    w_err = max(w_err, float(torch.where(tiny_g, 0.0, d).max()))
+                    w_tiny = max(w_tiny, float(d.max()))
+                res = dict(
+                    loss=(tp["loss"], float(rm.loss)), norm=(tp["norm"], float(rm.grad_norm)),
+                    grad_err=grad_err, w_err=w_err, w_tiny=w_tiny,
+                    t_same=bool(torch.equal(tp["t"], rm.t.cpu())),
+                    count_same=bool(torch.equal(tp["count"], ref.lt.Lt_count.cpu())),
+                    count_sum=int(tp["count"].sum()),
+                    hist_rel=float((tp["hist"] - ref.lt.Lt_history.cpu()).abs().max()
+                                   / ref.lt.Lt_history.abs().max().cpu()),
+                    rep_grads_same=rep_grads_same, rep_same=rep_same, loss_same=loss_same,
+                    counts=counts, n_local=n_local,
+                    n_whole=sum(p.numel() for p in whole.parameters()), build_s=build_s,
+                    tp_times=tp_times, peak_gib=peak / 2 ** 30)
+                one_times = [one_first]
+                for _ in range(MA_STEPS):
+                    ref, _, s = _sync_step(ref_step, ref, batch, draws, dev)
+                    one_times.append(s)
+                res["one_times"] = one_times
+                queue.put({"rank": 0, "result": res})
+            dist.barrier()
+            dist.destroy_process_group()
+    except BaseException:      # noqa: BLE001 - reported to the parent, which fails the phase
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_model_axis(dev, tiny: bool = False) -> dict:
+    """Phase 10g (module docstring): the flagship's Stage-2 step at a model
+    axis of 2, two gloo processes on one card, against one process. Returns
+    its numbers and "seconds". ``tiny``: the dry run's small denoiser (a
+    rehearsal on the CPU with ``dev`` the CPU)."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    port = _free_port()
+    procs = [ctx.Process(target=_model_axis_rank, args=(r, port, dev.type, tiny, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    msgs, deadline = [], time.monotonic() + MA_TIMEOUT
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        for p in procs:
+            p.join(timeout=1)
+        while not queue.empty():
+            msgs.append(queue.get())
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    while not queue.empty():
+        msgs.append(queue.get())
+    errors = [m["error"] for m in msgs if "error" in m]
+    check(not errors and all(p.exitcode == 0 for p in procs),
+          f"model axis: exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    res = next(m["result"] for m in msgs if "result" in m)
+    (tp_loss, one_loss), (tp_norm, one_norm) = res["loss"], res["norm"]
+    loss_rel, norm_rel = abs(tp_loss - one_loss) / abs(one_loss), abs(tp_norm - one_norm) / one_norm
+    check(loss_rel <= 1e-5 and norm_rel <= 1e-5,
+          f"model axis: loss {tp_loss!r} vs {one_loss!r}, grad norm {tp_norm!r} vs {one_norm!r}")
+    check(res["grad_err"] <= 1e-5,
+          f"model axis: gradients {res['grad_err']:.3g} of the largest off")
+    check(res["w_err"] <= 1e-6 and res["w_tiny"] <= 2 * MA_LR,
+          f"model axis: weights {res['w_err']:.3g} off (near-zero gradients {res['w_tiny']:.3g})")
+    check(res["t_same"] and res["count_same"] and res["count_sum"] == MA_BATCH
+          and res["hist_rel"] <= 1e-4,
+          f"model axis: the timestep state differs (sum {res['count_sum']}, "
+          f"history {res['hist_rel']:.3g} of its largest)")
+    check(res["rep_grads_same"] and res["rep_same"] and res["loss_same"],
+          "model axis: the two ranks' replicated gradients, weights or losses differ")
+    c = res["counts"]
+    res["seconds"] = time.perf_counter() - t_phase
+    tp_med, one_med = float(np.median(res["tp_times"][1:])), float(np.median(res["one_times"][1:]))
+    res.update(tp_s=tp_med, one_s=one_med)
+    what = "the dry run's small" if tiny else "the flagship"
+    print(f"  (a) {what} Text2SpecTransformer's Stage-2 step (f32, TF32 off, batch {MA_BATCH}, "
+          f"AdamW lr {MA_LR}, the OR-ed clip) at a model axis of 2, two gloo processes on one "
+          f"card ({res['n_local'] / 1e6:.1f} M of {res['n_whole'] / 1e6:.1f} M parameters a "
+          f"rank), against one process on the same weights, batch and draws: loss rel "
+          f"{loss_rel:.3g}, grad norm rel {norm_rel:.3g}, gradients {res['grad_err']:.3g} of the "
+          f"largest, weights {res['w_err']:.3g} ({res['w_tiny']:.3g} where a gradient is within "
+          f"1e-5 of the largest of 0), t and Lt_count equal (sum {res['count_sum']}); the ranks' "
+          f"replicated gradients and weights bit for bit equal")
+    print(f"  (b) step times, median of {MA_STEPS} after the first: model axis 2 "
+          f"{tp_med:.4f} s (first {res['tp_times'][0]:.3f} s), one process {one_med:.4f} s "
+          f"(first {res['one_times'][0]:.3f} s), {tp_med / one_med:.2f} x; per step over the "
+          f"model group: {c['all_reduce']} all-reduces, {c['all_reduce_bytes'] / 2 ** 20:.1f} MiB "
+          f"a rank, {c['all_gather']} all-gathers, {c['all_gather_bytes'] / 2 ** 20:.1f} MiB; "
+          f"a rank's peak memory {res['peak_gib']:.2f} GiB; ranks built in {res['build_s']:.1f} s; "
+          f"phase 10g {res['seconds']:.1f} s")
+    return res
+
+
 def _bound(nbytes, **ops):
     """(least ms, what bounds it) for ``nbytes`` moved and ``ops`` operations
     by type. The tensor cores (int8 and bf16 dots, one after the other) and
@@ -4685,6 +4903,10 @@ def main() -> int:
           "gate, the dry run]")
     tail = phase_tail(model, vocoder, dev)
 
+    print("[10g the Megatron model axis: the flagship Stage-2 step over two gloo processes on "
+          "the card, against one process]")
+    axis = phase_model_axis(dev)
+
     print(f"[11 times] on {card}:")
     print(f"  K1 at (2120, 256): {k1_ms:.4f} ms, plain PyTorch step {plain_ms:.4f} ms")
     print(f"  bench.py's scope (sampler + decode_code, batch {BATCH}, {N_STEPS} steps): the f32 "
@@ -4750,6 +4972,9 @@ def main() -> int:
     print(f"  run_parity_gate smoke: bf16 {tail['gate']['bf16']:.1f} s, --int8 "
           f"{tail['gate']['int8']:.1f} s; dryrun_multichip(1) {tail['dryrun_s']:.1f} s; phase "
           f"10f {tail['seconds']:.1f} s")
+    print(f"  Stage-2 flagship step, f32 (TF32 off), batch {MA_BATCH}: at a model axis of 2 (two "
+          f"gloo processes on one card) {axis['tp_s']:.4f} s, one process {axis['one_s']:.4f} s "
+          f"(medians of {MA_STEPS}); phase 10g {axis['seconds']:.1f} s")
     print(f"  K11 over the decoder's five stages (no request path): {gn_res[1]:.4f} ms, plain "
           f"twin {gn_res[2]:.4f} ms; T1 int8 -> int32 at 2176x1024x4096: {dot_res[1]:.4f} ms, "
           f"torch._int_mm {library['make_pallas_dot']:.4f} ms")

@@ -2,9 +2,14 @@
 tests/test_torch_stage1_tools.py): one rank of a 2-process gloo group on the
 CPU, a fresh interpreter running the port alone (no JAX).
 
-    python tests/_torch_mp_worker.py <port> <rank> <world> <out> [stage1 | ar CONFIG PORT2]
+    python tests/_torch_mp_worker.py <port> <rank> <world> <out>
+        [stage1 | ar CONFIG PORT2 | tp forward WEIGHTS | tp step]
 
-Each rank joins ``tcp://localhost:<port>``. With ``stage1`` it runs two
+Each rank joins ``tcp://localhost:<port>``. With ``tp`` it runs on a mesh
+with a model axis of 2 (``main_tp``): ``forward`` the split denoiser's log p
+on WEIGHTS (a whole state dict) and the shards' round trip, ``step`` one
+train step and a second on its data row's share of a global batch. With
+``stage1`` it runs two
 adversarial SpecVQGAN steps on its half of each global batch, data parallel
 over the group (``main_stage1``); with ``ar`` two ``train_ar`` steps on its
 share of each global AR batch with the GPT under DDP, then the ``train_ar``
@@ -32,8 +37,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from tests._torch_tiny import (AR_BS, AR_MODEL, B, OPT_CFG, S1_B, T, TRAIN_CFG,  # noqa: E402
-                               ar_batches, batch, stage1_batches, stage1_state, tbatch)
+from tests._torch_tiny import (AR_BS, AR_MODEL, B, OPT_CFG, S1_B, T, TP_LR,  # noqa: E402
+                               TRAIN_CFG, ar_batches, batch, stage1_batches, stage1_state, tbatch,
+                               tp_diffusion, tp_draws, tp_inputs)
 from text_to_sound_synthesis_torch.data.loader import ShardedLoader  # noqa: E402
 from text_to_sound_synthesis_torch.engine.clip_grad import ClipGradNorm  # noqa: E402
 from text_to_sound_synthesis_torch.engine.optimizers import build_optimizer  # noqa: E402
@@ -77,7 +83,7 @@ SOLVER_CFG = {
     "solver": {"base_lr": 1e-3, "max_epochs": 1, "save_epochs": 1, "validation_epochs": 1,
                "sample_iterations": 0, "ema": {"decay": 0.9, "update_interval": 1},
                "optimizers_and_schedulers": [{"name": "none", "optimizer": OPT_CFG}]},
-    "dataloader": {"batch_size": 2},
+    "dataloader": {"batch_size": 4},     # the global batch: 2 a rank
 }
 
 
@@ -139,12 +145,75 @@ def main_ar(rank, world, out, config, port2):
                    "--log_every", "1", "--device", "cpu"])
 
 
+def main_tp(rank, world, out, what, weights=None):
+    """On a mesh of (world / 2, 2): ``forward``, the split denoiser's log p
+    (x0 | x_t) on ``tp_inputs`` from the whole weights in ``weights``, and
+    whether ``shard_state_dict`` -> ``gather_state_dict`` and the split
+    module's ``full_state_dict`` give those weights back bit for bit;
+    ``step``, one train step on this data row's rows of the global batch
+    with the global draws sliced (the split denoiser under DDP over the data
+    group), then one with a generator seeded by the data index: the loss,
+    the norm, the gathered gradients and weights, the replicated gradients
+    as this rank holds them, the timestep state."""
+    from text_to_sound_synthesis_torch.engine.train_state import TrainDraws
+    from text_to_sound_synthesis_torch.parallel.mesh import make_mesh, shard_batch
+    from text_to_sound_synthesis_torch.parallel.sharding import (gather_state_dict,
+                                                                 megatron_denoiser,
+                                                                 shard_state_dict)
+
+    mesh = make_mesh(model=2)
+    model = tp_diffusion()
+    report = {"coords": mesh.coords}
+    if what == "forward":
+        model.transformer.load_state_dict(torch.load(weights))
+        whole = model.transformer.state_dict()
+        tp = megatron_denoiser(model.transformer, mesh)
+        back = gather_state_dict(shard_state_dict(whole, 2, mesh.model_index), tp.split_dims,
+                                 mesh.model_group)
+        full = tp.full_state_dict()
+        report["round_trip"] = all(torch.equal(back[k], v) for k, v in whole.items())
+        report["full"] = all(torch.equal(full[k], v) for k, v in whole.items())
+        report["sizes"] = {k: tuple(v.shape) for k, v in tp.state_dict().items()}
+        model.transformer = tp
+        toks, cond, t = (torch.from_numpy(a) for a in tp_inputs())
+        with torch.no_grad():
+            report["logp"] = model.predict_start(toks, cond, t)
+        report["counts"] = dict(tp.axis.counts)
+    else:
+        den = megatron_denoiser(model.transformer, mesh)
+        state = DiffusionTrainState.create(den, build_optimizer(OPT_CFG, den, TP_LR), 4,
+                                           with_ema=False)
+        step = make_train_step(model, ClipGradNorm(0, 5000, 0.5),
+                               ddp=wrap_ddp(den, "cpu", mesh.data_group), mesh=mesh)
+        toks, cond, _ = (torch.from_numpy(a) for a in tp_inputs())
+        batch = shard_batch({"x0": toks.clamp(max=15), "cond": cond}, mesh)
+        dr = tp_draws()
+        draws = shard_batch(TrainDraws(*dr), mesh)
+        state, m = step(state, batch, TP_LR, draws=draws)
+        report.update(loss=m.loss, grad_norm=m.grad_norm, t=m.t, grads=den.full_grads(),
+                      rep_grads={n: p.grad.clone() for n, p in den.named_parameters()
+                                 if n not in den.split_dims},
+                      params={k: v.clone() for k, v in den.full_state_dict().items()},
+                      lt=(state.lt.Lt_history.clone(), state.lt.Lt_count.clone()))
+        gen = torch.Generator().manual_seed(7 + mesh.data_index)
+        state, m2 = step(state, batch, TP_LR, generator=gen)
+        report.update(loss2=m2.loss, t2=m2.t,
+                      rep2={n: p.detach().clone() for n, p in den.named_parameters()
+                            if n not in den.split_dims})
+    torch.save(report, f"{out}.{rank}.pt")
+
+
 def main():
     port, rank, world, out = sys.argv[1:5]
     rank, world = int(rank), int(world)
     init_distributed("cpu", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
     if sys.argv[5:6] == ["ar"]:
         main_ar(rank, world, out, *sys.argv[6:8])
+        return
+    if sys.argv[5:6] == ["tp"]:
+        main_tp(rank, world, out, *sys.argv[6:8])
+        dist.barrier()
+        dist.destroy_process_group()
         return
     if sys.argv[5:] == ["stage1"]:
         main_stage1(rank, world, out)

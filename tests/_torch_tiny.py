@@ -170,3 +170,41 @@ def ar_batches(n=2):
     return [(torch.from_numpy(rng.uniform(-1, 1, (AR_BS, 4, 16, 1)).astype(np.float32)),
              torch.from_numpy(rng.standard_normal((AR_BS, 8, 1)).astype(np.float32)))
             for _ in range(n)]
+
+
+# -- the model axis: the dry run's small denoiser (tools/dryrun.py's TINY), a global batch of 4 --
+
+TP_B, TP_LR = 4, 1e-3
+
+
+def tp_diffusion(seed=0):
+    """The dry run's small ``DiscreteDiffusion`` (2 layers of d128, 2 heads of
+    64, a condition of 64, 16 tokens of 16 codes + MASK, 4 steps), seeded."""
+    from text_to_sound_synthesis_torch.tools.dryrun import build_diffusion
+
+    return build_diffusion(True, torch.device("cpu"), seed)
+
+
+def tp_inputs():
+    """Fixed token ids (MASK among them), condition and t of ``TP_B`` rows."""
+    from text_to_sound_synthesis_torch.tools.dryrun import TINY, TINY_COND, TINY_STEPS
+
+    rng = np.random.default_rng(51)
+    return (rng.integers(0, 17, (TP_B, TINY["content_seq_len"])).astype(np.int64),
+            rng.standard_normal((TP_B, TINY_COND, TINY["condition_dim"])).astype(np.float32),
+            rng.integers(0, TINY_STEPS, TP_B).astype(np.int64))
+
+
+def tp_draws():
+    """One global step's draws: the timestep Gumbel and uniform draws and
+    ``q_sample``'s noise (``TrainDraws``)."""
+    from text_to_sound_synthesis_torch.engine.train_state import TrainDraws
+    from text_to_sound_synthesis_torch.models.diffusion.process import TimestepDraws
+    from text_to_sound_synthesis_torch.tools.dryrun import TINY, TINY_STEPS
+
+    rng = np.random.default_rng(52)
+    L = TINY["content_seq_len"]
+    return TrainDraws(
+        TimestepDraws(torch.from_numpy(rng.gumbel(size=(TP_B, TINY_STEPS)).astype(np.float32)),
+                      torch.from_numpy(rng.integers(0, TINY_STEPS, TP_B))),
+        torch.from_numpy(rng.gumbel(size=(TP_B, L, 17)).astype(np.float32)))

@@ -178,10 +178,12 @@ def _free_port():
 
 def test_train_ar_data_parallel_over_two_processes(tmp_path):
     """``train_ar`` on a 2-process gloo group (fresh interpreters,
-    ``tests/_torch_mp_worker.py ... ar``): each rank takes half of each
-    global batch with the GPT under DDP, at lr = 2 x bs x base_lr (JAX's
-    ``jax.device_count()`` rule); two steps against one process on the
-    whole batch at the same lr. The ranks' mean loss within rtol 1e-6, the
+    ``tests/_torch_mp_worker.py ... ar``): the config's batch is the global
+    batch, as in the JAX tool (the ranks form its data mesh,
+    ``make_data_mesh_for_batch``), so each rank takes half of each global
+    batch with the GPT under DDP over the data group, at lr = 2 x bs x
+    base_lr (JAX's ``jax.device_count()`` rule); two steps against one
+    process on the whole batch at the same lr. The ranks' mean loss within rtol 1e-6, the
     averaged gradients within 1e-6 of the largest, the weights within 1e-6
     but where a gradient is zero in exact arithmetic (below 1e-6 of the
     largest: the attention keys' biases), where each side's AdamW steps by

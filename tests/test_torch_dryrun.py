@@ -1,8 +1,10 @@
 """The port's dry-run entry points (``tools/dryrun.py``) on the CPU:
 ``entry()`` at the small geometry gives finite log-probabilities of the
 right shape, and ``dryrun_multichip(2)`` passes on a 2-process gloo group
-(fresh interpreters: one Stage-2 train step under DDP, both sharded
-samplers over the group, no MASK left)."""
+at JAX's mesh of (1, 2) with a global batch of 2 (fresh interpreters: one
+Stage-2 train step with the denoiser split over the model axis, both
+sharded samplers over the data group, a model group's weights and tokens
+equal, no MASK left)."""
 
 import subprocess
 import sys
@@ -30,7 +32,8 @@ def test_entry_tiny_on_cpu():
 
 def test_dryrun_multichip_two_ranks_gloo(capfd):
     dryrun.dryrun_multichip(2, device="cpu")
-    assert "dryrun_multichip OK: 2 rank(s) on cpu (gloo), batch 4" in capfd.readouterr().out
+    assert ("dryrun_multichip OK: mesh (1, 2) of 2 rank(s) on cpu (gloo), batch 2"
+            in capfd.readouterr().out)
 
 
 def test_entry_points_refuse_a_missing_card():

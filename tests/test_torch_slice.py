@@ -372,9 +372,10 @@ def test_import_does_not_load_jax():
     pipeline's, the data-parallel layer's, the evaluation's (its models
     and tools), the AR baseline's (its models and tools), the
     user-facing tools (generate, serve, bench_serve, extract_text_features,
-    check_artifacts) and the long tail (classifier training, the CLIP vision
-    tower, vis_codebook, run_parity_gate, dryrun) included, import without
-    JAX; the CLIP tokenizer without ``regex``."""
+    check_artifacts), the long tail (classifier training, the CLIP vision
+    tower, vis_codebook, run_parity_gate, dryrun) and the model axis (the
+    mesh, the Megatron sharding, utils/misc) included, import without JAX;
+    the CLIP tokenizer without ``regex``."""
     mods = ["text_to_sound_synthesis_torch", "text_to_sound_synthesis_torch.models.diffsound",
             "text_to_sound_synthesis_torch.models.diffusion.int8_runtime",
             "text_to_sound_synthesis_torch.models.diffusion.calibrate",
@@ -439,7 +440,10 @@ def test_import_does_not_load_jax():
             "text_to_sound_synthesis_torch.models.clip.vision_model",
             "text_to_sound_synthesis_torch.tools.vis_codebook",
             "text_to_sound_synthesis_torch.tools.run_parity_gate",
-            "text_to_sound_synthesis_torch.tools.dryrun"]
+            "text_to_sound_synthesis_torch.tools.dryrun",
+            "text_to_sound_synthesis_torch.parallel.mesh",
+            "text_to_sound_synthesis_torch.parallel.sharding",
+            "text_to_sound_synthesis_torch.utils.misc"]
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'flax', 'orbax', 'text_to_sound_synthesis_tpu', 'regex') "
             "if m in sys.modules]; "

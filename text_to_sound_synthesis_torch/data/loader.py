@@ -211,11 +211,29 @@ def _accepts_rng(ds) -> bool:
         return False
 
 
-def build_dataloader(config: Mapping[str, Any], *, seed: int = 0) -> dict:
+def build_dataloader(config: Mapping[str, Any], *, seed: int = 0, mesh=None) -> dict:
     """Reference-schema entry: returns {'train_loader', 'validation_loader',
-    'train_iterations', 'validation_iterations'} (build.py:404-473)."""
+    'train_iterations', 'validation_iterations'} (build.py:404-473).
+
+    The config's ``batch_size`` is the global batch, as in the JAX package:
+    each data rank of ``mesh`` (``parallel.mesh``) loads batch / data
+    samples from its 1/data shard, so a step's ranks together take the
+    batch. Without a mesh the data ranks are the largest count of ranks that
+    divides the batch (``make_data_mesh_for_batch``'s), rank order; a rank
+    left over gets rank 0's shard and takes no step."""
+    from ..parallel.distributed import get_rank, get_world_size
+    from ..parallel.mesh import batch_ranks
+
     dl_cfg = config["dataloader"]
-    batch_size = int(dl_cfg.get("batch_size", 1))
+    global_batch = int(dl_cfg.get("batch_size", 1))
+    if mesh is None:
+        data = batch_ranks(global_batch, get_world_size())
+        index = get_rank() if get_rank() < data else 0
+    else:
+        data, index = mesh.data, mesh.data_index
+    if global_batch % data:
+        raise ValueError(f"global batch {global_batch} is not a multiple of {data} data ranks")
+    batch_size = global_batch // data
     num_workers = int(dl_cfg.get("num_workers", 0))
 
     def make(split_key: str, shuffle: bool):
@@ -224,8 +242,8 @@ def build_dataloader(config: Mapping[str, Any], *, seed: int = 0) -> dict:
             return None
         datasets = [instantiate_from_config(c) for c in ds_cfgs]
         ds = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
-        return ShardedLoader(ds, batch_size, shuffle=shuffle, seed=seed,
-                             num_workers=num_workers)
+        return ShardedLoader(ds, batch_size, shuffle=shuffle, seed=seed, num_shards=data,
+                             shard_index=index, num_workers=num_workers)
 
     train = make("train_datasets", True)
     val = make("validation_datasets", False)

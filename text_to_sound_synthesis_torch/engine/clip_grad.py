@@ -12,7 +12,7 @@ the device; the norm and the scale stay on the device.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -21,13 +21,28 @@ from ..utils.config import register
 __all__ = ["ClipGradNorm", "clip_by_global_norm"]
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
-                        active: bool) -> torch.Tensor:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, active: bool, *,
+                        sharded: Optional[Sequence[bool]] = None,
+                        reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """Scale ``grads`` in place by min(1, max_norm / (norm + 1e-6)) when
-    ``active``; return the global norm sqrt(sum g^2) (a device scalar)."""
+    ``active``; return the global norm sqrt(sum g^2) (a device scalar).
+
+    On a model axis (``sharding.py``) ``sharded`` marks the gradients that
+    are a rank's slices and ``reduce`` sums a tensor over the model group in
+    place: the norm is then the whole model's, the slices' squared norms
+    summed over the group plus the replicated gradients' once."""
     if not grads:
         raise ValueError("no gradients to clip")
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    if sharded is None:
+        gnorm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(list(sharded), dtype=torch.bool, device=norms.device)
+        sq = norms.square()
+        zero = torch.zeros_like(sq)
+        split = reduce(torch.where(mask, sq, zero).sum().reshape(1))   # no wait for the device
+        gnorm = torch.sqrt(split[0] + torch.where(mask, zero, sq).sum())
     if active:
         torch._foreach_mul_(list(grads), torch.clamp(max_norm / (gnorm + 1e-6), max=1.0))
     return gnorm
@@ -51,6 +66,8 @@ class ClipGradNorm:
             on = on or iteration < self.end_iteration
         return on
 
-    def __call__(self, grads: Sequence[torch.Tensor], iteration: int) -> torch.Tensor:
-        """Clip ``grads`` in place at step ``iteration``; returns the global norm."""
-        return clip_by_global_norm(grads, self.max_norm, self.active(iteration))
+    def __call__(self, grads: Sequence[torch.Tensor], iteration: int, **model_axis) -> torch.Tensor:
+        """Clip ``grads`` in place at step ``iteration``; returns the global
+        norm. ``model_axis``: ``clip_by_global_norm``'s ``sharded`` and
+        ``reduce``."""
+        return clip_by_global_norm(grads, self.max_norm, self.active(iteration), **model_axis)

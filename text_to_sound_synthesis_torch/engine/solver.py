@@ -9,8 +9,14 @@ weights, epoch checkpoints in ping-pong slots with auto-resume, validation
 on the EMA weights with the best checkpoints kept, and the per-timestep
 accuracy EMAs (``diffusion_acc_list`` / ``diffusion_keep_list``).
 
-One process per card (``torchrun``): the denoiser under DDP when the process
-is in a group, each rank on its own shard of the data. Each step's metrics
+One process per card (``torchrun``). The config's ``batch_size`` is the
+global batch, as in the JAX package's Solver: the ranks form the data mesh
+of that batch (``parallel.mesh.make_data_mesh_for_batch``: the largest rank
+count that divides it, the others idle with a warning), each data rank
+loads its share from its shard of the data, and the denoiser runs under DDP
+over the data group. ``profile_dir`` in the solver block traces iterations
+10-15 on the primary rank with ``torch.profiler`` into a Chrome trace there,
+as the JAX Solver traces them with ``jax.profiler``. Each step's metrics
 are read on the host at the start of the next iteration, after that step was
 queued, so the host never waits on the step it has just queued: the scheduler
 sees a one-step-stale loss, as in the JAX package's loop.
@@ -31,6 +37,7 @@ import torch.distributed as dist
 
 from ..parallel.distributed import (all_gather_cat, fold_seed, get_rank, get_world_size,
                                     wrap_ddp)
+from ..parallel.mesh import join_idle, make_data_mesh_for_batch
 from ..utils.config import instantiate_from_config
 from ..utils.io import write_wav
 from .checkpoint import (checkpoint_path, latest_checkpoint, load_checkpoint,
@@ -39,17 +46,37 @@ from .logger import Logger
 from .optimizers import build_optimizer
 from .train_state import DiffusionTrainState, make_train_step
 
-__all__ = ["Solver"]
+__all__ = ["Solver", "base_learning_rate"]
+
+
+def base_learning_rate(solver_cfg: Mapping[str, Any], batch_size: int, world_size: int) -> float:
+    """The lr policy (solver_spec.py:69-79) as the JAX Solver applies it:
+    ``base_lr`` scaled by none / sqrt / linear of ``world_size`` x the
+    config's (global) ``batch_size``, the world counting every rank as
+    ``jax.device_count()`` counts every device."""
+    base_lr = float(solver_cfg.get("base_lr", 3e-6))
+    adjust = solver_cfg.get("adjust_lr", "none")
+    world_batch = batch_size * world_size
+    if adjust == "none":
+        return base_lr
+    if adjust == "sqrt":
+        return base_lr * math.sqrt(world_batch)
+    if adjust == "linear":
+        return base_lr * world_batch
+    raise NotImplementedError(f"adjust_lr {adjust!r}")
 
 
 class Solver:
     def __init__(self, config: Mapping[str, Any], model, dataloader: Mapping[str, Any],
-                 logger: Logger, *, seed: int = 0):
+                 logger: Logger, *, mesh=None, seed: int = 0):
         """``model``: the port's ``Diffsound`` on its training device (the
         card, or the CPU when the caller put it there). ``dataloader``:
         {'train_loader', 'train_iterations', 'validation_loader' (optional)},
-        as ``data.build_dataloader`` returns it. The training generator is
-        seeded ``fold_seed(seed + 1, rank)``; validation and sampling draw
+        as ``data.build_dataloader(config, mesh=mesh)`` returns it: a data
+        rank's share of each global batch. ``mesh``: the data mesh of the
+        config's global batch (``make_data_mesh_for_batch`` by default); the
+        Solver trains on a data axis only. The training generator is seeded
+        ``fold_seed(seed + 1, data index)``; validation and sampling draw
         from generators of their own (``_side_generator``)."""
         self.config = dict(config)
         solver_cfg = self.config["solver"]
@@ -58,6 +85,11 @@ class Solver:
         self.dataloader = dataloader
         self.logger = logger
         self.rank, self.world = get_rank(), get_world_size()
+        bs = int(self.config.get("dataloader", {}).get("batch_size", 1))
+        self.mesh = make_data_mesh_for_batch(bs) if mesh is None else mesh
+        if self.mesh.model != 1:
+            raise ValueError("the Solver trains on a data axis only (model axis "
+                             f"{self.mesh.model}); the dry run splits the denoiser")
         self.max_epochs = int(solver_cfg["max_epochs"])
         self.save_epochs = int(solver_cfg.get("save_epochs", 30))
         self.validation_epochs = int(solver_cfg.get("validation_epochs", 400))
@@ -65,18 +97,7 @@ class Solver:
         if self.sample_iterations == "epoch":
             self.sample_iterations = int(dataloader.get("train_iterations", 1))
 
-        # lr policy (solver_spec.py:69-79); the config's batch is per rank
-        base_lr = float(solver_cfg.get("base_lr", 3e-6))
-        adjust = solver_cfg.get("adjust_lr", "none")
-        world_batch = int(self.config.get("dataloader", {}).get("batch_size", 1)) * self.world
-        if adjust == "none":
-            self.base_lr = base_lr
-        elif adjust == "sqrt":
-            self.base_lr = base_lr * math.sqrt(world_batch)
-        elif adjust == "linear":
-            self.base_lr = base_lr * world_batch
-        else:
-            raise NotImplementedError(f"adjust_lr {adjust!r}")
+        self.base_lr = base_learning_rate(solver_cfg, bs, self.world)
 
         # the first optimizer / scheduler entry (the reference's epoch-gated
         # list has one entry in every released config)
@@ -99,11 +120,13 @@ class Solver:
 
         T = model.diffusion.diffusion_step
         self.state = DiffusionTrainState.create(denoiser, optimizer, T, with_ema=bool(ema_cfg))
-        self.ddp = wrap_ddp(denoiser, self.device) if dist.is_initialized() else None
+        self.ddp = (wrap_ddp(denoiser, self.device, self.mesh.data_group)
+                    if dist.is_initialized() and self.mesh.active else None)
         self.train_step = make_train_step(model, self.clip_grad, self.ema_decay,
-                                          self.ema_interval, ddp=self.ddp)
+                                          self.ema_interval, ddp=self.ddp, mesh=self.mesh)
         self.seed = seed
-        self.generator = torch.Generator(self.device).manual_seed(fold_seed(seed + 1, self.rank))
+        self.generator = torch.Generator(self.device).manual_seed(
+            fold_seed(seed + 1, self.mesh.data_index))
 
         self.last_epoch = -1
         # per-timestep accuracy EMAs (diffusion_transformer.py:221-222, 427-436)
@@ -123,14 +146,17 @@ class Solver:
         # best-checkpoint tracking (PL ModelCheckpoint top-k analogue)
         self.save_top_k = int(solver_cfg.get("save_top_k", 3))
         self._best: list = []   # [(val_loss, name)] ascending
+        # the profiler hook (the reference has none)
+        self.profile_dir = solver_cfg.get("profile_dir")
+        self._profiler = None
 
     # -- checkpointing -------------------------------------------------------
 
     def _payload(self, epoch: int) -> dict:
         states = [self.generator.get_state()]
-        if dist.is_initialized() and self.world > 1:
-            states = [None] * self.world
-            dist.all_gather_object(states, self.generator.get_state())
+        if dist.is_initialized() and self.mesh.data > 1:
+            states = [None] * self.mesh.data
+            dist.all_gather_object(states, self.generator.get_state(), group=self.mesh.data_group)
         return train_payload(
             self.model, self.state, last_epoch=epoch, scheduler=self.scheduler,
             scheduler_name=self.op_sc_name, step_iteration=self.scheduler_step_iteration,
@@ -143,7 +169,9 @@ class Solver:
         epoch's parity, so the newest whole checkpoint is never the one being
         overwritten, and a tagged copy every ``save_epochs`` epochs. Every
         rank takes part (the generators' states are gathered); the primary
-        writes."""
+        writes. Idle ranks (outside the mesh) take no part."""
+        if not self.mesh.active:
+            return
         payload = self._payload(epoch)
         if not self.logger.is_primary:
             return
@@ -170,8 +198,8 @@ class Solver:
         host = restore_train_state(load_checkpoint(path), self.model, self.state,
                                    scheduler=self.scheduler)
         states = host["generator_states"]
-        if states is not None and len(states) == self.world:
-            self.generator.set_state(states[self.rank])
+        if states is not None and len(states) == self.mesh.data:
+            self.generator.set_state(states[self.mesh.data_index])
         elif states is not None:
             self.logger.log_info(f"checkpoint made by {len(states)} ranks, resumed by "
                                  f"{self.world}: the generators start afresh")
@@ -195,7 +223,7 @@ class Solver:
         sampling (3, the iteration), seeded from (seed, purpose, n, rank)
         alone: the training generator's stream never depends on them, so a
         resumed run draws what the uninterrupted one drew."""
-        seed = fold_seed(fold_seed(self.seed + purpose, n), self.rank)
+        seed = fold_seed(fold_seed(self.seed + purpose, n), self.mesh.data_index)
         return torch.Generator(self.device).manual_seed(seed)
 
     @contextmanager
@@ -262,6 +290,32 @@ class Solver:
         return {key: torch.from_numpy(np.ascontiguousarray(mel)).to(self.device),
                 "condition_token": torch.as_tensor(tokens, dtype=torch.long).to(self.device)}
 
+    def _maybe_profile(self, it: int) -> None:
+        """Trace iterations 10-15 on the primary into ``profile_dir``: the
+        trace starts once step 10 is queued and ends once step 15 is, and is
+        written there as ``trace_it10-15.json`` (Chrome's trace format)."""
+        if not self.profile_dir or not self.logger.is_primary:
+            return
+        if it == 10 and self._profiler is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.start()
+            self.logger.log_info(f"profiler trace started -> {self.profile_dir}")
+        elif it >= 15 and self._profiler is not None:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, "trace_it10-15.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        self.logger.log_info(f"profiler trace stopped: {path}")
+
     def train_epoch(self, epoch: int, log_frequency: int = 100) -> float:
         """One pass over the train loader; returns the last consumed loss.
         The host reads each step's metrics after queuing the next step (module
@@ -297,6 +351,7 @@ class Solver:
                 consume(*pending)
             pending = (i, metrics)
             it = self.state.step
+            self._maybe_profile(it)
             if self.sample_iterations and it % max(1, int(self.sample_iterations)) == 0:
                 try:
                     self.sample()
@@ -340,7 +395,7 @@ class Solver:
             return None
         val = torch.stack(losses).mean()
         if dist.is_initialized():
-            val = all_gather_cat(val.reshape(1)).mean()
+            val = all_gather_cat(val.reshape(1), self.mesh.data_group).mean()
         val = float(val)
         self.logger.log_info(f"validation epoch {epoch}: loss {val:.5f}")
         self.logger.add_scalar("val/loss", val, self.state.step)
@@ -374,7 +429,14 @@ class Solver:
         """Epochs from the one after ``last_epoch`` to ``max_epochs``: train,
         save (slots), validate every ``validation_epochs``; at the end
         ``last``. SIGUSR1 saves ``last`` at once (the PL stack's preemption
-        hook)."""
+        hook). A rank left out of the data mesh takes no step and waits for
+        the others at the end."""
+        if not self.mesh.active:
+            self.logger.log_info(f"rank {self.rank} is outside the data mesh "
+                                 f"{self.mesh.shape}: idle until the end")
+            join_idle(self.mesh)
+            return
+
         def _melk(signum, frame):
             self.logger.log_info("SIGUSR1: checkpointing")
             self.save(self.last_epoch, force=True)
@@ -391,4 +453,7 @@ class Solver:
             self.save(epoch, force=False)
             if (epoch + 1) % self.validation_epochs == 0:
                 self.validate_epoch(epoch)
+        if self._profiler is not None:     # the run ended inside the traced window
+            self._stop_profile()
         self.save(self.max_epochs - 1, force=True)
+        join_idle(self.mesh)

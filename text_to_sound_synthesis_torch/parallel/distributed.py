@@ -1,13 +1,11 @@
-"""Data parallelism on ``torch.distributed``: the port's counterpart of
-``text_to_sound_synthesis_tpu/parallel/mesh.py``.
+"""The process group and data parallelism on ``torch.distributed``.
 
 The JAX package runs one SPMD program over a (data, model) device mesh; the
 port runs one process per card (``torchrun``), NCCL between cards, gloo on
-the CPU. The rank and the world size take the mesh's place: each rank trains
-on its own slice of the data (``data/loader.py::ShardedLoader``) and DDP
-averages the denoiser's gradients (``wrap_ddp``). The model axis is 1 in the
-JAX package's every configuration, so its Megatron-style rules
-(``sharding.py``) have no counterpart here.
+the CPU, and lays the ranks out as that grid (``mesh.py``). Each data rank
+trains on its own slice of the data (``data/loader.py::ShardedLoader``) and
+DDP averages the gradients over the data group (``wrap_ddp``); a model axis
+above 1 splits the Stage-2 denoiser (``sharding.py``).
 
 Generation is batch-parallel with no collective but the final gather:
 ``run_sharded`` runs a sampler on each shard of a batch, either on the ranks
@@ -27,7 +25,7 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = ["init_distributed", "get_rank", "get_world_size", "is_primary", "local_device",
-           "wrap_ddp", "all_gather_cat", "all_reduce_mean_", "fold_seed", "replica",
+           "wrap_ddp", "all_gather_cat", "all_reduce_mean_", "same_across", "fold_seed", "replica",
            "run_sharded"]
 
 _MASK64 = (1 << 64) - 1
@@ -82,16 +80,16 @@ def local_device(device="cuda") -> torch.device:
     return device
 
 
-def wrap_ddp(module: nn.Module, device) -> nn.Module:
-    """``module`` under DDP when the process is in a group (of any size),
-    else ``module`` itself. Only the trainable denoiser goes in: DDP refuses
-    parameters that take no gradient, and the frozen codec and text tower
-    take none."""
+def wrap_ddp(module: nn.Module, device, group=None) -> nn.Module:
+    """``module`` under DDP over ``group`` (the default group; a mesh's data
+    group) when the process is in a group (of any size), else ``module``
+    itself. Only the trainable denoiser goes in: DDP refuses parameters that
+    take no gradient, and the frozen codec and text tower take none."""
     if not dist.is_initialized():
         return module
     device = torch.device(device)
     ids = [device.index] if device.type == "cuda" else None
-    return nn.parallel.DistributedDataParallel(module, device_ids=ids)
+    return nn.parallel.DistributedDataParallel(module, device_ids=ids, process_group=group)
 
 
 def all_gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -99,6 +97,14 @@ def all_gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def same_across(x: torch.Tensor, group=None) -> bool:
+    """Whether ``x`` (equal shapes) is bit for bit the same on every rank of
+    ``group``: a check that ranks meant to agree do."""
+    parts = [torch.empty_like(x) for _ in range(get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return all(torch.equal(p, parts[0]) for p in parts)
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:

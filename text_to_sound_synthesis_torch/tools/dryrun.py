@@ -1,5 +1,5 @@
 """Dry-run entry points of the port: a one-card compile check and a
-multi-process data-parallel dry run.
+multi-process dry run over a (data, model) mesh.
 
     python -m text_to_sound_synthesis_torch.tools.dryrun [N] [--device cuda|cpu]
 
@@ -14,22 +14,28 @@ geometry instead (a CPU check).
 
 ``dryrun_multichip(n, device="cuda")`` starts ``n`` processes, one a card
 (NCCL; gloo with ``device="cpu"``, all on the host), in a group at
-``tcp://localhost:<free port>``. Each runs one whole Stage-2 train step of a
-small denoiser with the denoiser under DDP, on its share of a global batch
-of 2n: the timestep importance sampler, the VLB loss, the OR-ed gradient
-clip, AdamW, the ``Lt`` update on every rank's timesteps and losses; then
-both data-parallel samplers over the group, the fused one
-(``sample_tokens_fused_sharded``, K1 on a card) and the int8 serving
-engine's (``sample_tokens_int8_sharded``, W8A8 with dynamic scales, its block
-kernels on a card), from a bf16 copy of the trained denoiser. It checks the
-loss is finite, the tokens' shapes, that every token is a code and that no
-MASK is left; any failure in a rank fails the run.
+``tcp://localhost:<free port>``, laid out as JAX's mesh: (n/2, 2) when n is
+even and above 1, else (n, 1) (``parallel.mesh.make_mesh``), with a global
+batch of 2 x (n / model). Each rank runs one whole Stage-2 train step of a
+small denoiser on its data row's share of the batch: the denoiser split
+over the model axis (Megatron, ``parallel.sharding.MegatronText2Spec``) and
+under DDP over the data group, the timestep importance sampler and the
+q-sample noise drawn from a generator seeded by the data index (so a model
+group draws alike), the VLB loss, the OR-ed gradient clip (the whole
+model's norm), AdamW with the kernel-only decay mask, the ``Lt`` update on
+the data group's timesteps and losses. Then ``gather_state_dict`` gives the
+whole weights, and both data-parallel samplers run over the data group from
+a bf16 copy: the fused one (``sample_tokens_fused_sharded``, K1 on a card)
+and the int8 serving engine's (``sample_tokens_int8_sharded``, W8A8 with
+dynamic scales, its block kernels on a card). It checks the loss is finite,
+``Lt_count`` sums to the global batch, the ranks of a model group hold the
+same replicated weights after the step and draw the same tokens bit for
+bit, and JAX's token checks: the shapes, every token a code, no MASK left.
+Any failure in a rank fails the run.
 
-The JAX dry run also splits the denoiser's kernels over a model axis of 2
-(Megatron); the port has no model axis: every configuration runs it at 1,
-and the flagship fits one card, so DDP over the data is the whole of the
-port's parallelism. The small geometry is the JAX dry run's, widened so
-that the serving kernels take it (d128, 2 heads of 64, a condition of 64).
+The small geometry is the JAX dry run's, widened so that the serving
+kernels take it (d128, 2 heads of 64, a condition of 64): at a model axis
+of 2 each rank holds one head.
 """
 
 from __future__ import annotations
@@ -110,11 +116,12 @@ def _rank(rank: int, world: int, port: int, device_type: str, errors) -> None:
     try:
         from ..engine.clip_grad import ClipGradNorm
         from ..engine.optimizers import build_optimizer
+        from ..engine.train_state import DiffusionTrainState, make_train_step
         from ..models.diffusion.int8_runtime import quantize_denoiser, sample_tokens_int8_sharded
-        from ..models.diffusion.process import (TimestepSamplerState, sample_timesteps,
-                                                sample_tokens_fused_sharded,
-                                                update_timestep_state)
-        from ..parallel.distributed import all_gather_cat, init_distributed, wrap_ddp
+        from ..models.diffusion.process import sample_tokens_fused_sharded
+        from ..parallel.distributed import init_distributed, same_across, wrap_ddp
+        from ..parallel.mesh import make_mesh, shard_batch
+        from ..parallel.sharding import megatron_denoiser
 
         torch.set_num_threads(1)
         device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
@@ -122,57 +129,58 @@ def _rank(rank: int, world: int, port: int, device_type: str, errors) -> None:
             torch.cuda.set_device(device)
         init_distributed(device, init_method=f"tcp://localhost:{port}", rank=rank,
                          world_size=world)
+        mesh = make_mesh(model=2 if world % 2 == 0 and world > 1 else 1)
         model = build_diffusion(True, device)
-        den = model.transformer
-        ddp = wrap_ddp(den, device)
         T, L, K = model.diffusion_step, model.content_seq_len, model.num_classes
-        B = 2               # a rank's share of the global batch of 2 n
+        B = 2 * mesh.data           # the global batch, JAX's 2 * (n // model)
         rng = np.random.default_rng(0)
-        x0 = torch.from_numpy(rng.integers(0, K - 1, (B * world, L)))[rank * B:(rank + 1) * B]
-        cond = torch.from_numpy(rng.standard_normal((B * world, TINY_COND, TINY["condition_dim"]))
-                                .astype(np.float32))[rank * B:(rank + 1) * B]
-        x0, cond = x0.to(device), cond.to(device)
+        batch = {"x0": torch.from_numpy(rng.integers(0, K - 1, (B, L))).to(device),
+                 "cond": torch.from_numpy(rng.standard_normal((B, TINY_COND, TINY["condition_dim"]))
+                                          .astype(np.float32)).to(device)}
 
-        # one Stage-2 train step (engine/train_state.py's, on tokens and features)
-        lt = TimestepSamplerState.create(T, device)
+        # one Stage-2 train step: the denoiser split over the model axis, DDP over the data axis
+        den = megatron_denoiser(model.transformer, mesh)
         optimizer = build_optimizer({"target": "adamw", "params": {"weight_decay": 0.045}}, den,
                                     1e-4)
-        clip = ClipGradNorm(0, 5000, 0.5)
-        generator = torch.Generator(device).manual_seed(1 + rank)
-        t, pt = sample_timesteps(lt, B, generator=generator)
-        optimizer.zero_grad(set_to_none=True)
-        out = model.train_loss(x0, cond, t, pt, generator=generator, denoiser=ddp)
-        out.loss.backward()
-        params = list(den.parameters())
-        clip([p.grad for p in params], 0)
-        optimizer.step()
-        cols = all_gather_cat(torch.stack([t.float(), out.kl_loss.detach(),
-                                           out.loss.detach().expand(B)], dim=1))
-        lt = update_timestep_state(lt, cols[:, 0].long(), cols[:, 1])
-        loss = float(cols[::B, 2].mean())
-        if not np.isfinite(loss) or int(lt.Lt_count.sum()) != B * world:
-            raise AssertionError(f"loss {loss}, visits {lt.Lt_count.tolist()}")
+        state = DiffusionTrainState.create(den, optimizer, T, with_ema=False)
+        step = make_train_step(model, ClipGradNorm(0, 5000, 0.5),
+                               ddp=wrap_ddp(den, device, mesh.data_group), mesh=mesh)
+        generator = torch.Generator(device).manual_seed(1 + mesh.data_index)
+        state, metrics = step(state, shard_batch(batch, mesh), 1e-4, generator=generator)
+        loss = float(metrics.loss)
+        if not np.isfinite(loss) or int(state.lt.Lt_count.sum()) != B:
+            raise AssertionError(f"loss {loss}, visits {state.lt.Lt_count.tolist()}")
+        if mesh.model > 1:
+            replicated = [p.detach().reshape(-1) for n, p in den.named_parameters()
+                          if n not in den.split_dims]
+            if not same_across(torch.cat(replicated), mesh.model_group):
+                raise AssertionError("a model group's replicated weights differ after the step")
+            whole = den.full_state_dict()
+        else:
+            whole = den.state_dict()
 
-        # both data-parallel samplers over the group, from a bf16 copy
-        serve = copy.deepcopy(model).to(torch.bfloat16).eval()
-        cond_gen = torch.from_numpy(rng.standard_normal((B * world, TINY_COND,
-                                                         TINY["condition_dim"]))
+        # both data-parallel samplers over the data group, from the whole weights in bf16
+        serve = copy.deepcopy(model)
+        serve.transformer.load_state_dict(whole)
+        serve = serve.to(torch.bfloat16).eval()
+        cond_gen = torch.from_numpy(rng.standard_normal((B, TINY_COND, TINY["condition_dim"]))
                                     .astype(np.float32)).to(device, torch.bfloat16)
-        group = dist.group.WORLD
         with torch.no_grad():
-            toks_fp = sample_tokens_fused_sharded(serve, cond_gen, seed=2, group=group,
+            toks_fp = sample_tokens_fused_sharded(serve, cond_gen, seed=2, group=mesh.data_group,
                                                   truncation_r=0.85, skip_step=2)
             qp = quantize_denoiser(serve, n_head=TINY["n_head"], seq_len=L, num_timesteps=T)
             toks_q = sample_tokens_int8_sharded(qp, serve.schedule(device), cond_gen, seed=3,
-                                                group=group, truncation_r=0.85)
+                                                group=mesh.data_group, truncation_r=0.85)
         for name, toks in (("fused", toks_fp), ("int8", toks_q)):
-            if tuple(toks.shape) != (B * world, L):
+            if tuple(toks.shape) != (B, L):
                 raise AssertionError(f"{name}: tokens {tuple(toks.shape)}")
             if not bool(((toks >= 0) & (toks < K - 1)).all()):
                 raise AssertionError(f"{name}: a token outside the codes (MASK is {K - 1})")
+            if mesh.model > 1 and not same_across(toks, mesh.model_group):
+                raise AssertionError(f"{name}: a model group's tokens differ")
         if rank == 0:
-            print(f"dryrun_multichip OK: {world} rank(s) on {device_type} "
-                  f"({dist.get_backend()}), batch {B * world}, loss {loss:.4f}, "
+            print(f"dryrun_multichip OK: mesh {mesh.shape} of {world} rank(s) on {device_type} "
+                  f"({dist.get_backend()}), batch {B}, loss {loss:.4f}, "
                   f"sampling (fused + int8) OK", flush=True)
         dist.barrier()
         dist.destroy_process_group()
@@ -188,8 +196,8 @@ def _free_port() -> int:
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """One data-parallel train step and both sharded samplers on ``n_devices``
-    processes (module docstring); raises if any rank fails."""
+    """One train step on JAX's (data, model) mesh and both sharded samplers
+    on ``n_devices`` processes (module docstring); raises if any rank fails."""
     import torch.multiprocessing as mp
 
     device_type = torch.device(device).type

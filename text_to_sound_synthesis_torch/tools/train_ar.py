@@ -15,10 +15,13 @@ frozen, next-token cross entropy on the codec's tokens of each batch's
 ``base_learning_rate``, the JAX tool's rule with its device count. The
 config's ``batch_size`` is the global batch, as the JAX tool shards it over
 its devices: under ``torchrun`` each of the N processes takes its card
-(``LOCAL_RANK``), joins the NCCL group (gloo with ``--device cpu``), loads
-batch / N of each step's samples from its slice of the data and runs the
-GPT under DDP, which averages the gradients, so a step is the step on the
-whole batch; the frozen codec stays outside DDP. The config's
+(``LOCAL_RANK``) and joins the NCCL group (gloo with ``--device cpu``); the
+ranks form the batch's data mesh (``parallel.mesh.make_data_mesh_for_batch``:
+the largest count n <= N that divides it; the others idle, with a warning,
+as JAX idles its devices), each data rank loads batch / n of each step's
+samples from its slice of the data and runs the GPT under DDP over the data
+group, which averages the gradients, so a step is the step on the whole
+batch; the frozen codec stays outside DDP. The config's
 ``model.params.dtype`` (e.g. ``bfloat16``) is the compute dtype, f32 by
 default (``models/gpt/net2net.py``). The weights start from the JAX package's initialisers, seeded by
 ``--seed``; ``--codec`` names the trained codec, a torch ``.ckpt`` / ``.pth``
@@ -118,8 +121,9 @@ def main(argv=None) -> int:
     from ..data.loader import build_dataloader
     from ..engine.checkpoint import save_checkpoint
     from ..engine.logger import Logger
-    from ..parallel.distributed import (get_rank, get_world_size, init_distributed,
-                                        is_primary, local_device, wrap_ddp)
+    from ..parallel.distributed import (get_world_size, init_distributed, is_primary,
+                                        local_device, wrap_ddp)
+    from ..parallel.mesh import join_idle, make_data_mesh_for_batch
     from ..utils.config import load_yaml_config, merge_opts_to_config
     from .train_vqgan import to_nhwc
 
@@ -132,22 +136,20 @@ def main(argv=None) -> int:
         logger.save_config(config)
         model = build_model(config, device, args.seed, args.codec)
         model.gpt.train()
-        gpt = wrap_ddp(model.gpt, device)
         world = get_world_size()
         bs = int(config["dataloader"]["batch_size"])
-        if bs % world:
-            raise ValueError(f"batch_size {bs} must be a multiple of the world size {world}")
+        mesh = make_data_mesh_for_batch(bs)
+        gpt = wrap_ddp(model.gpt, device, mesh.data_group) if mesh.active else model.gpt
         base_lr = float(config["model"].get("base_learning_rate", 1e-6))
         lr = learning_rate(config, world)
         logger.log_info(f"lr = {world} x {bs} x {base_lr} = {lr:.2e} on {device}, "
-                        f"{bs // world} samples a rank")
+                        f"{mesh.local_batch(bs)} samples a rank")
         optimizer = build_optimizer(model, lr)
-        # pkeep's corruption, a stream a rank
-        generator = torch.Generator(device).manual_seed(args.seed + 1 + get_rank())
+        # pkeep's corruption, a stream a data rank
+        generator = torch.Generator(device).manual_seed(args.seed + 1 + mesh.data_index)
 
-        config["dataloader"]["batch_size"] = bs // world    # this rank's share
-        loader = build_dataloader(config, seed=args.seed)["train_loader"]
-        max_steps = args.max_steps or 10 ** 9
+        loader = build_dataloader(config, seed=args.seed, mesh=mesh)["train_loader"]
+        max_steps = (args.max_steps or 10 ** 9) if mesh.active else 0   # idle: no step
         it = epoch = 0
         while it < max_steps:
             loader.set_epoch(epoch)
@@ -165,6 +167,7 @@ def main(argv=None) -> int:
             if is_primary():
                 save_checkpoint(os.path.join(logger.ckpt_dir, "last.ckpt"),
                                 checkpoint_payload(model, optimizer, epoch, it))
+        join_idle(mesh)
         logger.log_info("done")
         logger.close()
     finally:

@@ -9,10 +9,14 @@
 The port of ``tools/train_diffsound.py`` (reference ``Diffsound/train_spec.py``),
 with its flags; the trailing ``key value`` pairs override the config. One
 process per card: under ``torchrun`` each process joins the NCCL group and
-takes the card ``LOCAL_RANK`` names (``parallel.init_distributed``), and
-the config's ``batch_size`` is per card. ``--device`` defaults to the card
-and refuses to run without one; ``--device cpu`` trains on the CPU (gloo
-between processes).
+takes the card ``LOCAL_RANK`` names (``parallel.init_distributed``). The
+config's ``batch_size`` is the global batch, as the JAX tool's: the Solver
+lays the ranks out as its data mesh (``parallel.mesh.make_data_mesh_for_batch``:
+the largest rank count that divides it; the others idle, with a warning),
+each data rank loads batch / data samples a step (``build_dataloader``), and
+the lr policy scales by the world size x that batch. ``--device`` defaults
+to the card and refuses to run without one; ``--device cpu`` trains on the
+CPU (gloo between processes).
 
 ``--load_path`` warm-starts from a released reference ``.pth`` (the EMA
 weights of the denoiser where the file has them, as the JAX tool does)

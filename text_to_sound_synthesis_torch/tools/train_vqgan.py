@@ -8,13 +8,17 @@
 The port of ``tools/train_vqgan.py`` (reference ``Codebook/train.py``): the
 config's codec, its lossconfig's PatchGAN and loss weights, the adversarial
 two-optimizer step (``engine/vqgan_solver.py``) at lr = world size x batch x
-``base_learning_rate`` (the config's batch is per card; train.py:771-782),
-validation (reconstruction L1 and codebook usage) every
+``base_learning_rate`` (train.py:771-782, as the JAX tool counts its
+devices), validation (reconstruction L1 and codebook usage) every
 ``--val_every_epochs``, and checkpoints at each epoch's end (the ping-pong
-slots ``auto_a`` / ``auto_b``) and at the end (``last``). One process per
-card: under ``torchrun`` each rank takes its shard of the data, and the step
-averages the gradients over the ranks and takes the PatchGAN's BatchNorm
-statistics over the global batch.
+slots ``auto_a`` / ``auto_b``) and at the end (``last``). The config's batch
+is the global batch, as the JAX tool shards it: one process per card, the
+ranks laid out as the batch's data mesh
+(``parallel.mesh.make_data_mesh_for_batch``: the largest rank count that
+divides it; the others idle, with a warning), each data rank loading batch /
+data samples a step from its shard of the data; the step averages the
+gradients over the data group and takes the PatchGAN's BatchNorm statistics
+over the global batch.
 
 ``--lpaps`` names a state dict of the whole LPAPS under the reference's
 names (``scaling_layer.*``, ``net.slice*``, ``lin*``); without it the
@@ -54,6 +58,19 @@ def get_args(argv=None):
     p.add_argument("opts", nargs=argparse.REMAINDER,
                    help="config overrides: key value [key value ...]")
     return p.parse_args(argv)
+
+
+def global_batch(config) -> int:
+    """The config's batch (``data.params.batch_size``, else
+    ``dataloader.batch_size``), the global batch."""
+    return int((config.get("data") or {}).get("params", {}).get(
+        "batch_size", (config.get("dataloader") or {}).get("batch_size", 8)))
+
+
+def learning_rate(config, world: int) -> float:
+    """lr = world size x the global batch x ``base_learning_rate``: the JAX
+    tool's rule, its device count the world size."""
+    return world * global_batch(config) * float(config["model"].get("base_learning_rate", 1e-6))
 
 
 def to_nhwc(image) -> "np.ndarray":
@@ -131,6 +148,7 @@ def main(argv=None) -> int:
     from ..models.discriminator import NLayerDiscriminator, init_discriminator_
     from ..models.vqgan.model import VQModel, init_codec_
     from ..parallel.distributed import get_world_size, init_distributed, local_device
+    from ..parallel.mesh import join_idle, make_data_mesh_for_batch
     from ..utils.config import load_yaml_config, merge_opts_to_config
 
     device = local_device(args.device)
@@ -156,15 +174,16 @@ def main(argv=None) -> int:
 
         world = get_world_size()
         base_lr = float(config["model"].get("base_learning_rate", 1e-6))
-        bs = int((config.get("data") or {}).get("params", {}).get(
-            "batch_size", (config.get("dataloader") or {}).get("batch_size", 8)))
-        lr = world * bs * base_lr
-        logger.log_info(f"lr = {world} x {bs} x {base_lr} = {lr:.2e} on {device}")
+        bs = global_batch(config)
+        lr = learning_rate(config, world)
+        mesh = make_data_mesh_for_batch(bs)
+        logger.log_info(f"lr = {world} x {bs} x {base_lr} = {lr:.2e} on {device}, "
+                        f"{mesh.local_batch(bs)} samples a rank of {mesh.data}")
         state = VQGANTrainState.create(codec, disc, lr)
         step = make_vqgan_train_step(lpaps, cfg,
-                                     group=dist.group.WORLD if dist.is_initialized() else None)
+                                     group=mesh.data_group if dist.is_initialized() else None)
 
-        loaders = build_dataloader(config, seed=args.seed)
+        loaders = build_dataloader(config, seed=args.seed, mesh=mesh)
         train_loader = loaders["train_loader"]
         max_steps = args.max_steps or 10 ** 9
         epoch = 0
@@ -194,7 +213,7 @@ def main(argv=None) -> int:
                 logger.add_scalar("val/recon_l1", float(np.mean(l1)), state.step)
                 logger.add_scalar("val/codebook_usage", usage, state.step)
 
-        done = state.step >= max_steps
+        done = state.step >= max_steps or not mesh.active    # an idle rank takes no step
         while not done:
             train_loader.set_epoch(epoch)
             for batch in train_loader:
@@ -221,6 +240,7 @@ def main(argv=None) -> int:
         if logger.is_primary:
             save_checkpoint(os.path.join(logger.ckpt_dir, "last.ckpt"),
                             checkpoint_payload(state, epoch))
+        join_idle(mesh)
         logger.log_info("training done")
         logger.close()
     finally:
