@@ -5,7 +5,10 @@
 
 Phases (any failed check exits nonzero, and no result line is printed):
 
-1. device  — a CUDA card must be present; prints its name and power limit.
+1. device  — a CUDA card must be present; prints its name and power limit;
+             the eight token-grid permuters on ids on the card at their
+             grids (PERMUTER_GRIDS): forward equal to the CPU's, reverse of
+             forward the identity, no kernel launched.
 2. build   — builds every kernel from ``csrc/`` with nvcc, one process per
              source, all at once: K1 (fused_sampler.cu), K3-K9 (int8_block.cu),
              T1-T3 (int8_probe.cu), K2 (fused_head_sample.cu), K10
@@ -104,9 +107,13 @@ Phases (any failed check exits nonzero, and no result line is printed):
              and the 19-layer outputs; tokens may differ only at near-ties
              within the score error of the rows that did not flip,
              ``_tie_band``, a gate that the kernel path under another noise
-             and twice its drift must fail; K4 and K5 with the
+             and twice its drift must fail; that band within BAND_RATIO of
+             a reference band from the plain twins alone, each kernel
+             site's input moved by an ulp on REF_ULP_SHARE of its elements,
+             a ceiling that twice the drift must exceed; K4 and K5 with the
              pair-packed MHA, the default at 16 heads of 64, also against
-             the PAIR_LOOP_SHARE gate, which they fail with the bf16 MHA) -> four batch-8,
+             the PAIR_LOOP_SHARE gate, which they fail with the bf16 MHA),
+             and the three steps again under ``T2S_ATTN_MHA=base`` -> four batch-8,
              100-step ``generate_int8`` requests to a wav, in turns with the
              default switches and under ``T2S_ATTN_MHA=base`` (the bf16 MHA),
              with the same output checks and exact launch counts (K4 = K5 =
@@ -207,7 +214,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
              the earlier phases set), with exact launch counts (K1 = 2 x 3 x 100, K2 = 3 x
              100, K3 = K4 = K5 = 3 x 19 x 100, the pair MHA twice that); its
              gate, the seed floor above 0 and drift_ratio <= 1.5 (the JAX
-             package's), is checked after phase 11's record.
+             package's), is checked after phase 11's record. (f) (e) again
+             under phase 8's switches, ``T2S_ATTN_INT8=1 T2S_ATTN_MHA=base``
+             (K10 in K4 and K5), set for that call only: K10 = 2 x 3 x 19 x
+             100, the pair MHA 0, the other counts (e)'s; (e)'s gate.
 10d. AR   — in full f32 whatever earlier phases set; every kernel count 0
              (the AR baseline and the denoisers reach no Pallas kernel in the
              JAX package). (a) ``configs/ar_audiocaps.yaml``'s flagship
@@ -399,6 +409,22 @@ PAIR_TOL, PAIR_OUTLIERS = 3e-2, 1e-5
 # judged against the kernel path's band. At 2x the drift stays within
 # STEP_REL, so this gate alone has to catch it.
 TIE_QUANTILE, DRIFT_CONTROL = 0.99, 2.0
+# The band comes from the path under test, so a fault that raises every
+# row's error alike widens it as much as the flips. Its ceiling comes from the
+# plain twins alone: the plain path run again with each kernel site's input
+# moved by one bf16 ulp, of a seeded sign, on REF_ULP_SHARE of its elements
+# (``_ulp_nudge``; at a static scale such an ulp can move an int8 value by one
+# step, the divergence the kernel path may show), whose band against the
+# unmoved plain path is the reference band. The kernel path's band, in both
+# components and at every step, must be at most BAND_RATIO times it
+# (``_band_within``); the plain output plus DRIFT_CONTROL times the kernel
+# path's drift, a uniform rise of every row's error, must exceed it. On the
+# H100, at every step of the four loops of phases 6-8 (W4A8 pair MHA, W8
+# per-dense, W8 pair + chunked, W4A8 int8 MHA), the kernel path's band read
+# 0.80-0.96 of the reference band at a share of 1/8 and the control's
+# 1.53-1.90, in both components (0.63-0.92 and 1.23-1.79 at a share of 1/2,
+# 0.53-0.85 and 1.03-1.64 at 1): one ratio parts them with room on each side.
+REF_ULP_SHARE, BAND_RATIO = 0.125, 1.2
 # The quantize pass on Gaussian rows with AdaLN: the f32 LayerNorm sums run
 # in another order than the twin's, so an ulp of the statistics can move a
 # value across a .5 step of the int8 grid: the H100 read 0-3 of 2170880;
@@ -520,6 +546,34 @@ def graph_time_ms(fn, reps: int = 50, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+# each permuter's grid on the card: the codec's (5, 53) token grid, the
+# spirals' even square, Subsample's power-of-two square
+PERMUTER_GRIDS = {"Identity": (5, 53), "ColumnMajor": (5, 53), "ZCurve": (5, 53),
+                  "Random": (5, 53), "AlternateParsing": (5, 53), "SpiralOut": (8, 8),
+                  "SpiralIn": (8, 8), "Subsample": (4, 4)}
+
+
+def phase_permuters(dev):
+    """Phase 1's permuter check (module docstring): each of the eight on a
+    batch of ids on the card, forward equal to the CPU's, reverse the
+    identity; no kernel launched."""
+    from text_to_sound_synthesis_torch.ops import permuter
+
+    reset_counts()
+    for name, (H, W) in PERMUTER_GRIDS.items():
+        p = getattr(permuter, name)(H, W)
+        x = torch.randint(0, 1 << 20, (BATCH, H * W), generator=torch.Generator().manual_seed(SEED))
+        fwd = p(x.to(dev))
+        check(fwd.device == dev and torch.equal(fwd.cpu(), p(x)),
+              f"permuter {name}: the card's forward differs from the CPU's")
+        check(torch.equal(p(fwd, reverse=True).cpu(), x), f"permuter {name}: reverse(forward) "
+              "is not the identity on the card")
+    check(read_counts() == expected_counts(), f"permuters: kernel launches {read_counts()}")
+    grids = ", ".join(f"{k} {h}x{w}" for k, (h, w) in PERMUTER_GRIDS.items())
+    print(f"  the eight permuters on the card ({grids}), batch {BATCH}: forward equal to the "
+          "CPU's, reverse(forward) the identity; no kernel launched")
 
 
 def phase_kernel(fs, dd, dev):
@@ -1885,6 +1939,26 @@ def _tie_band(plain, kern):
     return (float(torch.quantile(err, TIE_QUANTILE)), float(torch.quantile(err_lp, TIE_QUANTILE)))
 
 
+def _ulp_nudge(x, gen):
+    """``x`` with REF_ULP_SHARE of its nonzero finite elements moved by one
+    ulp of its dtype, in magnitude, up or down with even odds (``gen`` draws
+    which and which way)."""
+    if not x.is_floating_point():
+        return x
+    bits = torch.int16 if x.element_size() == 2 else torch.int32
+    u = torch.rand(x.shape, device=x.device, generator=gen)
+    half = REF_ULP_SHARE / 2
+    step = (u < half).to(bits) - ((u >= half) & (u < REF_ULP_SHARE)).to(bits)
+    y = (x.view(bits) + step * ((x != 0) & torch.isfinite(x)).to(bits)).view(x.dtype)
+    return torch.where(torch.isfinite(y), y, x)
+
+
+def _band_within(band, ref_band):
+    """Whether ``band`` (score, log p) lies within BAND_RATIO times the
+    reference band in both components."""
+    return all(b <= BAND_RATIO * r for b, r in zip(band, ref_band))
+
+
 def _flip_rows(plain, path, band):
     """Each row's token flip between the plain path (its token a) and
     ``path`` (its token b), judged against ``band`` (``_tie_band``). A flip
@@ -1927,7 +2001,12 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
     the plain path's margin between the two tokens, or at the nucleus edge
     to the threshold, no larger than the score error the kernel path shows
     on the rows that did not flip (``_tie_band``). Both of the gate's
-    controls must fail it (TIE_QUANTILE). With ``attn="pair"``, K4 and
+    controls must fail it (TIE_QUANTILE). That band is capped by one the
+    kernel path cannot set: the plain path run again with each kernel
+    site's input moved by an ulp on REF_ULP_SHARE of its elements
+    (``_ulp_nudge``) gives the reference band, and the kernel path's must lie
+    within BAND_RATIO of it at every step, where DRIFT_CONTROL times the
+    kernel path's drift must not (``_band_within``). With ``attn="pair"``, K4 and
     K5 are also held, over the three steps together, to PAIR_LOOP_SHARE of
     their outputs more than PAIR_BLOCK_ULPS off, a gate that the same blocks
     with the bf16 MHA, on the same inputs, must fail."""
@@ -1962,6 +2041,11 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
             stats["pair"] = tuple(a + b for a, b in zip(stats["pair"], far))
         return want
 
+    nudge = torch.Generator(dev).manual_seed(SEED + 11)
+
+    def nudged(kernel, plain, args, kw):
+        return plain(_ulp_nudge(args[0], nudge), *args[1:], **kw)
+
     with torch.no_grad():
         kvs = rt.precompute_cond_kvs(qp, model.embed_condition(cond_tokens))
         coeffs = fs.step_coeffs(diff.schedule(dev), t_post).as_array().contiguous()
@@ -1982,9 +2066,14 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
             noisy = (kern[1] - g + other[i].reshape(BATCH * L, K)).argmax(dim=-1).int()
             drift = (xp.float() + DRIFT_CONTROL * (x.float() - xp.float())).to(x.dtype)
             drifted = _step_tail(fs, qp, drift, tokens, coeffs[i], g)
+            xr = rt._embed(qp, tokens.reshape(BATCH, L))
+            for lyr, (ck, cv), mods, ls in zip(qp.layers, kvs, rt._layer_mods(qp, t), act_s):
+                xr = _plain_layer(schedule, qp, rt, xr, lyr, ck, cv, mods, ls, nudged, attn)
+            ref_band = _tie_band(plain, _step_tail(fs, qp, xr, tokens, coeffs[i], g))
             per_step.append((rel(x, xp), _flip_rows(plain, kern, band),
                              _flip_rows(plain, (noisy,) + kern[1:], band),
-                             _flip_rows(plain, drifted, band), rel(drift, xp), band))
+                             _flip_rows(plain, drifted, band), rel(drift, xp), band, ref_band,
+                             _tie_band(plain, drifted)))
             tokens = plain[0]
     rows = BATCH * L
     errs = {k: float(f"{v:.3e}") for k, v in stats["err"].items()}
@@ -2001,6 +2090,14 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
           f"under another noise {[p[2][:2] for p in per_step]}, the plain output plus "
           f"{DRIFT_CONTROL}x the kernel path's drift (relative error "
           f"{[f'{p[4]:.2e}' for p in per_step]}) {[p[3][:2] for p in per_step]}")
+    ratio = lambda b, r: f"{b[0] / r[0]:.3f}, {b[1] / r[1]:.3f}"
+    print(f"  {schedule}, {attn} MHA: band ceiling {BAND_RATIO} x the reference band (the plain "
+          f"twins, each kernel site's input moved by 1 ulp on {REF_ULP_SHARE} of its elements): "
+          f"reference band (score, log p) {[f'{p[6][0]:.3e}, {p[6][1]:.3e}' for p in per_step]}; "
+          f"band / reference: the kernel path {[ratio(p[5], p[6]) for p in per_step]}, the plain "
+          f"output plus {DRIFT_CONTROL}x its drift (band "
+          f"{[f'{p[7][0]:.3e}, {p[7][1]:.3e}' for p in per_step]}) "
+          f"{[ratio(p[7], p[6]) for p in per_step]}")
     check(all(p[0] <= STEP_REL for p in per_step),
           f"serving ({schedule}): kernel steps' backbone outputs disagree with the plain steps'")
     check(all(p[1][1] == 0 for p in per_step),
@@ -2009,6 +2106,10 @@ def check_int8_loop(model, qp, fs, dd, cond_tokens, dev, schedule: str = "blocks
           f"serving ({schedule}): the near-tie gate passes the kernel path under another noise")
     check(sum(p[3][1] for p in per_step) > 0,
           f"serving ({schedule}): the near-tie gate passes {DRIFT_CONTROL}x the kernel path's drift")
+    check(all(_band_within(p[5], p[6]) for p in per_step),
+          f"serving ({schedule}): the kernel path's band exceeds {BAND_RATIO}x the reference band")
+    check(not any(_band_within(p[7], p[6]) for p in per_step),
+          f"serving ({schedule}): the band ceiling passes {DRIFT_CONTROL}x the kernel path's drift")
     if attn == "pair":
         far, ctrl, n = stats["pair"]
         print(f"  K4 / K5 with the pair MHA over the 3 steps: elements more than {PAIR_BLOCK_ULPS} "
@@ -3240,22 +3341,28 @@ def _eval_griffin_lim(mels, dev):
     return secs
 
 
-def _eval_drift(dev):
+def _eval_drift(dev, part: str = "(e)", **env):
     """(e) the drift gate on the flagship's W4A8 static engine (the JAX
-    package's test_w4a8_static_drift_within_reseed_floor protocol)."""
+    package's test_w4a8_static_drift_within_reseed_floor protocol); (f) the
+    same under ``env``, phase 8's switches (K10 in K4 and K5), set for this
+    call only."""
     from text_to_sound_synthesis_torch.tools import eval_int8_drift
 
     reset_counts()
     t0 = time.perf_counter()
-    out = eval_int8_drift.main(DRIFT_ARGS)
+    with switches(**env):
+        out = eval_int8_drift.main(DRIFT_ARGS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
     LN, requests = N_LAYER * N_STEPS, DRIFT_CLIPS // DRIFT_BATCH
+    mha = ({"K10": 2 * requests * LN} if env.get("T2S_ATTN_INT8") == "1"
+           else {"Kp": 2 * requests * LN})
     want = expected_counts(K1=2 * requests * N_STEPS, K2=requests * N_STEPS, K3=requests * LN,
-                           K4=requests * LN, K5=requests * LN, Kp=2 * requests * LN)
-    check(counts == want, f"eval (e): launches {counts}, expected {want}")
-    print(f"  (e) eval_int8_drift {' '.join(DRIFT_ARGS[2:])} (flagship, flax's seeded draws, random "
+                           K4=requests * LN, K5=requests * LN, **mha)
+    check(counts == want, f"eval {part}: launches {counts}, expected {want}")
+    print(f"  {part} eval_int8_drift {' '.join(DRIFT_ARGS[2:])}"
+          f"{''.join(f' {k}={v}' for k, v in env.items())} (flagship, flax's seeded draws, random "
           f"Melception): fid_bf16_vs_int8 {out['fid_bf16_vs_int8']!r}, fid_bf16_seed_floor "
           f"{out['fid_bf16_seed_floor']!r}, drift_ratio {out['drift_ratio']!r} (gate "
           f"{MAX_DRIFT_RATIO}), isc_bf16 {out['isc_bf16']!r}, isc_int8 {out['isc_int8']!r}; "
@@ -3264,12 +3371,13 @@ def _eval_drift(dev):
     return out, secs
 
 
-def check_drift_gate(out):
+def check_drift_gate(out, part: str = "(e)"):
     """(e)'s gate, checked after phase 11 so that a failing gate loses no
     measurement: the floor above 0 and drift_ratio <= MAX_DRIFT_RATIO."""
-    check(out["fid_bf16_seed_floor"] > 0, f"eval (e): the seed floor is {out['fid_bf16_seed_floor']}")
+    check(out["fid_bf16_seed_floor"] > 0,
+          f"eval {part}: the seed floor is {out['fid_bf16_seed_floor']}")
     check(out["drift_ratio"] <= MAX_DRIFT_RATIO,
-          f"eval (e): drift_ratio {out['drift_ratio']} > {MAX_DRIFT_RATIO}")
+          f"eval {part}: drift_ratio {out['drift_ratio']} > {MAX_DRIFT_RATIO}")
 
 
 def phase_eval(model, cond_tokens, dev):
@@ -3285,10 +3393,12 @@ def phase_eval(model, cond_tokens, dev):
     counts = read_counts()
     check(counts == expected_counts(), f"eval (a)-(d): kernel launches {counts}")
     drift, drift_s = _eval_drift(dev)
+    drift_k10, drift_k10_s = _eval_drift(dev, "(f)", T2S_ATTN_INT8="1", T2S_ATTN_MHA="base")
     secs = time.perf_counter() - t0
     print(f"  phase 10c: {secs:.1f} s ((a)-(d) launch no kernel: {expected_counts()})")
     return {"melception_ms": mel_ms, "caption_s": cap_s, "gl_s": gl_s, "drift": drift,
-            "drift_s": drift_s, "seconds": secs}
+            "drift_s": drift_s, "drift_k10": drift_k10, "drift_k10_s": drift_k10_s,
+            "seconds": secs}
 
 
 # -- phase 10d: the AR baseline and the class / unconditional denoisers ------------------
@@ -4768,6 +4878,7 @@ def main() -> int:
     name, card = torch.cuda.get_device_name(0), card_line()
     print(f"[1 device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
+    phase_permuters(dev)
 
     from text_to_sound_synthesis_torch.utils.cuda_build import find_nvcc
 
@@ -4848,6 +4959,8 @@ def main() -> int:
           f"{tuple(round(v, 5) for v in qp.act_scales[0])}")
     check(qp.weight_bits == 4 and len(qp.act_scales) == N_LAYER, "serving: engine not W4 static")
     check_int8_loop(model, qp, fs, dd, cond_tokens, dev, attn="pair")
+    with switches(T2S_ATTN_MHA="base"):
+        check_int8_loop(model, qp, fs, dd, cond_tokens, dev)
     int8_generate = lambda g: model.generate_int8(qp, g, cond_tokens, sample_type="top0.85r",
                                                   return_tokens=True)
     torch.cuda.reset_peak_memory_stats()
@@ -4947,7 +5060,9 @@ def main() -> int:
           f"{ev['melception_ms']:.2f} ms; ACT beam {CAPTION_BEAM} over {CAPTION_MELS} mels "
           f"{ev['caption_s']:.2f} s; griffin_lim {GL_ITERS} steps {1e3 * ev['gl_s']:.1f} ms; the "
           f"drift gate (40 train steps, 3 x {DRIFT_CLIPS} clips, W4A8 static) {ev['drift_s']:.1f} s, "
-          f"drift_ratio {ev['drift']['drift_ratio']!r}; phase 10c {ev['seconds']:.1f} s")
+          f"drift_ratio {ev['drift']['drift_ratio']!r}; with the int8 MHA (K10) "
+          f"{ev['drift_k10_s']:.1f} s, drift_ratio {ev['drift_k10']['drift_ratio']!r}; phase 10c "
+          f"{ev['seconds']:.1f} s")
     print(f"  AR baseline (ar_audiocaps.yaml: GPTFeats 19 x d1024, f32), second request "
           f"(features -> 265 tokens, top-k {AR_TOP_K} -> decode_code -> MelGAN, batch {BATCH}): "
           f"{ar_times[1]:.3f} s = {BATCH / ar_times[1]:.3f} clips/s; its train step, batch "
@@ -5029,6 +5144,7 @@ def main() -> int:
          "bound_ms": bounds[fn][0], "bound_by": bounds[fn][1], "library_ms": library.get(fn)}
         for fn, source, replaces, launches, (err, ms, pms) in rows]}))
     check_drift_gate(ev["drift"])
+    check_drift_gate(ev["drift_k10"], "(f)")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
